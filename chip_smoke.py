@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one CUDA card.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds both CUDA kernels from ``src/repro_torch/csrc``, serves the
-paper's mnist width (d=780, 10 one-vs-rest heads, 16384 SVs) through
-compile -> save/load -> ``SVMEngine`` on the card, with rows scaled just
-out of the Eq 3.11 envelope so the exact fallback (kernel B2) runs beside
-the fast path (kernel B1), holds each kernel against its plain PyTorch
-twin at full width, and times each kernel, its twin and a library call
-beside the least time the card could take.
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+source, all started together) and drives two paths at the paper's mnist
+width (d=780, 10 one-vs-rest heads, 16384 SVs):
+
+1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
+   rows scaled just out of the Eq 3.11 envelope so the exact fallback
+   (kernel B2) runs beside the fast path (kernel B1);
+2. ``compile_model`` over maclaurin, poly2 and dense fourier at f32 and
+   int8 (kernels B1, B3, B4, B5), the winner saved, loaded and served,
+   then each of the six (family, dtype) artifacts served with rows pushed
+   out of the envelope, and a fourier artifact whose held-out verdict
+   failed, which sends every row to B2.
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after. Each kernel is held against its plain PyTorch twin at
+full width, and timed beside its twin, a library call and the least time
+the card could take.
 
 The model is random from a seed, shaped like a trained one so that no
 constant swamps what the checks look at: each head's ``alpha_y`` sums to
 0 (the SVM dual's equality constraint), and ``b`` makes every head score
 0 at z = 0, so the labels follow z.
 
-Output: phase lines, the card line from nvidia-smi, one JSON line of
-kernels, and last ``{"ok": true, "device": {...}}``. Exits non-zero,
-printing no result, on any failed phase, without a card, or without the
-repo's ``src/`` beside it.
+Output: phase lines (each with its seconds), the card line from
+nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
+{...}}``. Exits non-zero, printing no result, on any failed phase,
+without a card, or without the repo's ``src/`` beside it.
 """
 
 from __future__ import annotations
@@ -60,6 +70,18 @@ B1_REL, B1_ABS, B1_ZSQ_REL = 1e-4, 1e-5, 1e-5
 B2_TWIN, B2_ABS = 4.0, 1e-6
 MIN_AGREE_IN_ENVELOPE = 0.99
 MAX_MODE_SHARE = 0.5  # reference labels must not be one class on most rows
+
+# Second path: compile_model over every (family, dtype) candidate.
+KERNEL_ROWS = (32, 1024)  # batch sizes the kernels are checked and timed at
+FEATURES = (1024, 4096)  # fourier's default basis, and a wider one
+# Mean |error| against the exact expansion within 5% of the mean |exact
+# score| on the verification sample.
+BUDGET = dict(max_err=0.05, metric="mean_abs", relative=True)
+CELL_ROWS = (1, 1024)  # requests served through each (family, dtype) artifact
+CELL_SCALED = (1, 16)  # rows of each pushed out of the envelope
+# B3 is held as B1 is. B4/B5: the readout sums cancel as B2's do, so B2's
+# rule: at most B45_TWIN times the f32 twin's distance from float64, + B45_ABS.
+B45_TWIN, B45_ABS = 4.0, 1e-6
 
 
 class PhaseFailed(RuntimeError):
@@ -116,6 +138,28 @@ def rbf_work(n: int, m: int, k: int, d: int) -> tuple[float, float]:
     return flops, nbytes
 
 
+def quadform_q8_work(n: int, k: int, d: int) -> tuple[float, float]:
+    """(flops, bytes) of kernel B3: B1's work plus one scale multiply per
+    (row, head, column), with the Hessian at 1 byte and the (K, d)
+    column scales read once."""
+    flops, _ = quadform_work(n, k, d)
+    flops += 1.0 * n * k * d
+    nbytes = 4.0 * (n * d + k * d + k * d + 4 * k) + 1.0 * k * d * d
+    nbytes += 4.0 * n * k + 4.0 * n + n * k
+    return flops, nbytes
+
+
+def rff_work(n: int, f: int, k: int, d: int, w_bytes: int) -> tuple[float, float]:
+    """(flops, bytes) of kernels B4 (``w_bytes`` 4) and B5 (1): the
+    projection, one cos per (row, feature), the readout and the bias; W
+    and the readout at ``w_bytes`` a value, B5's row and head scales f32."""
+    flops = 2.0 * n * f * d + 2.0 * n * f * k + 1.0 * n * f + 1.0 * n * k
+    nbytes = 4.0 * (n * d + f + k + n * k) + w_bytes * (f * d + k * f)
+    if w_bytes == 1:
+        nbytes += 4.0 * (f + k)
+    return flops, nbytes
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -137,6 +181,28 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside it", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip()
+    kernels = run(torch.device("cuda"))
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    device = {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+def run(dev) -> list[dict]:
+    """Every phase on ``dev``; returns the ``kernels`` entries."""
+    import torch
+
     from repro_torch import convert
     from repro_torch.core import families
     from repro_torch.core.families import CompiledArtifact
@@ -148,13 +214,6 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        check=True,
-    ).stdout.strip()
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
@@ -162,6 +221,8 @@ def main() -> int:
     phase("build", seconds=time.perf_counter() - t0, libs=[p.name for p in libs])
 
     # ------------------------------------------------------------ main path
+    seconds = {}
+    t_phase = time.perf_counter()
     X_tr, _, X_te, _, spec = make_dataset("mnist", scale=0.3, seed=SEED)
     rng = np.random.default_rng(SEED)
     X = X_tr[:N_SV]
@@ -282,7 +343,10 @@ def main() -> int:
     check(launches["quadform_heads"] > 0, "quadform_heads never launched")
     check(launches["rbf_scores"] > 0, "rbf_scores never launched")
 
+    seconds["main_path"] = time.perf_counter() - t_phase
+
     # ------------------------------------------ kernels against plain twins
+    t_phase = time.perf_counter()
     a = loaded.arrays
     heads = (a["M"], a["v"], a["c"], a["b"], a["gamma"], a["msq"])
     zero = torch.zeros_like(a["c"])
@@ -341,7 +405,10 @@ def main() -> int:
     )
     check(b2_err <= b2_tol, f"rbf_scores: {b2_err} > {b2_tol}")
 
+    seconds["kernel_check"] = time.perf_counter() - t_phase
+
     # --------------------------------------------------------------- timing
+    t_phase = time.perf_counter()
     Zt = Zq[:1024]
     q_ms = time_ms(lambda: qf.quadform_heads_cuda(Zt, *heads))
     q_plain = time_ms(lambda: qf.quadform_heads_torch(Zt, *heads))
@@ -375,6 +442,15 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         e2e[n] = sorted(times)[len(times) // 2]
     phase("serve_median_ms", **{f"rows_{n}": t for n, t in e2e.items()})
+    seconds["timing"] = time.perf_counter() - t_phase
+    phase("first_path_seconds", **seconds)
+
+    # ================================================= second path (B3-B5)
+    kernels_q8_rff, launches2 = second_path(
+        dev, svm, loaded, X_te, Zq, exact64, msq, float(gamma)
+    )
+    for name in launches:
+        launches[name] += launches2[name]
 
     kernels = [
         {
@@ -404,15 +480,396 @@ def main() -> int:
             "library_ms": r_lib,
         },
     ]
-    print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    device = {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+    return kernels + kernels_q8_rff
+
+
+def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
+    """``compile_model`` over every (family, dtype) and kernels B3-B5.
+
+    ``mac`` is the first path's f32 maclaurin artifact, ``Zq`` its kernel
+    check rows (both sides of the envelope), ``exact64`` its float64
+    reference. Returns (the B3-B5 ``kernels`` entries, every kernel's
+    launches on this path's serving phases).
+    """
+    import torch
+
+    from repro_torch.core import families
+    from repro_torch.core.families import Budget, CompiledArtifact, compile_model
+    from repro_torch.core.families import quantize
+    from repro_torch.kernels import build
+    from repro_torch.kernels.quadform import kernel as qf
+    from repro_torch.kernels.rff_score import kernel as rk
+    from repro_torch.serve import SVMEngine
+
+    d = svm.X.shape[1]
+    seconds = {}
+
+    def quadform_args(art):
+        """(twin, kernel, args) of a quadform artifact, f32 or int8."""
+        a = art.arrays
+        rest = (a["c"], a["b"], a["gamma"], a["msq"])
+        if art.dtype == "float32":
+            args = (a["M"], a["v"]) + rest
+            return qf.quadform_heads_torch, qf.quadform_heads_cuda, args
+        group = int(art.meta["group_size"])
+        col = quantize.expand_group_scales(a["M_scale"], d, group)
+        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
+        args = (a["M"], col, v) + rest
+        return qf.quadform_heads_q8_torch, qf.quadform_heads_q8_cuda, args
+
+    def rff_args(art):
+        """(twin, kernel, args) of a dense fourier artifact, f32 or int8."""
+        a = art.arrays
+        if art.dtype == "float32":
+            args = (a["W"], a["phase"], a["weights"], a["b"])
+            return rk.rff_score_torch, rk.rff_score_cuda, args
+        args = (a["W"], a["W_scale"], a["phase"], a["weights"], a["weights_scale"])
+        return rk.rff_score_q8_torch, rk.rff_score_q8_cuda, args + (a["b"],)
+
+    def rff_tol(twin, args, Zd):
+        """(twin scores, B4/B5 tolerance, twin's distance from float64)."""
+        out0 = twin(Zd, *args)
+        d64 = [a if a.dtype == torch.int8 else a.double() for a in args]
+        twin_err = max_err(out0, twin(Zd.double(), *d64))
+        return out0, B45_TWIN * twin_err + B45_ABS, twin_err
+
+    def plain_scores(art, Zd):
+        """The family's plain twin on the card: (scores, kernel tolerance)."""
+        if art.meta["kind"] == "quadform":
+            twin, _, args = quadform_args(art)
+            s0 = twin(Zd, *args)[0]
+            return s0, B1_REL * float(s0.abs().max()) + B1_ABS
+        twin, _, args = rff_args(art)
+        return rff_tol(twin, args, Zd)[:2]
+
+    # ------------------------------------------------- B3 against its twin
+    t0 = time.perf_counter()
+    q8 = families.maclaurin.quantize_quadform_artifact(mac)
+    _, _, q8_heads = quadform_args(q8)
+    M_q, col, v_deq, _, _, g, m = q8_heads
+    zero = torch.zeros_like(g)
+    q8_quad = (M_q, col, torch.zeros_like(v_deq), zero, zero, g, m)
+    b3 = {}
+    for n in KERNEL_ROWS:
+        cases = (("all", q8_heads, B1_ABS), ("quad", q8_quad, 0.0))
+        for terms, args, abs_tol in cases:
+            s, zsq, v = qf.quadform_heads_q8_cuda(Zq[:n], *args)
+            s0, zsq0, v0 = qf.quadform_heads_q8_torch(Zq[:n], *args)
+            again = qf.quadform_heads_q8_cuda(Zq[:n], *args)[0]
+            torch.cuda.synchronize()
+            err, scale = max_err(s, s0), float(s0.abs().max())
+            tol = B1_REL * scale + abs_tol
+            zsq_rel = float(((zsq - zsq0).abs() / zsq0.abs().clamp(min=1e-30)).max())
+            res = dict(max_abs_err=err, max_abs_ref=scale, tol=tol, zsq_rel_err=zsq_rel)
+            res["masks_equal"] = bool((v == v0).all())
+            res["same_bits_again"] = bool(torch.equal(again, s))
+            phase(
+                "kernel_check_q8",
+                kernel="quadform_heads_q8",
+                terms=terms,
+                n=n,
+                k=K,
+                d=d,
+                **res,
+            )
+            what = f"quadform_heads_q8 n={n} terms={terms}"
+            check(err <= tol, f"{what}: {err} > {tol}")
+            check(zsq_rel <= B1_ZSQ_REL, f"{what}: |z|^2 rel {zsq_rel}")
+            check(res["masks_equal"], f"{what}: masks differ")
+            check(res["same_bits_again"], f"{what}: bits differ run to run")
+            b3[n, terms] = res
+    seconds["kernel_check_q8"] = time.perf_counter() - t0
+
+    # ---------------------------------------------- B4/B5 against their twins
+    t0 = time.perf_counter()
+    rff_arts = {
+        (f, dt): families.fourier.compile(svm, num_features=f, dtype=dt, seed=SEED)
+        for f in FEATURES
+        for dt in quantize.DTYPES
     }
-    print(json.dumps({"ok": True, "device": device}), flush=True)
-    return 0
+    Zf = torch.from_numpy(X_te[: max(KERNEL_ROWS)].copy()).to(dev)
+    b45 = {}
+    for (f, dt), art in rff_arts.items():
+        twin, kernel, args = rff_args(art)
+        name = kernel.__name__.removesuffix("_cuda")
+        for n in KERNEL_ROWS:
+            out = kernel(Zf[:n], *args)
+            again = kernel(Zf[:n], *args)
+            out0, tol, twin_err = rff_tol(twin, args, Zf[:n])
+            torch.cuda.synchronize()
+            err = max_err(out, out0)
+            res = dict(
+                max_abs_err=err,
+                twin_max_abs_err_vs_float64=twin_err,
+                tol=tol,
+                max_abs_ref=float(out0.abs().max()),
+                same_bits_again=bool(torch.equal(again, out)),
+            )
+            phase("kernel_check_rff", kernel=name, n=n, k=K, d=d, f=f, **res)
+            what = f"{name} n={n} F={f}"
+            check(err <= tol, f"{what}: {err} > {tol}")
+            check(res["same_bits_again"], f"{what}: bits differ run to run")
+            b45[name, n, f] = res
+    seconds["kernel_check_rff"] = time.perf_counter() - t0
+
+    # ---------------------------------------------------------------- timing
+    t0 = time.perf_counter()
+    timings = {}
+    M_deq = M_q.to(torch.float32) * col[:, None, :]
+    for n in KERNEL_ROWS:
+        Zn = Zq[:n]
+        timings["quadform_heads_q8", n, None] = dict(
+            ms=time_ms(lambda: qf.quadform_heads_q8_cuda(Zn, *q8_heads)),
+            plain_ms=time_ms(lambda: qf.quadform_heads_q8_torch(Zn, *q8_heads)),
+            library_ms=time_ms(lambda: torch.einsum("ni,kij,nj->nk", Zn, M_deq, Zn)),
+            bound=bound(*quadform_q8_work(n, K, d)),
+        )
+    for (f, dt), art in rff_arts.items():
+        twin, kernel, args = rff_args(art)
+        name = kernel.__name__.removesuffix("_cuda")
+        W = art.arrays["W"].to(torch.float32)
+        if dt == "int8":
+            W = W * art.arrays["W_scale"][:, None]
+        w_bytes = 1 if dt == "int8" else 4
+        for n in KERNEL_ROWS:
+            Zn = Zf[:n]
+            timings[name, n, f] = dict(
+                ms=time_ms(lambda: kernel(Zn, *args)),
+                plain_ms=time_ms(lambda: twin(Zn, *args)),
+                library_ms=time_ms(lambda: torch.matmul(Zn, W.T)),
+                bound=bound(*rff_work(n, f, K, d, w_bytes)),
+            )
+    for (name, n, f), t in timings.items():
+        bound_ms, bound_by = t["bound"]
+        times = {k: t[k] for k in ("ms", "plain_ms", "library_ms")}
+        phase(
+            "kernel_time",
+            kernel=name,
+            n=n,
+            f=f,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            **times,
+        )
+    seconds["kernel_time"] = time.perf_counter() - t0
+
+    # --------------------------------------------------------- compile_model
+    t0 = time.perf_counter()
+    budget = Budget(**BUDGET)
+    winner = compile_model(svm, budget, seed=SEED)
+    report = winner.meta["compile_report"]
+    for row in report["families"]:
+        phase("compile_model_row", **row)
+    summary = {k: v for k, v in report.items() if k != "families"}
+    phase("compile_model", **summary)
+    rows = {(r["family"], r["dtype"]): r for r in report["families"]}
+    check(len(rows) == 6, f"compile_model report cells: {sorted(rows)}")
+    chosen = rows[report["chosen"], report["chosen_dtype"]]
+    check(chosen["meets_budget"], "compile_model chose a candidate over budget")
+    seconds["compile_model"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    skip = compile_model(
+        svm,
+        budget,
+        seed=SEED,
+        families=("maclaurin", "fourier"),
+        family_opts={"fourier": {"structured": True}},
+    )
+    for row in skip.meta["compile_report"]["families"]:
+        phase("compile_model_structured_row", **row)
+        if row["family"] == "fourier":
+            reason = row.get("skipped", "")
+            check("B6/B7" in reason, f"structured fourier not skipped: {row}")
+    seconds["compile_model_structured"] = time.perf_counter() - t0
+
+    # ------------------------------------- serving: the winner and every cell
+    t0 = time.perf_counter()
+    sample = families.fourier.holdout_sample(svm, SEED, 256)
+    cells = {
+        (name, dt): families.get_family(name).compile(
+            svm, dtype=dt, seed=SEED, holdout=sample
+        )
+        for name in ("maclaurin", "poly2", "fourier")
+        for dt in quantize.DTYPES
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        path = winner.save(str(Path(tmp) / "winner.npz"))
+        won = CompiledArtifact.load(path, dev)
+    check(won.digest() == winner.digest(), "save/load changed the winner's digest")
+    failed = cells["fourier", "float32"].with_meta(valid_globally=False)
+    served = [("winner", won)] + [(f"{n}/{dt}", a) for (n, dt), a in cells.items()]
+    served.append(("fourier/float32, failed verdict", failed))
+
+    rng = np.random.default_rng(SEED + 1)
+    requests, off = [], 0
+    for n, n_scaled in zip(CELL_ROWS, CELL_SCALED):
+        Z = X_te[off : off + n].copy()
+        off += n
+        scaled = np.zeros(n, bool)
+        scaled[rng.choice(n, size=n_scaled, replace=False)] = True
+        Z[scaled] = push_out(Z[scaled], msq, gamma)
+        requests.append((Z, scaled))
+    refs = [exact64(Z) for Z, _ in requests]
+    engines = []
+    for _, art in served:
+        engine = SVMEngine(art, svm, device=dev)
+        engine.warmup(list(CELL_ROWS))
+        engines.append(engine)
+    seconds["serve_setup"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    build.reset_counts()
+    results = [[e.submit(Z) for Z, _ in requests] for e in engines]
+    for per_engine in results:
+        for r in per_engine:
+            r.labels  # materialize: the fallback rows are scored here
+    launches = build.counts()
+    seconds["serve"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for (label, art), engine, per_engine in zip(served, engines, results):
+        fields = serve_cell_checks(
+            label, art, engine, per_engine, requests, refs, plain_scores, exact64, dev
+        )
+        row = rows.get((art.family, art.dtype), {})
+        if "mean_abs" in row:
+            fields["compile_mean_abs_err"] = row["mean_abs"]
+            fields["budget_limit"] = report["limit"]
+        phase("serve_cell", cell=label, **fields)
+        if art.family == "maclaurin" and label != "winner":
+            check(fields["decided_rows"] > 0, f"{label}: no decided rows")
+            share = fields["ref_mode_share"]
+            check(share <= MAX_MODE_SHARE, f"{label}: reference labels one class")
+            agree = fields["label_agree"]
+            check(agree >= MIN_AGREE_IN_ENVELOPE, f"{label}: label agreement {agree}")
+    seconds["serve_checks"] = time.perf_counter() - t0
+
+    # End to end after warmup, per cell: host clock around submit -> labels.
+    t0 = time.perf_counter()
+    for (label, _), engine in zip(served, engines):
+        medians = {}
+        for (Z, _), n in zip(requests, CELL_ROWS):
+            times = []
+            for _ in range(10):
+                t1 = time.perf_counter()
+                engine.submit(Z).labels
+                times.append((time.perf_counter() - t1) * 1e3)
+            medians[f"rows_{n}"] = sorted(times)[len(times) // 2]
+        phase("serve_cell_median_ms", cell=label, **medians)
+    seconds["serve_timing"] = time.perf_counter() - t0
+    phase("second_path_launches", **launches)
+    for name, count in launches.items():
+        check(count > 0, f"{name} never launched on the second path")
+    phase("second_path_seconds", **seconds)
+
+    n_t, f_t = max(KERNEL_ROWS), FEATURES[0]
+    meta = {
+        "quadform_heads_q8": (
+            "quadform.cu",
+            "src/repro/kernels/quadform/kernel.py:222",
+            b3[n_t, "all"]["max_abs_err"],
+            timings["quadform_heads_q8", n_t, None],
+        ),
+        "rff_score": (
+            "rff_score.cu",
+            "src/repro/kernels/rff_score/kernel.py:169",
+            b45["rff_score", n_t, f_t]["max_abs_err"],
+            timings["rff_score", n_t, f_t],
+        ),
+        "rff_score_q8": (
+            "rff_score.cu",
+            "src/repro/kernels/rff_score/kernel.py:121",
+            b45["rff_score_q8", n_t, f_t]["max_abs_err"],
+            timings["rff_score_q8", n_t, f_t],
+        ),
+    }
+    entries = [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1],
+            "library_ms": t["library_ms"],
+        }
+        for name, (source, replaces, err, t) in meta.items()
+    ]
+    return entries, launches
+
+
+def serve_cell_checks(
+    label, art, engine, results, requests, refs, plain_scores, exact64, dev
+) -> dict:
+    """Check one served artifact's results and return its phase fields
+    (errors and tolerances listed per request that has such rows).
+
+    Rows the artifact vouches for (inside the envelope for quadform
+    families; all or none for fourier, by its held-out verdict) must
+    carry the plain twin's scores within the kernel's tolerance; the
+    others must fall back to the exact scores within B2's. Labels of
+    vouched rows are compared with the float64 model's where fp32 can
+    decide them (top-two gap over twice B2's tolerance, as for
+    ``submit_exact``).
+    """
+    import torch
+
+    quadform = art.meta["kind"] == "quadform"
+    verdict = bool(art.meta.get("valid_globally", True))
+    want_fallback, agree, decided_n, in_n = 0, 0, 0, 0
+    score_err, score_tol, fb_err, fb_tol = [], [], [], []  # per request
+    in_labels = []
+    for (Z, scaled), r, (ref, ref_tol) in zip(requests, results, refs):
+        want_valid = ~scaled if quadform else np.full(len(Z), verdict)
+        check(bool((r.valid == want_valid).all()), f"{label}: valid mask")
+        want_fallback += int((~want_valid).sum())
+        v = r.valid
+        if v.any():
+            s0, tol = plain_scores(art, torch.from_numpy(Z[v]).to(dev))
+            err = float(np.abs(r.values[v] - s0.cpu().numpy()).max())
+            score_err.append(err)
+            score_tol.append(tol)
+            check(err <= tol, f"{label}: served scores {err} > {tol}")
+            top2 = np.sort(ref[v], -1)[:, -2:]
+            decided = top2[:, 1] - top2[:, 0] > 2 * ref_tol
+            ref_labels = ref[v].argmax(-1)
+            agree += int((r.labels[v][decided] == ref_labels[decided]).sum())
+            decided_n += int(decided.sum())
+            in_n += int(v.sum())
+            in_labels.append(ref_labels)
+        if (~v).any():
+            tol = exact64(Z[~v])[1]
+            err = float(np.abs(r.values[~v] - ref[~v]).max())
+            fb_err.append(err)
+            fb_tol.append(tol)
+            check(err <= tol, f"{label}: fallback scores {err} > {tol}")
+    fallback = engine.stats.snapshot()["fallback_instances"]
+    check(fallback == want_fallback, f"{label}: {fallback} rows fell back")
+    fields = dict(
+        family=art.family,
+        dtype=art.dtype,
+        valid_globally=verdict,
+        fallback_rows=fallback,
+        in_envelope_rows=in_n,
+        decided_rows=decided_n,
+        max_abs_err_vs_twin=score_err,
+        tol_vs_twin=score_tol,
+        fallback_max_abs_err=fb_err,
+        fallback_tol=fb_tol,
+    )
+    if decided_n:
+        labels = np.concatenate(in_labels)
+        fields["label_agree"] = agree / decided_n
+        fields["ref_mode_share"] = float(np.bincount(labels).max() / len(labels))
+    for key in ("holdout_mean_abs_err", "quant_mean_abs_err"):
+        if key in art.meta:
+            fields[key] = art.meta[key]
+    return fields
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ from repro_torch.core.bounds import (
     maclaurin_rel_error,
     validity_fraction,
 )
-from repro_torch.core.families import CompiledArtifact
+from repro_torch.core.families import Budget, CompiledArtifact, compile_model
 from repro_torch.core.maclaurin import (
     ApproxModel,
     approx_decision_function,
@@ -28,6 +28,7 @@ from repro_torch.core.rbf import (
 
 __all__ = [
     "ApproxModel",
+    "Budget",
     "CompiledArtifact",
     "REL_ERR_AT_HALF",
     "SVMModel",
@@ -37,6 +38,7 @@ __all__ = [
     "approximate",
     "backend",
     "bound_holds",
+    "compile_model",
     "decision_function",
     "gamma_max",
     "hybrid_decision_function",

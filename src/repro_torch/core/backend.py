@@ -2,16 +2,20 @@
 
   * ``quadform_heads`` — the collapsed quadratic form (Eq 3.8) fused over
     K heads, with ||z||^2 and the Eq 3.11 mask (kernel B1);
+  * ``quadform_heads_q8`` — the same off an int8 stacked Hessian
+    (kernel B3);
   * ``rbf_scores`` — the exact RBF expansion (Eq 3.2), the engine's
     accuracy fallback (kernel B2);
+  * ``rff_score`` / ``rff_score_q8`` — random-Fourier-feature scores off
+    f32 (kernel B4) or int8 (kernel B5) weights;
   * ``family_scores`` — a ``CompiledArtifact`` through its family's
     primitive.
 
 ``repro``'s backend picked Pallas or XLA per process. Here the choice
 follows the tensors: CUDA tensors launch the kernel (or raise, when it
 cannot be built or launched), CPU tensors compute with the plain twins
-``quadform_heads_torch`` / ``rbf_scores_torch``. There is no switch that
-sends CUDA tensors to the plain versions.
+(``*_torch``). There is no switch that sends CUDA tensors to the plain
+versions.
 
 ``config=None`` resolves the ``TileConfig`` for the operand shapes from
 the tuning registry.
@@ -22,16 +26,30 @@ from __future__ import annotations
 from repro_torch.kernels.common import TileConfig, tuning
 from repro_torch.kernels.quadform.kernel import (
     quadform_heads_cuda,
+    quadform_heads_q8_cuda,
+    quadform_heads_q8_torch,
     quadform_heads_torch,
 )
 from repro_torch.kernels.rbf_pred.kernel import rbf_scores_cuda, rbf_scores_torch
+from repro_torch.kernels.rff_score.kernel import (
+    rff_score_cuda,
+    rff_score_q8_cuda,
+    rff_score_q8_torch,
+    rff_score_torch,
+)
 
 __all__ = [
     "family_scores",
     "quadform_heads",
+    "quadform_heads_q8",
+    "quadform_heads_q8_torch",
     "quadform_heads_torch",
     "rbf_scores",
     "rbf_scores_torch",
+    "rff_score",
+    "rff_score_q8",
+    "rff_score_q8_torch",
+    "rff_score_torch",
 ]
 
 
@@ -50,6 +68,72 @@ def quadform_heads(Z, M_all, V, c, b, gamma, msq, *, config: TileConfig | None =
             ),
         )
     return quadform_heads_cuda(Z, M_all, V, c, b, gamma, msq, config=config)
+
+
+def quadform_heads_q8(
+    Z, M_q, col_scale, V, c, b, gamma, msq, *, config: TileConfig | None = None
+):
+    """Fused K-head scores off an int8 stacked Hessian.
+
+    Z: (n, d); M_q: (K, d, d) int8; col_scale: (K, d) f32 per-column
+    dequantization scales; V: (K, d) f32 (already dequantized, it is
+    thin); c/b/gamma/msq: (K,). Same return contract as
+    ``quadform_heads``.
+    """
+    if config is None:
+        config = tuning.lookup(
+            "quadform_q8",
+            tuning.shape_key(
+                d=Z.shape[1], k=M_q.shape[0], n=tuning.bucket(Z.shape[0])
+            ),
+        )
+    return quadform_heads_q8_cuda(
+        Z, M_q, col_scale, V, c, b, gamma, msq, config=config
+    )
+
+
+def rff_score(Z, W, phase, weights, bias, *, config: TileConfig | None = None):
+    """Random-Fourier-feature scores.
+
+    Z: (n, d); W: (F, d); phase: (F,); weights: (K, F) with the 2/F
+    feature scaling folded in at compile time; bias: (K,). Returns
+    per-head scores (n, K).
+    """
+    if config is None:
+        config = tuning.lookup(
+            "rff_score",
+            tuning.shape_key(d=Z.shape[1], f=W.shape[0], n=tuning.bucket(Z.shape[0])),
+        )
+    return rff_score_cuda(Z, W, phase, weights, bias, config=config)
+
+
+def rff_score_q8(
+    Z,
+    W_q,
+    w_scale,
+    phase,
+    weights_q,
+    wt_scale,
+    bias,
+    *,
+    config: TileConfig | None = None,
+):
+    """Random-Fourier-feature scores off int8 projection and readout.
+
+    Z: (n, d); W_q: (F, d) int8 with per-row scales w_scale (F,);
+    weights_q: (K, F) int8 with per-head scales wt_scale (K,); phase (F,)
+    and bias (K,) f32. Returns (n, K).
+    """
+    if config is None:
+        config = tuning.lookup(
+            "rff_score_q8",
+            tuning.shape_key(
+                d=Z.shape[1], f=W_q.shape[0], n=tuning.bucket(Z.shape[0])
+            ),
+        )
+    return rff_score_q8_cuda(
+        Z, W_q, w_scale, phase, weights_q, wt_scale, bias, config=config
+    )
 
 
 def rbf_scores(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None):

@@ -18,6 +18,11 @@ import torch
 # Eq A.2: sup_{|x|<1/2} |(e^x - 1 - x - x^2/2) / e^x| < 0.0305
 REL_ERR_AT_HALF = 0.0305
 
+# The §3.2 analogue for the poly2 family: e^x approximated by
+# (1 + x/2)^2 = 1 + x + x^2/4 under the same |x| < 1/2 envelope; the sup,
+# at x = -1/2, is |e^{-1/2} - (3/4)^2| / e^{-1/2} = 0.07256...
+POLY2_REL_ERR_AT_HALF = 0.0726
+
 
 def maclaurin_exp(x: torch.Tensor) -> torch.Tensor:
     """Second-order Maclaurin series of exp: 1 + x + x^2/2 (Eq A.1)."""

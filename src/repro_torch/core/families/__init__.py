@@ -1,33 +1,47 @@
 """Approximation families: compile an SVM into a servable artifact.
 
-Only ``maclaurin`` (the paper's §3 collapse) is ported so far; ``poly2``
-and ``fourier`` follow in ROADMAP queue A5 and A7. A family module
-exports ``NAME``, ``compile(svm, **opts)``, ``score(artifact, Z,
-config=None)``, ``TILE_KERNEL`` and ``tile_lookup(artifact, bucket)``.
+  ===========  =============================  ========================
+  family       prediction cost / row          accuracy contract
+  ===========  =============================  ========================
+  maclaurin    O(K d^2) quadratic form        per-row Eq 3.11 envelope,
+                                              3.05% per-term rel. err
+  poly2        O(K d^2) quadratic form        per-row Eq 3.11 envelope,
+                                              7.26% per-term rel. err
+  fourier      O(F d) dense RFF projection    compile-time held-out
+                                              error estimate
+  ===========  =============================  ========================
+
+Every family also compiles an int8 variant (``dtype="int8"``, see
+``quantize``). The Fastfood projection of fourier (``structured=True``)
+waits for kernels B6/B7 and raises ``NotImplementedError``, which
+``compile_model`` reports as a skipped cell. A family module exports
+``NAME``, ``compile(svm, **opts)``, ``score(artifact, Z, config=None)``,
+``TILE_KERNEL`` and ``tile_lookup(artifact, bucket)``.
+
+``compile_model(svm, budget)`` is the front door: the §4 verification
+run across all families, returning the cheapest artifact within budget.
 """
 
-from repro_torch.core.families import maclaurin
+from repro_torch.core.families import fourier, maclaurin, poly2, quantize
 from repro_torch.core.families.base import (
     ARTIFACT_FORMAT_VERSION,
     PAD_HEAD_BIAS,
     CompiledArtifact,
 )
+from repro_torch.core.families.compile import Budget, compile_model
 
-FAMILIES = {maclaurin.NAME: maclaurin}
-
-_NOT_PORTED = ("poly2", "fourier")
+FAMILIES = {
+    maclaurin.NAME: maclaurin,
+    poly2.NAME: poly2,
+    fourier.NAME: fourier,
+}
 
 
 def get_family(name: str):
-    """The family module registered under ``name`` (KeyError otherwise)."""
+    """The family module registered under ``name`` (KeyError lists known)."""
     try:
         return FAMILIES[name]
     except KeyError:
-        if name in _NOT_PORTED:
-            raise KeyError(
-                f"approximation family {name!r} is not yet ported to repro_torch; "
-                f"ported: {sorted(FAMILIES)}"
-            ) from None
         raise KeyError(
             f"unknown approximation family {name!r}; known: {sorted(FAMILIES)}"
         ) from None
@@ -40,10 +54,15 @@ def score_artifact(artifact: CompiledArtifact, Z, *, config=None):
 
 __all__ = [
     "ARTIFACT_FORMAT_VERSION",
+    "Budget",
     "CompiledArtifact",
     "FAMILIES",
     "PAD_HEAD_BIAS",
+    "compile_model",
+    "fourier",
     "get_family",
     "maclaurin",
+    "poly2",
+    "quantize",
     "score_artifact",
 ]

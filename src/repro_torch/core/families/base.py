@@ -67,6 +67,10 @@ class CompiledArtifact:
         """In-memory size of the servable arrays (Table-3 accounting)."""
         return sum(a.numel() * a.element_size() for a in self.arrays.values())
 
+    def with_meta(self, **updates) -> "CompiledArtifact":
+        """Functional meta update (arrays shared, not copied)."""
+        return CompiledArtifact(self.family, self.arrays, {**self.meta, **updates})
+
     def to(self, device) -> "CompiledArtifact":
         """The same artifact with every array on ``device``."""
         arrays = {k: v.to(device) for k, v in self.arrays.items()}
@@ -148,6 +152,14 @@ def base_meta(
         "dtype": str(dtype),
         **extra,
     }
+
+
+def as_batch(Z, device) -> torch.Tensor:
+    """A batch of rows (array or tensor) as a contiguous f32 tensor on
+    ``device``."""
+    if not isinstance(Z, torch.Tensor):
+        Z = torch.from_numpy(np.asarray(Z, dtype=np.float32))
+    return Z.to(device=device, dtype=torch.float32).contiguous()
 
 
 def stack_heads(svm) -> tuple[torch.Tensor, torch.Tensor, int, bool]:

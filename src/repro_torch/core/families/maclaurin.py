@@ -3,16 +3,21 @@ compiled artifact.
 
 Compiles an exact RBF ``SVMModel`` (binary or K-head OvR) into the
 (c, v, M) quadratic form of Eq 3.8 and serves it through
-``backend.quadform_heads`` (kernel B1 on the card). Prediction is
-O(K d^2) per row, independent of n_sv; validity is the per-row Eq 3.11
-envelope with the paper's 3.05% per-term relative-error guarantee.
+``backend.quadform_heads`` (kernel B1 on the card) or, at int8,
+``backend.quadform_heads_q8`` (kernel B3). Prediction is O(K d^2) per
+row, independent of n_sv; validity is the per-row Eq 3.11 envelope with
+the paper's 3.05% per-term relative-error guarantee.
 
-Artifact layout (f32):
+Artifact layout:
 
-    M (K, d, d) stacked Hessians     c, b, gamma, msq (K,) scalars
-    v (K, d)    gradient terms
+    f32:  M (K, d, d) stacked Hessians     c, b, gamma, msq (K,) scalars
+          v (K, d)    gradient terms
 
-The int8 variant is not ported yet (ROADMAP queue A5).
+    int8 (``compile(..., dtype="int8")``): M stored int8 with per-(head,
+          16-column-group) f32 scales ``M_scale`` (K, G); v stored int8
+          with per-head scales ``v_scale`` (K,); scalars stay f32. The
+          measured quantization error against the f32 parent ships in the
+          meta (``quant_mean_abs_err`` / ``quant_max_abs_err``).
 """
 
 from __future__ import annotations
@@ -21,30 +26,46 @@ import torch
 
 from repro_torch.core import backend
 from repro_torch.core.bounds import REL_ERR_AT_HALF
-from repro_torch.core.families.base import CompiledArtifact, base_meta, stack_heads
+from repro_torch.core.families import quantize
+from repro_torch.core.families.base import (
+    CompiledArtifact,
+    as_batch,
+    base_meta,
+    stack_heads,
+)
 from repro_torch.core.maclaurin import ApproxModel, approximate
 from repro_torch.core.rbf import SVMModel
 from repro_torch.kernels.common import TileConfig, tuning
 
 NAME = "maclaurin"
 TILE_KERNEL = "quadform"  # tuning-registry family the scorer keys on
+TILE_KERNEL_Q8 = "quadform_q8"  # ...and its int8-Hessian variant
 
 
 def compile(  # noqa: A001
-    svm: SVMModel, *, dtype: str = "float32", **_opts
+    svm: SVMModel,
+    *,
+    dtype: str = "float32",
+    seed: int = 0,
+    holdout=None,
+    holdout_n: int = 256,
+    **_opts,
 ) -> CompiledArtifact:
-    """Collapse every head of ``svm`` (Eq 3.7); one product per head."""
-    if dtype == "int8":
-        raise NotImplementedError(
-            "int8 maclaurin artifacts are not ported yet (ROADMAP queue A5)"
-        )
-    if dtype != "float32":
-        raise ValueError(f"dtype must be 'float32' or 'int8', got {dtype!r}")
+    """Collapse every head of ``svm`` (Eq 3.7); one product per head.
+
+    ``dtype="int8"`` also quantizes the collapsed weights
+    (``quantize_quadform_artifact``) and measures the quantization error
+    on a held-out sample (``holdout``, or one drawn from ``seed``).
+    """
+    quantize.check_dtype(dtype)
     ay2, b, _, multiclass = stack_heads(svm)
     stacked = approximate(SVMModel(X=svm.X, alpha_y=ay2, b=b, gamma=svm.gamma))
-    return _quadform_artifact(
-        NAME, stacked, multiclass, rel_err_at_half=REL_ERR_AT_HALF
-    )
+    art = _quadform_artifact(NAME, stacked, multiclass, rel_err_at_half=REL_ERR_AT_HALF)
+    if dtype == quantize.INT8_DTYPE:
+        art = quantize_quadform_artifact(
+            art, svm, seed=seed, holdout=holdout, holdout_n=holdout_n
+        )
+    return art
 
 
 def from_approx(approx: ApproxModel) -> CompiledArtifact:
@@ -60,7 +81,8 @@ def from_approx(approx: ApproxModel) -> CompiledArtifact:
 def _quadform_artifact(
     family: str, stacked: ApproxModel, multiclass: bool, **extra_meta
 ) -> CompiledArtifact:
-    """Pack a head-stacked ``ApproxModel`` into the artifact arrays."""
+    """Pack a head-stacked ``ApproxModel`` into the artifact arrays (shared
+    by every quadratic-form family: maclaurin, poly2)."""
     k, d = stacked.v.shape
     dev = stacked.v.device
 
@@ -90,24 +112,84 @@ def _quadform_artifact(
     )
 
 
+def quantize_quadform_artifact(
+    art: CompiledArtifact,
+    svm: SVMModel | None = None,
+    *,
+    seed: int = 0,
+    holdout=None,
+    holdout_n: int = 256,
+) -> CompiledArtifact:
+    """Int8 variant of a compiled quadform artifact (maclaurin or poly2).
+
+    The stacked Hessian goes int8 with per-(head, column-group) scales, v
+    int8 with per-head scales; the four (K,) scalar vectors stay f32. The
+    quantization error against the f32 parent is measured on ``holdout``
+    (or a sample around the SVs drawn from ``seed`` when ``svm`` is given)
+    and rides in the meta; with neither, the meta carries no error.
+    """
+    a = art.arrays
+    dev = a["M"].device
+    m_q, m_scale = quantize.quantize_col_groups(a["M"])  # (K,d,d), (K,G)
+    v_q, v_scale = quantize.quantize_rows(a["v"])  # (K,d), (K,)
+
+    def on_dev(x):
+        return torch.from_numpy(x).to(dev)
+
+    q_art = CompiledArtifact(
+        family=art.family,
+        arrays={
+            "M": on_dev(m_q),
+            "M_scale": on_dev(m_scale),
+            "v": on_dev(v_q),
+            "v_scale": on_dev(v_scale),
+            "c": a["c"],
+            "b": a["b"],
+            "gamma": a["gamma"],
+            "msq": a["msq"],
+        },
+        meta={
+            **art.meta,
+            "dtype": quantize.INT8_DTYPE,
+            "group_size": quantize.GROUP_SIZE,
+        },
+    )
+    Z = holdout
+    if Z is None and svm is not None:
+        from repro_torch.core.families import fourier
+
+        Z = fourier.holdout_sample(svm, seed, holdout_n)
+    if Z is not None:
+        Z = as_batch(Z, dev)
+        q_art = q_art.with_meta(**quantize.measure_quant_error(art, q_art, Z))
+    return q_art
+
+
 def score(artifact: CompiledArtifact, Z, *, config: TileConfig | None = None):
     """(scores (n, K), valid_rows (n,)) through the fused quadform path.
 
-    ``valid_rows[i]`` is the Eq 3.11 envelope check over ALL heads — a row
-    is servable by the fast path only if every head's bound holds.
+    ``valid_rows[i]`` is the Eq 3.11 envelope check over ALL heads: a row
+    is servable by the fast path only if every head's bound holds. The
+    envelope depends only on ||z||^2, gamma and msq, so the int8 variant
+    keeps its f32 parent's validity contract.
     """
-    if artifact.dtype != "float32":
-        raise NotImplementedError(
-            f"{artifact.dtype} maclaurin artifacts are not ported yet "
-            "(ROADMAP queue A5)"
-        )
     a = artifact.arrays
-    scores, _, valid = backend.quadform_heads(
-        Z, a["M"], a["v"], a["c"], a["b"], a["gamma"], a["msq"], config=config
-    )
+    if artifact.dtype == quantize.INT8_DTYPE:
+        col_scale = quantize.expand_group_scales(
+            a["M_scale"], artifact.d, int(artifact.meta["group_size"])
+        )  # (K, d)
+        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
+        scores, _, valid = backend.quadform_heads_q8(
+            Z, a["M"], col_scale, v, a["c"], a["b"], a["gamma"], a["msq"], config=config
+        )
+    else:
+        scores, _, valid = backend.quadform_heads(
+            Z, a["M"], a["v"], a["c"], a["b"], a["gamma"], a["msq"], config=config
+        )
     return scores, valid.all(-1)
 
 
 def tile_lookup(artifact: CompiledArtifact, bucket: int) -> tuple[str, str]:
     """(kernel, shape_key) the tuning registry resolves for this bucket."""
-    return TILE_KERNEL, tuning.shape_key(d=artifact.d, k=artifact.num_heads, n=bucket)
+    kernel = TILE_KERNEL_Q8 if artifact.dtype == quantize.INT8_DTYPE else TILE_KERNEL
+    return kernel, tuning.shape_key(d=artifact.d, k=artifact.num_heads, n=bucket)

@@ -15,7 +15,8 @@ started together). A failed build raises; nothing falls back.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``CudaKernel.launch`` raises on a non-zero code and otherwise adds one to
 ``launches`` — the count a run reads to show that its path went through
-the kernel.
+the kernel. ``on_card`` and ``check_operands`` are the dispatch rule and
+the pointer checks every wrapper applies before a launch.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -154,3 +157,29 @@ def reset_counts() -> None:
 def counts() -> dict[str, int]:
     """Launch count of every registered kernel, by name."""
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def on_card(Z: torch.Tensor, name: str) -> bool:
+    """Whether ``Z`` lies on a CUDA card (launch the kernel) or the CPU
+    (compute with the plain twin); any other device raises."""
+    if Z.device.type == "cpu":
+        return False
+    if Z.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {Z.device}")
+    return True
+
+
+def check_operands(Z: torch.Tensor, operands: dict) -> None:
+    """Raise unless Z is contiguous f32 and every ``name: (tensor, shape,
+    dtype)`` operand has its shape and dtype, lies on Z's device and is
+    contiguous: what a kernel takes as a bare pointer."""
+    everything = {"Z": (Z, tuple(Z.shape), torch.float32), **operands}
+    for name, (t, shape, dtype) in everything.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t.device != Z.device:
+            raise ValueError(f"{name} is on {t.device}, Z on {Z.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

@@ -3,18 +3,20 @@
   ==============  ========================================================
   field           meaning
   ==============  ========================================================
-  ``block_n``     Z rows per block: quadform is compiled for 32, 64 and
-                  128, rbf_pred for 32 and 64
+  ``block_n``     Z rows per block: quadform (f32 and int8) is compiled
+                  for 32, 64 and 128, rbf_pred and rff_score (f32 and
+                  int8) for 32 and 64
   ``splits``      blocks that share the reduction axis (Hessian column
-                  tiles for quadform, SV tiles for rbf_pred), summed by
-                  a second pass in a fixed order; ``None`` picks enough
-                  to fill the card
+                  tiles for quadform, SV tiles for rbf_pred, feature
+                  tiles for rff_score), summed by a second pass in a
+                  fixed order; ``None`` picks enough to fill the card
   ==============  ========================================================
 
 The TPU config's ``vmem_limit_mb`` and ``resolve_block_k`` sized a
 Hessian slice resident in VMEM; no Hopper kernel keeps one resident, so
 they have no counterpart. The SV tile of rbf_pred is fixed in its source
-(``kernels/rbf_pred/kernel.py::BLOCK_M``).
+(``kernels/rbf_pred/kernel.py::BLOCK_M``), and so is the feature tile of
+rff_score (``kernels/rff_score/kernel.py::BLOCK_F``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,10 @@ from repro_torch.kernels.common.config import TileConfig
 
 DEFAULTS: dict[str, TileConfig] = {
     "quadform": TileConfig(block_n=128),
+    "quadform_q8": TileConfig(block_n=128),
     "rbf_pred": TileConfig(block_n=64),
+    "rff_score": TileConfig(block_n=64),
+    "rff_score_q8": TileConfig(block_n=64),
 }
 
 

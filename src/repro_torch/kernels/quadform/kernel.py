@@ -1,10 +1,13 @@
-"""Kernel B1: fused K-head Eq 3.8 scores, ||z||^2 and the Eq 3.11 mask.
+"""Kernels B1 and B3: fused K-head Eq 3.8 scores, ||z||^2 and the Eq 3.11
+mask, off an f32 (B1) or an int8 (B3) stacked Hessian.
 
-``quadform_heads_cuda`` launches ``csrc/quadform.cu`` (CUDA C++ for
-``sm_90a``; the source's header note says what bounds it and how it is
-tiled) on CUDA tensors, and computes with its plain twin
-``quadform_heads_torch`` on CPU tensors. It replaces
-``repro/kernels/quadform/kernel.py::quadform_heads_pallas``.
+``quadform_heads_cuda`` and ``quadform_heads_q8_cuda`` launch the two
+instantiations of ``csrc/quadform.cu`` (CUDA C++ for ``sm_90a``; the
+source's header note says what bounds it and how it is tiled) on CUDA
+tensors, and compute with their plain twins ``quadform_heads_torch`` /
+``quadform_heads_q8_torch`` on CPU tensors. They replace
+``repro/kernels/quadform/kernel.py::quadform_heads_pallas`` and
+``quadform_heads_q8_pallas``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, check_operands, on_card
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 from repro_torch.kernels.quadform.ref import eq311_valid
 
@@ -27,6 +30,12 @@ KERNEL = CudaKernel(
     "quadform.cu",
     "quadform_heads_f32",
     [_P] * 7 + [_I] * 5 + [_P] * 5 + [_P],
+)
+KERNEL_Q8 = CudaKernel(
+    "quadform_heads_q8",
+    "quadform.cu",
+    "quadform_heads_q8",
+    [_P] * 8 + [_I] * 5 + [_P] * 5 + [_P],
 )
 
 
@@ -46,26 +55,35 @@ def quadform_heads_torch(Z, M_all, V, c, b, gamma, msq):
     return scores, z_sq, eq311_valid(z_sq, gamma, msq)
 
 
-def _check(Z, M_all, V, c, b, gamma, msq):
+def quadform_heads_q8_torch(Z, M_q, col_scale, V, c, b, gamma, msq):
+    """Plain twin of B3 (mirrors ``repro.core.backend.quadform_heads_q8_xla``):
+    the int8 Hessians upcast inside one GEMM for all heads, and the
+    per-(head, column) scales folded onto the (n, K, d) product before
+    the row-dot with Z."""
     n, d = Z.shape
-    k = M_all.shape[0]
-    shapes = {
-        "M_all": (M_all, (k, d, d)),
-        "V": (V, (k, d)),
-        "c": (c, (k,)),
-        "b": (b, (k,)),
-        "gamma": (gamma, (k,)),
-        "msq": (msq, (k,)),
+    k = M_q.shape[0]
+    z_sq = (Z * Z).sum(-1)
+    m_kd = M_q.permute(1, 0, 2).reshape(d, k * d).to(Z.dtype)
+    zm = (Z @ m_kd).reshape(n, k, d) * col_scale[None, :, :]
+    quad = torch.einsum("nkd,nd->nk", zm, Z)
+    lin = Z @ V.T
+    env = torch.exp(-z_sq[:, None] * gamma[None, :])
+    scores = env * (c[None, :] + lin + quad) + b[None, :]
+    return scores, z_sq, eq311_valid(z_sq, gamma, msq)
+
+
+def _heads_operands(Z, M, V, c, b, gamma, msq, m_dtype) -> dict:
+    d = Z.shape[1]
+    k = M.shape[0]
+    f32 = torch.float32
+    return {
+        "M": (M, (k, d, d), m_dtype),
+        "V": (V, (k, d), f32),
+        "c": (c, (k,), f32),
+        "b": (b, (k,), f32),
+        "gamma": (gamma, (k,), f32),
+        "msq": (msq, (k,), f32),
     }
-    for name, (t, shape) in {"Z": (Z, (n, d)), **shapes}.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if t.device != Z.device:
-            raise ValueError(f"{name} is on {t.device}, Z on {Z.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def quadform_heads_cuda(
@@ -78,14 +96,41 @@ def quadform_heads_cuda(
     CPU tensors take the plain twin; CUDA tensors launch the kernel or
     raise. Nothing falls back from the card to the plain version.
     """
-    if Z.device.type == "cpu":
+    if not on_card(Z, "quadform_heads"):
         return quadform_heads_torch(Z, M_all, V, c, b, gamma, msq)
-    if Z.device.type != "cuda":
-        raise ValueError(f"quadform_heads runs on cpu or cuda, not {Z.device}")
-    _check(Z, M_all, V, c, b, gamma, msq)
+    check_operands(Z, _heads_operands(Z, M_all, V, c, b, gamma, msq, torch.float32))
+    config = config or tuning.lookup("quadform")
+    return _launch(KERNEL, config, Z, (M_all,), (V, c, b, gamma, msq))
+
+
+def quadform_heads_q8_cuda(
+    Z, M_q, col_scale, V, c, b, gamma, msq, *, config: TileConfig | None = None
+):
+    """Fused K-head scores off an int8 stacked Hessian. Z: (n, d),
+    M_q: (K, d, d) int8, col_scale: (K, d) f32 per-column dequantization
+    scales (expanded from the stored per-group form), V: (K, d) f32
+    (dequantized); c/b/gamma/msq: (K,) f32. Same return contract as
+    ``quadform_heads_cuda``.
+
+    CPU tensors take the plain twin; CUDA tensors launch the kernel or
+    raise.
+    """
+    if not on_card(Z, "quadform_heads_q8"):
+        return quadform_heads_q8_torch(Z, M_q, col_scale, V, c, b, gamma, msq)
+    operands = _heads_operands(Z, M_q, V, c, b, gamma, msq, torch.int8)
+    operands["col_scale"] = (col_scale, (M_q.shape[0], Z.shape[1]), torch.float32)
+    check_operands(Z, operands)
+    config = config or tuning.lookup("quadform_q8")
+    return _launch(KERNEL_Q8, config, Z, (M_q, col_scale), (V, c, b, gamma, msq))
+
+
+def _launch(kernel: CudaKernel, config: TileConfig, Z, hessian, rest):
+    """Allocate outputs and scratch and launch ``kernel``: ``hessian`` is
+    (M,) for B1 and (M_q, col_scale) for B3, ``rest`` is (V, c, b, gamma,
+    msq)."""
     n, d = Z.shape
-    k = M_all.shape[0]
-    config = (config or tuning.lookup("quadform")).clamp_block_n(n)
+    k = hessian[0].shape[0]
+    config = config.clamp_block_n(n)
     if config.block_n not in BLOCK_N:
         raise ValueError(f"block_n must be one of {BLOCK_N}, got {config.block_n}")
     scores = torch.empty((n, k), dtype=torch.float32, device=Z.device)
@@ -106,14 +151,10 @@ def quadform_heads_cuda(
     zsq_part = torch.empty((splits, n), dtype=torch.float32, device=Z.device)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
-        KERNEL.launch(
+        kernel.launch(
             Z.data_ptr(),
-            M_all.data_ptr(),
-            V.data_ptr(),
-            c.data_ptr(),
-            b.data_ptr(),
-            gamma.data_ptr(),
-            msq.data_ptr(),
+            *(t.data_ptr() for t in hessian),
+            *(t.data_ptr() for t in rest),
             n,
             d,
             k,

@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, check_operands, on_card
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 
 BLOCK_M = 64  # SVs per tile, fixed in the source
@@ -52,27 +52,6 @@ def rbf_scores_torch(Z, X, alpha_y, gamma, b):
     return out[:, 0] if single else out
 
 
-def _check(Z, X, A, bias, gamma):
-    n, d = Z.shape
-    k, m = A.shape
-    want = {
-        "Z": (Z, (n, d)),
-        "X": (X, (m, d)),
-        "alpha_y": (A, (k, m)),
-        "b": (bias, (k,)),
-        "gamma": (gamma, (1,)),
-    }
-    for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if t.device != Z.device:
-            raise ValueError(f"{name} is on {t.device}, Z on {Z.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def rbf_scores_cuda(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None):
     """Exact f(Z) = sum_i a_i exp(-gamma ||x_i - z||^2) + b, per head.
 
@@ -82,16 +61,23 @@ def rbf_scores_cuda(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None
     CPU tensors take the plain twin; CUDA tensors launch the kernel or
     raise. Nothing falls back from the card to the plain version.
     """
-    if Z.device.type == "cpu":
+    if not on_card(Z, "rbf_scores"):
         return rbf_scores_torch(Z, X, alpha_y, gamma, b)
-    if Z.device.type != "cuda":
-        raise ValueError(f"rbf_scores runs on cpu or cuda, not {Z.device}")
     A, bias, single = _as_heads(alpha_y, b)
     bias = bias.contiguous()
     gamma = torch.as_tensor(gamma, dtype=torch.float32, device=Z.device).reshape(1)
-    _check(Z, X, A, bias, gamma)
     n, d = Z.shape
     k, m = A.shape
+    f32 = torch.float32
+    check_operands(
+        Z,
+        {
+            "X": (X, (m, d), f32),
+            "alpha_y": (A, (k, m), f32),
+            "b": (bias, (k,), f32),
+            "gamma": (gamma, (1,), f32),
+        },
+    )
     config = (config or tuning.lookup("rbf_pred")).clamp_block_n(n)
     if config.block_n not in BLOCK_N:
         raise ValueError(f"block_n must be one of {BLOCK_N}, got {config.block_n}")

@@ -1,7 +1,11 @@
 """SVM prediction engine — the paper's application layer (§5), on PyTorch.
 
-Serves a compiled maclaurin artifact through kernel B1 and re-scores the
-rows outside the Eq 3.11 envelope exactly through kernel B2. The design
+Serves a ``CompiledArtifact`` of any ported family through its family's
+scorer: maclaurin and poly2 through kernel B1 (f32) or B3 (int8), dense
+fourier through kernel B4 (f32) or B5 (int8). Rows the artifact cannot
+vouch for are re-scored exactly through kernel B2: per row outside the
+Eq 3.11 envelope for the quadform families, every row of a fourier
+artifact whose held-out verdict (``valid_globally``) failed. The design
 follows ``repro.serve.svm_engine``:
 
 Shape buckets
@@ -19,7 +23,7 @@ Deferred synchronization
   validity and labels travel packed in one tensor).
 
 Exact fallback
-  Rows outside the envelope are re-scored with the exact expansion over
+  Rows marked invalid are re-scored with the exact expansion over
   all K heads at once (kernel B2, every distance shared by the heads), and
   patched into the result when it is read. ``submit_exact`` serves a
   whole batch through that path (the runtime's degraded mode).
@@ -348,8 +352,8 @@ class SVMEngine:
 
     def warmup(self, batch_sizes=None) -> int:
         """Run every bucket a stream can hit once, and the exact path once
-        when there is one (loading both kernels on the card), without
-        counting the traffic in the serving stats."""
+        when there is one (loading the artifact's kernel and B2 on the
+        card), without counting the traffic in the serving stats."""
         if batch_sizes is None:
             batch_sizes, b = [], self.min_bucket
             while b <= self.max_batch:

@@ -97,15 +97,15 @@ def test_load_rejects_newer_versions_and_foreign_files(tmp_path, monkeypatch):
 
 
 def test_unported_families_and_dtypes_say_so():
-    for name in ("poly2", "fourier"):
-        with pytest.raises(KeyError, match="not yet ported"):
-            families.get_family(name)
+    """Every family and dtype of the default grid is ported; what is not
+    (the Fastfood projection, kernels B6/B7) raises and names its queue."""
+    assert sorted(families.FAMILIES) == ["fourier", "maclaurin", "poly2"]
     with pytest.raises(KeyError, match="unknown"):
         families.get_family("nope")
     _, tm = _svm(1)
-    with pytest.raises(NotImplementedError, match="A5"):
-        families.maclaurin.compile(tm, dtype="int8")
-    assert families.maclaurin.tile_lookup(families.maclaurin.compile(tm), 64) == (
-        "quadform",
-        "d12_k1_n64",
-    )
+    with pytest.raises(NotImplementedError, match="B6/B7"):
+        families.fourier.compile(tm, structured=True)
+    art = families.maclaurin.compile(tm)
+    assert families.maclaurin.tile_lookup(art, 64) == ("quadform", "d12_k1_n64")
+    q8 = families.maclaurin.quantize_quadform_artifact(art)
+    assert families.maclaurin.tile_lookup(q8, 64) == ("quadform_q8", "d12_k1_n64")

@@ -90,11 +90,19 @@ def test_other_devices_raise():
         qf.quadform_heads_cuda(z, m, v, k1, k1, k1, k1)
 
 
-def test_failed_build_raises_with_the_log(monkeypatch, tmp_path):
+@pytest.mark.parametrize("source", ["quadform.cu", "rbf_pred.cu", "rff_score.cu"])
+def test_failed_build_raises_with_the_log(monkeypatch, tmp_path, source):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc", lambda: "false")  # a compiler that fails
-    with pytest.raises(RuntimeError, match="nvcc failed on quadform.cu"):
-        build.build_all(["quadform.cu"])
+    with pytest.raises(RuntimeError, match=f"nvcc failed on {source}"):
+        build.build_all([source])
     assert not list(tmp_path.iterdir())  # no half-written library left behind
-    assert build.library_path("quadform.cu") != build.library_path("rbf_pred.cu")
-    assert set(build.KERNELS) == {"quadform_heads", "rbf_scores"}
+    sources = ("quadform.cu", "rbf_pred.cu", "rff_score.cu")
+    assert len({build.library_path(s) for s in sources}) == 3
+    assert set(build.KERNELS) == {
+        "quadform_heads",
+        "quadform_heads_q8",
+        "rbf_scores",
+        "rff_score",
+        "rff_score_q8",
+    }

@@ -1,4 +1,4 @@
-"""Kernels B1 and B2 on the card against their plain PyTorch twins.
+"""Kernels B1-B5 on the card against their plain PyTorch twins.
 
 Marked ``cuda``; each test skips inside its body where no card is present,
 so every worker collects the same tests. On a card:
@@ -16,6 +16,7 @@ from repro_torch.core import families  # noqa: E402
 from repro_torch.kernels.common import TileConfig  # noqa: E402
 from repro_torch.kernels.quadform import kernel as qf  # noqa: E402
 from repro_torch.kernels.rbf_pred import kernel as rp  # noqa: E402
+from repro_torch.kernels.rff_score import kernel as rk  # noqa: E402
 from repro_torch.serve import SVMEngine  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -117,3 +118,128 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert engines[1].stats.fallback_instances == int((~cpu.valid).sum()) > 0
     ex_cpu, ex_gpu = (e.submit_exact(Z) for e in engines)
     np.testing.assert_allclose(ex_gpu.values, ex_cpu.values, rtol=1e-4, atol=1e-4)
+
+
+def _q8_heads(n, k, d, seed, dev):
+    """B3's operands: B1's, with the Hessian quantized per column group."""
+    Z, M, V, c, b, gamma, msq = _heads(n, k, d, seed, dev)
+    M_q, scale = families.quantize.quantize_col_groups(M)
+    col_scale = families.quantize.expand_group_scales(torch.from_numpy(scale), d)
+    return Z, torch.from_numpy(M_q).to(dev), col_scale.to(dev), V, c, b, gamma, msq
+
+
+@pytest.mark.parametrize("block_n", [32, 64, 128])
+@pytest.mark.parametrize(
+    "n,k,d", [(1, 1, 3), (5, 3, 22), (100, 1, 123), (64, 2, 64), (257, 10, 780)]
+)
+def test_quadform_q8_kernel_matches_plain(cuda, n, k, d, block_n):
+    """d = 64, 780: four-byte Hessian loads; 3, 22, 123: the byte path."""
+    args = _q8_heads(n, k, d, seed=n + d, dev=cuda)
+    before = qf.KERNEL_Q8.launches
+    s, zsq, v = qf.quadform_heads_q8_cuda(*args, config=TileConfig(block_n=block_n))
+    assert qf.KERNEL_Q8.launches == before + 1
+    s0, zsq0, v0 = qf.quadform_heads_q8_torch(*args)
+    torch.cuda.synchronize()
+    assert float((s - s0).abs().max()) <= 1e-4 * float(s0.abs().max()) + 1e-5
+    assert float(((zsq - zsq0).abs() / zsq0.clamp(min=1e-30)).max()) <= 1e-5
+    assert torch.equal(v, v0)
+    again = qf.quadform_heads_q8_cuda(*args, config=TileConfig(block_n=block_n))
+    assert torch.equal(again[0], s)
+
+
+def _rff(n, d, f, k, seed, dev, q8):
+    rng = np.random.default_rng(seed)
+    Z = rng.random((n, d)).astype(np.float32)
+    W = rng.normal(0.0, np.sqrt(2.0 / d), size=(f, d)).astype(np.float32)
+    phase = rng.uniform(0.0, 2.0 * np.pi, size=f).astype(np.float32)
+    wt = (rng.standard_normal((k, f)) * 2.0 / f).astype(np.float32)
+    bias = rng.standard_normal(k).astype(np.float32)
+    if q8:
+        W_q, w_scale = families.quantize.quantize_rows(W)
+        wt_q, wt_scale = families.quantize.quantize_rows(wt)
+        arrays = (Z, W_q, w_scale, phase, wt_q, wt_scale, bias)
+    else:
+        arrays = (Z, W, phase, wt, bias)
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+def _rff_tol(args, q8):
+    """4x the f32 twin's distance from a float64 evaluation, + 1e-6."""
+    twin = rk.rff_score_q8_torch if q8 else rk.rff_score_torch
+    d64 = [a if a.dtype == torch.int8 else a.double() for a in args]
+    out0, out64 = twin(*args), twin(*d64)
+    return out0, 4.0 * float((out0.double() - out64).abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+@pytest.mark.parametrize(
+    "n,d,f,k",
+    [(1, 3, 10, 1), (7, 22, 100, 3), (65, 40, 1000, 17), (300, 780, 1024, 10)],
+)
+def test_rff_kernels_match_plain_and_repeat_bitwise(cuda, n, d, f, k, splits, q8):
+    args = _rff(n, d, f, k, seed=n + f, dev=cuda, q8=q8)
+    kernel = rk.KERNEL_Q8 if q8 else rk.KERNEL
+    fn = rk.rff_score_q8_cuda if q8 else rk.rff_score_cuda
+    before = kernel.launches
+    out = fn(*args, config=TileConfig(splits=splits))
+    assert kernel.launches == before + 1
+    out0, tol = _rff_tol(args, q8)
+    torch.cuda.synchronize()
+    assert out.shape == (n, k)
+    assert float((out - out0).abs().max()) <= tol
+    again = fn(*args, config=TileConfig(splits=splits))
+    assert torch.equal(again, out)  # no atomics: the same bits every run
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = _q8_heads(8, 2, 16, seed=0, dev=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        qf.quadform_heads_q8_cuda(q[0], q[1].float(), *q[2:])
+    with pytest.raises(ValueError, match="shape"):
+        qf.quadform_heads_q8_cuda(*q[:2], q[2][:, :8].contiguous(), *q[3:])
+    r = _rff(8, 16, 70, 2, seed=0, dev=cuda, q8=False)
+    with pytest.raises(TypeError):
+        rk.rff_score_cuda(r[0].double(), *r[1:])
+    with pytest.raises(ValueError, match="shape"):
+        rk.rff_score_cuda(r[0], r[1][:, :8].contiguous(), *r[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.rff_score_cuda(r[0], r[1], r[2], r[3].T.contiguous().T, r[4])
+    with pytest.raises(ValueError, match="block_n"):
+        wide = _rff(200, 16, 70, 2, seed=1, dev=cuda, q8=False)
+        rk.rff_score_cuda(*wide, config=TileConfig(block_n=128))
+    r8 = _rff(8, 16, 70, 2, seed=0, dev=cuda, q8=True)
+    with pytest.raises(TypeError, match="int8"):
+        rk.rff_score_q8_cuda(r8[0], r8[1].float(), *r8[2:])
+    with pytest.raises(ValueError, match="shape"):
+        rk.rff_score_q8_cuda(*r8[:5], r8[5][:1].contiguous(), r8[6])
+
+
+@pytest.mark.parametrize("family", ["maclaurin", "poly2", "fourier"])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_every_family_on_the_card_matches_the_cpu(cuda, family, dtype):
+    rng = np.random.default_rng(2)
+    X = (rng.standard_normal((300, 24)) * 0.3).astype(np.float32)
+    ay = rng.standard_normal((3, 300)).astype(np.float32)
+    ay -= ay.mean(1, keepdims=True)
+    b = rng.standard_normal(3).astype(np.float32)
+    svm_cpu = convert.svm_from_numpy(X, ay, b, 0.02, device="cpu")
+    art = families.get_family(family).compile(svm_cpu, dtype=dtype, num_features=500)
+    Z = (rng.standard_normal((77, 24)) * 0.3).astype(np.float32)
+    Z[::6] *= 80.0
+    kernel = {
+        ("maclaurin", "float32"): qf.KERNEL,
+        ("maclaurin", "int8"): qf.KERNEL_Q8,
+        ("fourier", "float32"): rk.KERNEL,
+        ("fourier", "int8"): rk.KERNEL_Q8,
+    }[("fourier" if family == "fourier" else "maclaurin", dtype)]
+    results = []
+    for dev in ("cpu", cuda):
+        svm = convert.svm_from_numpy(X, ay, b, 0.02, device=dev)
+        before = kernel.launches
+        results.append(SVMEngine(art.to(dev), svm, device=dev).submit(Z))
+    assert kernel.launches == before + 1  # the card's submit went through it
+    cpu, gpu = results
+    np.testing.assert_allclose(gpu.values, cpu.values, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(gpu.valid, cpu.valid)
+    assert (gpu.labels == cpu.labels).mean() >= 0.98  # near-ties may split
