@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives two paths at the paper's mnist
-width (d=780, 10 one-vs-rest heads, 16384 SVs):
+source, all started together) and drives three paths at the paper's mnist
+width (d=780, 10 one-vs-rest heads):
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -14,17 +14,23 @@ width (d=780, 10 one-vs-rest heads, 16384 SVs):
    int8 (kernels B1, B3, B4, B5), the winner saved, loaded and served,
    then each of the six (family, dtype) artifacts served with rows pushed
    out of the envelope, and a fourier artifact whose held-out verdict
-   failed, which sends every row to B2.
+   failed, which sends every row to B2;
+3. training on the card (one-vs-rest LS-SVMs on 8192 rows, and a dual
+   C-SVC with ``compress_support``), ``compile_model`` over every family
+   with the Fastfood projection for fourier, and the Fastfood artifacts
+   at f32 and int8 (kernels B6, B7) saved, loaded and served, beside
+   copies whose held-out verdict failed.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Each kernel is held against its plain PyTorch twin at
 full width, and timed beside its twin, a library call and the least time
 the card could take.
 
-The model is random from a seed, shaped like a trained one so that no
-constant swamps what the checks look at: each head's ``alpha_y`` sums to
-0 (the SVM dual's equality constraint), and ``b`` makes every head score
-0 at z = 0, so the labels follow z.
+The model of paths 1 and 2 (16384 SVs) is random from a seed, shaped like
+a trained one so that no constant swamps what the checks look at: each
+head's ``alpha_y`` sums to 0 (the SVM dual's equality constraint), and
+``b`` makes every head score 0 at z = 0, so the labels follow z. Path 3's
+model is trained.
 
 Output: phase lines (each with its seconds), the card line from
 nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
@@ -82,6 +88,24 @@ CELL_SCALED = (1, 16)  # rows of each pushed out of the envelope
 # B3 is held as B1 is. B4/B5: the readout sums cancel as B2's do, so B2's
 # rule: at most B45_TWIN times the f32 twin's distance from float64, + B45_ABS.
 B45_TWIN, B45_ABS = 4.0, 1e-6
+
+# Third path: K Gaussian classes at d=780 with means 3 N(0, I) apart (the
+# reference suite's one-vs-rest recipe at the mnist width), LS-SVMs at
+# gamma = 0.5 gamma_max(X) and reg_c = 10.
+OVR_TRAIN, OVR_TEST = 8192, 2048
+OVR_GAMMA_SHARE, OVR_REG_C = 0.5, 10.0
+MIN_OVR_TRAIN_ACC = 0.9  # what the recipe reaches in the JAX suite
+# The dual C-SVC: 4096 rows, 500 steps, C = 1, on make_dataset("mnist") at
+# the spec gamma, and on class 0 against the rest of the OvR rows.
+SVC_ROWS, SVC_STEPS, SVC_C = 4096, 500, 1.0
+SVC_RTOL = SVC_ATOL = 1e-4  # compressed against dense decision values
+# n_sv of the reference trainer (repro.svm.dual.train_svc) on the mnist
+# task, from scripts/svc_reference_count.py: at gamma 1e-4 the kernel is
+# nearly constant over these rows and every row stays a support vector.
+SVC_MNIST_N_SV = 4096
+FF_FEATURES = (4096, 1024)  # Fastfood basis served, and the default
+# B6/B7: B4's rule, at most FF_TWIN times the twin's distance from float64.
+FF_TWIN, FF_ABS = 4.0, 1e-6
 
 
 class PhaseFailed(RuntimeError):
@@ -160,8 +184,162 @@ def rff_work(n: int, f: int, k: int, d: int, w_bytes: int) -> tuple[float, float
     return flops, nbytes
 
 
+def fastfood_work(
+    n: int, f: int, k: int, d: int, w_bytes: int
+) -> tuple[float, float]:
+    """(flops, bytes) of kernels B6 (``w_bytes`` 4) and B7 (1): per row and
+    stack two transforms of d' log2 d' adds, the three diagonals, the
+    phase add and the cos (the gather is a move, not an operation); then
+    the readout and the bias (B7: the stack and head scales too). Bytes:
+    Z, the O(F) operators (perm and phase 4 bytes in B6, 2 in B7), the
+    readout, the scales and the output."""
+    dd = 1 << max(1, (d - 1).bit_length())
+    per_elem = 2.0 * (dd.bit_length() - 1) + 3.0 + 2.0
+    flops = n * f * per_elem + 2.0 * n * f * k + 1.0 * n * k
+    small = 4 if w_bytes == 4 else 2
+    nbytes = 4.0 * (n * d + k + n * k) + f * (3 * w_bytes + 2 * small) + w_bytes * k * f
+    if w_bytes == 1:
+        flops += 1.0 * n * f + 1.0 * n * k
+        nbytes += 4.0 * (f // dd + k)
+    return flops, nbytes
+
+
+def kernel_args(art):
+    """(plain twin, kernel wrapper, operands after Z) of the kernel that
+    serves ``art``, for every family, projection and dtype."""
+    import torch
+
+    from repro_torch.core.families import quantize
+    from repro_torch.kernels.fwht import kernel as ff
+    from repro_torch.kernels.quadform import kernel as qf
+    from repro_torch.kernels.rff_score import kernel as rk
+
+    a = art.arrays
+    q8 = art.dtype == "int8"
+    if art.meta["kind"] == "quadform":
+        rest = (a["c"], a["b"], a["gamma"], a["msq"])
+        if not q8:
+            args = (a["M"], a["v"]) + rest
+            return qf.quadform_heads_torch, qf.quadform_heads_cuda, args
+        group = int(art.meta["group_size"])
+        col = quantize.expand_group_scales(a["M_scale"], art.d, group)
+        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
+        args = (a["M"], col, v) + rest
+        return qf.quadform_heads_q8_torch, qf.quadform_heads_q8_cuda, args
+    if art.meta["projection"] == "fastfood":
+        ops = (a["ff_b"], a["ff_g"], a["ff_perm"], a["ff_scale"])
+        if not q8:
+            args = ops + (a["phase"], a["weights"], a["b"])
+            return ff.fastfood_score_torch, ff.fastfood_score_cuda, args
+        args = ops + (a["ff_stack_scale"], a["phase"], a["weights"])
+        args += (a["weights_scale"], a["b"])
+        return ff.fastfood_score_q8_torch, ff.fastfood_score_q8_cuda, args
+    if not q8:
+        args = (a["W"], a["phase"], a["weights"], a["b"])
+        return rk.rff_score_torch, rk.rff_score_cuda, args
+    args = (a["W"], a["W_scale"], a["phase"], a["weights"], a["weights_scale"])
+    return rk.rff_score_q8_torch, rk.rff_score_q8_cuda, args + (a["b"],)
+
+
+def twin_tol(twin, args, Zd, ratio: float, floor: float):
+    """(twin scores, kernel tolerance, twin's distance from float64) for a
+    fourier kernel: ``ratio`` times the twin's distance from its float64
+    evaluation, + ``floor``; its readout sums cancel, so no tolerance
+    relative to the output holds."""
+    import torch
+
+    out0 = twin(Zd, *args)
+    d64 = [a if a.dtype == torch.int8 else a.double() for a in args]
+    twin_err = max_err(out0, twin(Zd.double(), *d64))
+    return out0, ratio * twin_err + floor, twin_err
+
+
+def plain_scores(art, Zd):
+    """The plain twin of ``art``'s kernel on the card: (scores, kernel
+    tolerance)."""
+    twin, _, args = kernel_args(art)
+    if art.meta["kind"] == "quadform":
+        s0 = twin(Zd, *args)[0]
+        return s0, B1_REL * float(s0.abs().max()) + B1_ABS
+    if art.meta["projection"] == "fastfood":
+        return twin_tol(twin, args, Zd, FF_TWIN, FF_ABS)[:2]
+    return twin_tol(twin, args, Zd, B45_TWIN, B45_ABS)[:2]
+
+
+def exact64(model, dev):
+    """``fn(Z) -> (float64 scores, B2 tolerance)`` for ``model``'s exact
+    expansion on the rows of the numpy array ``Z``: the plain twin in
+    float64, and B2_TWIN times the fp32 twin's distance from it + B2_ABS."""
+    import torch
+
+    from repro_torch.kernels.rbf_pred import kernel as rp
+
+    X64, A64, b64 = model.X.double(), model.alpha_y.double(), model.b.double()
+    g64 = float(model.gamma)
+
+    def fn(Z):
+        Zd = torch.from_numpy(Z).to(dev)
+        ref = rp.rbf_scores_torch(Zd.double(), X64, A64, g64, b64)
+        twin = rp.rbf_scores_torch(Zd, model.X, model.alpha_y, model.gamma, model.b)
+        return ref.cpu().numpy(), B2_TWIN * max_err(twin, ref) + B2_ABS
+
+    return fn
+
+
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def median_request_ms(engine, Z, repeats: int = 10) -> float:
+    """Median host time of ``engine.submit(Z)`` through labels on the host."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        engine.submit(Z).labels
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_kernel_times(timings: dict) -> None:
+    """One ``kernel_time`` line per (kernel, n, F) entry of ``timings``."""
+    for (name, n, f), t in timings.items():
+        bound_ms, bound_by = t["bound"]
+        times = {k: t[k] for k in ("ms", "plain_ms", "library_ms")}
+        phase(
+            "kernel_time",
+            kernel=name,
+            n=n,
+            f=f,
+            bound_ms=bound_ms,
+            bound_by=bound_by,
+            **times,
+        )
+
+
+def check_fourier_kernel(phase_name, launch, twin, args, Z, ratio, floor, **fields):
+    """Hold a fourier kernel's wrapper ``launch`` (B4-B7) against its plain
+    twin on ``Z``: max|Δ| within ``ratio`` times the twin's distance from
+    float64 + ``floor``, and the same bits on a second launch. Prints the
+    phase line and returns its results."""
+    import torch
+
+    out = launch(Z, *args)
+    again = launch(Z, *args)
+    out0, tol, twin_err = twin_tol(twin, args, Z, ratio, floor)
+    torch.cuda.synchronize()
+    err = max_err(out, out0)
+    res = dict(
+        max_abs_err=err,
+        twin_max_abs_err_vs_float64=twin_err,
+        tol=tol,
+        max_abs_ref=float(out0.abs().max()),
+        same_bits_again=bool(torch.equal(again, out)),
+    )
+    phase(phase_name, **fields, **res)
+    what = " ".join(f"{k}={v}" for k, v in fields.items())
+    check(err <= tol, f"{what}: {err} > {tol}")
+    check(res["same_bits_again"], f"{what}: bits differ run to run")
+    return res
 
 
 def push_out(Z, msq: float, gamma: float):
@@ -268,16 +446,7 @@ def run(dev) -> list[dict]:
 
     # Reference: the exact model in float64 through the plain twin, and the
     # fp32 twin's distance from it, which sets B2's tolerance.
-    X64 = torch.from_numpy(X).to(dev, torch.float64)
-    A64 = torch.from_numpy(alpha_y).to(dev, torch.float64)
-    b64 = torch.from_numpy(b).to(dev, torch.float64)
-
-    def exact64(Z):
-        """(float64 scores, B2 tolerance) for the rows of ``Z``."""
-        Zd = torch.from_numpy(Z).to(dev)
-        ref = rp.rbf_scores_torch(Zd.double(), X64, A64, float(gamma), b64)
-        twin = rp.rbf_scores_torch(Zd, svm.X, svm.alpha_y, svm.gamma, svm.b)
-        return ref.cpu().numpy(), B2_TWIN * max_err(twin, ref) + B2_ABS
+    exact = exact64(svm, dev)
 
     n_scaled_total = int(sum(s.sum() for _, s in requests))
     agree_in, agree_out, n_in = 0, 0, 0
@@ -285,7 +454,7 @@ def run(dev) -> list[dict]:
     fallback_err, fallback_tol, fallback_scale = 0.0, np.inf, 0.0
     for (Z, scaled), (vals, valid, labels) in zip(requests, served):
         check(bool((valid == ~scaled).all()), "valid mask != rows inside the envelope")
-        ref = exact64(Z)[0]
+        ref = exact(Z)[0]
         ref_labels = ref.argmax(-1)
         agree_in += int((labels[~scaled] == ref_labels[~scaled]).sum())
         agree_out += int((labels[scaled] == ref_labels[scaled]).sum())
@@ -294,7 +463,7 @@ def run(dev) -> list[dict]:
         top2 = np.sort(ref[~scaled], -1)[:, -2:]
         margins.append(top2[:, 1] - top2[:, 0])
         if scaled.any():
-            tol = exact64(Z[scaled])[1]
+            tol = exact(Z[scaled])[1]
             err = float(np.abs(vals[scaled] - ref[scaled]).max())
             fallback_err = max(fallback_err, err)
             fallback_tol = min(fallback_tol, tol)
@@ -302,7 +471,7 @@ def run(dev) -> list[dict]:
             check(err <= tol, f"fallback values: {err} > {tol}")
     ref_in_labels = np.concatenate(ref_in_labels)
     mode_share = np.bincount(ref_in_labels, minlength=K).max() / len(ref_in_labels)
-    ref_x, exact_tol = exact64(Z_exact)
+    ref_x, exact_tol = exact(Z_exact)
     exact_err = float(np.abs(exact_served[0] - ref_x).max())
     # fp32 resolves B2's scores only to ~exact_tol: rows whose float64 top
     # two lie closer than twice that are ties to fp32, and their label is
@@ -386,7 +555,10 @@ def run(dev) -> list[dict]:
     bd, gd = svm.b, svm.gamma
     out = rp.rbf_scores_cuda(Zr, Xd, Ad, gd, bd)
     out0 = rp.rbf_scores_torch(Zr, Xd, Ad, gd, bd)
-    out64 = rp.rbf_scores_torch(Zr.double(), X64, A64, float(gamma), b64)
+    b64 = svm.b.double()
+    out64 = rp.rbf_scores_torch(
+        Zr.double(), svm.X.double(), svm.alpha_y.double(), float(gamma), b64
+    )
     torch.cuda.synchronize()
     b2_err, twin_err = max_err(out, out0), max_err(out0, out64)
     b2_tol = B2_TWIN * twin_err + B2_ABS
@@ -433,24 +605,21 @@ def run(dev) -> list[dict]:
     r_bound, r_by = bound(*rbf_work(256, N_SV, K, spec.d))
 
     # End to end after warmup: host clock around submit -> labels on host.
-    e2e = {}
-    for (Z, _), n in zip(requests, REQUEST_ROWS):
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            engine.submit(Z).labels
-            times.append((time.perf_counter() - t0) * 1e3)
-        e2e[n] = sorted(times)[len(times) // 2]
-    phase("serve_median_ms", **{f"rows_{n}": t for n, t in e2e.items()})
+    e2e = {
+        f"rows_{n}": median_request_ms(engine, Z)
+        for (Z, _), n in zip(requests, REQUEST_ROWS)
+    }
+    phase("serve_median_ms", **e2e)
     seconds["timing"] = time.perf_counter() - t_phase
     phase("first_path_seconds", **seconds)
 
     # ================================================= second path (B3-B5)
     kernels_q8_rff, launches2 = second_path(
-        dev, svm, loaded, X_te, Zq, exact64, msq, float(gamma)
+        dev, svm, loaded, X_te, Zq, exact, msq, float(gamma)
     )
-    for name in launches:
-        launches[name] += launches2[name]
+    # ================================================== third path (B6, B7)
+    kernels_ff, launches3 = third_path(dev)
+    per_path = {n: [launches[n], launches2[n], launches3[n]] for n in launches}
 
     kernels = [
         {
@@ -458,7 +627,8 @@ def run(dev) -> list[dict]:
             "route": "cuda",
             "source": "src/repro_torch/csrc/quadform.cu",
             "replaces": "src/repro/kernels/quadform/kernel.py:125",
-            "launches": launches["quadform_heads"],
+            "launches": sum(per_path["quadform_heads"]),
+            "launches_per_path": per_path["quadform_heads"],
             "max_abs_err": b1[1024, "all"]["max_abs_err"],
             "ms": q_ms,
             "plain_ms": q_plain,
@@ -471,7 +641,8 @@ def run(dev) -> list[dict]:
             "route": "cuda",
             "source": "src/repro_torch/csrc/rbf_pred.cu",
             "replaces": "src/repro/kernels/rbf_pred/kernel.py:114",
-            "launches": launches["rbf_scores"],
+            "launches": sum(per_path["rbf_scores"]),
+            "launches_per_path": per_path["rbf_scores"],
             "max_abs_err": b2_err,
             "ms": r_ms,
             "plain_ms": r_plain,
@@ -480,14 +651,17 @@ def run(dev) -> list[dict]:
             "library_ms": r_lib,
         },
     ]
-    return kernels + kernels_q8_rff
+    for entry in kernels_q8_rff + kernels_ff:
+        entry["launches"] = sum(per_path[entry["name"]])
+        entry["launches_per_path"] = per_path[entry["name"]]
+    return kernels + kernels_q8_rff + kernels_ff
 
 
-def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
+def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
     """``compile_model`` over every (family, dtype) and kernels B3-B5.
 
     ``mac`` is the first path's f32 maclaurin artifact, ``Zq`` its kernel
-    check rows (both sides of the envelope), ``exact64`` its float64
+    check rows (both sides of the envelope), ``exact`` its float64
     reference. Returns (the B3-B5 ``kernels`` entries, every kernel's
     launches on this path's serving phases).
     """
@@ -498,54 +672,15 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     from repro_torch.core.families import quantize
     from repro_torch.kernels import build
     from repro_torch.kernels.quadform import kernel as qf
-    from repro_torch.kernels.rff_score import kernel as rk
     from repro_torch.serve import SVMEngine
 
     d = svm.X.shape[1]
     seconds = {}
 
-    def quadform_args(art):
-        """(twin, kernel, args) of a quadform artifact, f32 or int8."""
-        a = art.arrays
-        rest = (a["c"], a["b"], a["gamma"], a["msq"])
-        if art.dtype == "float32":
-            args = (a["M"], a["v"]) + rest
-            return qf.quadform_heads_torch, qf.quadform_heads_cuda, args
-        group = int(art.meta["group_size"])
-        col = quantize.expand_group_scales(a["M_scale"], d, group)
-        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
-        args = (a["M"], col, v) + rest
-        return qf.quadform_heads_q8_torch, qf.quadform_heads_q8_cuda, args
-
-    def rff_args(art):
-        """(twin, kernel, args) of a dense fourier artifact, f32 or int8."""
-        a = art.arrays
-        if art.dtype == "float32":
-            args = (a["W"], a["phase"], a["weights"], a["b"])
-            return rk.rff_score_torch, rk.rff_score_cuda, args
-        args = (a["W"], a["W_scale"], a["phase"], a["weights"], a["weights_scale"])
-        return rk.rff_score_q8_torch, rk.rff_score_q8_cuda, args + (a["b"],)
-
-    def rff_tol(twin, args, Zd):
-        """(twin scores, B4/B5 tolerance, twin's distance from float64)."""
-        out0 = twin(Zd, *args)
-        d64 = [a if a.dtype == torch.int8 else a.double() for a in args]
-        twin_err = max_err(out0, twin(Zd.double(), *d64))
-        return out0, B45_TWIN * twin_err + B45_ABS, twin_err
-
-    def plain_scores(art, Zd):
-        """The family's plain twin on the card: (scores, kernel tolerance)."""
-        if art.meta["kind"] == "quadform":
-            twin, _, args = quadform_args(art)
-            s0 = twin(Zd, *args)[0]
-            return s0, B1_REL * float(s0.abs().max()) + B1_ABS
-        twin, _, args = rff_args(art)
-        return rff_tol(twin, args, Zd)[:2]
-
     # ------------------------------------------------- B3 against its twin
     t0 = time.perf_counter()
     q8 = families.maclaurin.quantize_quadform_artifact(mac)
-    _, _, q8_heads = quadform_args(q8)
+    _, _, q8_heads = kernel_args(q8)
     M_q, col, v_deq, _, _, g, m = q8_heads
     zero = torch.zeros_like(g)
     q8_quad = (M_q, col, torch.zeros_like(v_deq), zero, zero, g, m)
@@ -590,26 +725,23 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     Zf = torch.from_numpy(X_te[: max(KERNEL_ROWS)].copy()).to(dev)
     b45 = {}
     for (f, dt), art in rff_arts.items():
-        twin, kernel, args = rff_args(art)
+        twin, kernel, args = kernel_args(art)
         name = kernel.__name__.removesuffix("_cuda")
         for n in KERNEL_ROWS:
-            out = kernel(Zf[:n], *args)
-            again = kernel(Zf[:n], *args)
-            out0, tol, twin_err = rff_tol(twin, args, Zf[:n])
-            torch.cuda.synchronize()
-            err = max_err(out, out0)
-            res = dict(
-                max_abs_err=err,
-                twin_max_abs_err_vs_float64=twin_err,
-                tol=tol,
-                max_abs_ref=float(out0.abs().max()),
-                same_bits_again=bool(torch.equal(again, out)),
+            b45[name, n, f] = check_fourier_kernel(
+                "kernel_check_rff",
+                kernel,
+                twin,
+                args,
+                Zf[:n],
+                B45_TWIN,
+                B45_ABS,
+                kernel=name,
+                n=n,
+                k=K,
+                d=d,
+                f=f,
             )
-            phase("kernel_check_rff", kernel=name, n=n, k=K, d=d, f=f, **res)
-            what = f"{name} n={n} F={f}"
-            check(err <= tol, f"{what}: {err} > {tol}")
-            check(res["same_bits_again"], f"{what}: bits differ run to run")
-            b45[name, n, f] = res
     seconds["kernel_check_rff"] = time.perf_counter() - t0
 
     # ---------------------------------------------------------------- timing
@@ -625,7 +757,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
             bound=bound(*quadform_q8_work(n, K, d)),
         )
     for (f, dt), art in rff_arts.items():
-        twin, kernel, args = rff_args(art)
+        twin, kernel, args = kernel_args(art)
         name = kernel.__name__.removesuffix("_cuda")
         W = art.arrays["W"].to(torch.float32)
         if dt == "int8":
@@ -639,18 +771,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
                 library_ms=time_ms(lambda: torch.matmul(Zn, W.T)),
                 bound=bound(*rff_work(n, f, K, d, w_bytes)),
             )
-    for (name, n, f), t in timings.items():
-        bound_ms, bound_by = t["bound"]
-        times = {k: t[k] for k in ("ms", "plain_ms", "library_ms")}
-        phase(
-            "kernel_time",
-            kernel=name,
-            n=n,
-            f=f,
-            bound_ms=bound_ms,
-            bound_by=bound_by,
-            **times,
-        )
+    phase_kernel_times(timings)
     seconds["kernel_time"] = time.perf_counter() - t0
 
     # --------------------------------------------------------- compile_model
@@ -669,18 +790,18 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     seconds["compile_model"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    skip = compile_model(
+    structured = compile_model(
         svm,
         budget,
         seed=SEED,
         families=("maclaurin", "fourier"),
         family_opts={"fourier": {"structured": True}},
     )
-    for row in skip.meta["compile_report"]["families"]:
+    for row in structured.meta["compile_report"]["families"]:
         phase("compile_model_structured_row", **row)
-        if row["family"] == "fourier":
-            reason = row.get("skipped", "")
-            check("B6/B7" in reason, f"structured fourier not skipped: {row}")
+        if row["family"] == "fourier":  # measured (B6/B7) or pruned, not skipped
+            reason = row.get("skipped")
+            check(reason in (None, "pruned_by_cost"), f"structured fourier: {row}")
     seconds["compile_model_structured"] = time.perf_counter() - t0
 
     # ------------------------------------- serving: the winner and every cell
@@ -710,7 +831,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
         scaled[rng.choice(n, size=n_scaled, replace=False)] = True
         Z[scaled] = push_out(Z[scaled], msq, gamma)
         requests.append((Z, scaled))
-    refs = [exact64(Z) for Z, _ in requests]
+    refs = [exact(Z) for Z, _ in requests]
     engines = []
     for _, art in served:
         engine = SVMEngine(art, svm, device=dev)
@@ -730,7 +851,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     t0 = time.perf_counter()
     for (label, art), engine, per_engine in zip(served, engines, results):
         fields = serve_cell_checks(
-            label, art, engine, per_engine, requests, refs, plain_scores, exact64, dev
+            label, art, engine, per_engine, requests, refs, exact, dev
         )
         row = rows.get((art.family, art.dtype), {})
         if "mean_abs" in row:
@@ -748,19 +869,16 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     # End to end after warmup, per cell: host clock around submit -> labels.
     t0 = time.perf_counter()
     for (label, _), engine in zip(served, engines):
-        medians = {}
-        for (Z, _), n in zip(requests, CELL_ROWS):
-            times = []
-            for _ in range(10):
-                t1 = time.perf_counter()
-                engine.submit(Z).labels
-                times.append((time.perf_counter() - t1) * 1e3)
-            medians[f"rows_{n}"] = sorted(times)[len(times) // 2]
+        medians = {
+            f"rows_{n}": median_request_ms(engine, Z)
+            for (Z, _), n in zip(requests, CELL_ROWS)
+        }
         phase("serve_cell_median_ms", cell=label, **medians)
     seconds["serve_timing"] = time.perf_counter() - t0
     phase("second_path_launches", **launches)
-    for name, count in launches.items():
-        check(count > 0, f"{name} never launched on the second path")
+    path_kernels = ("quadform_heads", "quadform_heads_q8", "rbf_scores")
+    for name in path_kernels + ("rff_score", "rff_score_q8"):
+        check(launches[name] > 0, f"{name} never launched on the second path")
     phase("second_path_seconds", **seconds)
 
     n_t, f_t = max(KERNEL_ROWS), FEATURES[0]
@@ -803,8 +921,265 @@ def second_path(dev, svm, mac, X_te, Zq, exact64, msq: float, gamma: float):
     return entries, launches
 
 
+def third_path(dev):
+    """Training on the card, ``compile_model`` with the Fastfood projection
+    and kernels B6/B7.
+
+    Returns (the B6/B7 ``kernels`` entries, every kernel's launches on
+    this path: training, ``compile_model`` and serving; the kernel checks
+    and timings come after the count is read).
+    """
+    import torch
+
+    from repro_torch import svm as training
+    from repro_torch.core import backend, families, gamma_max
+    from repro_torch.core.families import Budget, CompiledArtifact, compile_model
+    from repro_torch.core.families import quantize
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fwht import ref as ffref
+    from repro_torch.serve import SVMEngine
+    from repro_torch.svm import dual
+
+    seconds = {}
+    rng = np.random.default_rng(SEED + 2)
+    X_mnist, y_mnist, Xm_te, ym_te, spec = make_dataset("mnist", scale=0.1, seed=SEED)
+    d = spec.d
+    mus = rng.standard_normal((K, d)) * 3
+    y_all = np.arange(OVR_TRAIN + OVR_TEST) % K
+    X_all = (rng.standard_normal((len(y_all), d)) + mus[y_all]).astype(np.float32)
+    X_tr, y_tr = X_all[:OVR_TRAIN], y_all[:OVR_TRAIN]
+    X_te, y_te = X_all[OVR_TRAIN:], y_all[OVR_TRAIN:]
+
+    # ---------------------------------------------------------------- train
+    build.reset_counts()
+    t_train = t0 = time.perf_counter()
+    Xd = torch.from_numpy(X_tr).to(dev)
+    gamma = OVR_GAMMA_SHARE * float(gamma_max(Xd))
+    ovr = training.train_one_vs_rest(
+        Xd, torch.from_numpy(y_tr).to(dev), K, gamma, OVR_REG_C
+    )
+    torch.cuda.synchronize()
+    ovr_s = time.perf_counter() - t0
+    acc_tr = float((training.ovr_predict(ovr, X_tr).cpu().numpy() == y_tr).mean())
+    acc_te = float((training.ovr_predict(ovr, X_te).cpu().numpy() == y_te).mean())
+    phase(
+        "train_one_vs_rest",
+        seconds=ovr_s,
+        n=OVR_TRAIN,
+        d=d,
+        k=K,
+        gamma=gamma,
+        reg_c=OVR_REG_C,
+        train_acc=acc_tr,
+        test_acc=acc_te,
+        max_abs_alpha=float(ovr.alpha_y.abs().max()),
+    )
+    check(acc_tr > MIN_OVR_TRAIN_ACC, f"one-vs-rest train accuracy {acc_tr}")
+
+    # The dual C-SVC, "class vs others": on mnist rows at the spec gamma, and
+    # on class 0 of the one-vs-rest rows at their gamma.
+    svc_tasks = {
+        "mnist": (X_mnist, y_mnist, Xm_te, ym_te, spec.paper_gamma),
+        "class0": (
+            X_tr,
+            np.where(y_tr == 0, 1.0, -1.0),
+            X_te,
+            np.where(y_te == 0, 1.0, -1.0),
+            gamma,
+        ),
+    }
+    svc_n_sv = {}
+    for task, (Xs, ys, Xs_te, ys_te, g) in svc_tasks.items():
+        t0 = time.perf_counter()
+        Xs_d = torch.from_numpy(Xs[:SVC_ROWS]).to(dev)
+        ys_d = torch.from_numpy(ys[:SVC_ROWS].astype(np.float32)).to(dev)
+        model, mask = training.train_svc(Xs_d, ys_d, g, SVC_C, num_steps=SVC_STEPS)
+        small = dual.compress_support(model, mask)
+        torch.cuda.synchronize()
+        svc_s = time.perf_counter() - t0
+        Zs = torch.from_numpy(np.ascontiguousarray(Xs_te[:1024])).to(dev)
+
+        def decide(m, Z):
+            return backend.rbf_scores(Z, m.X, m.alpha_y, m.gamma, m.b)
+
+        dense, comp = decide(model, Zs), decide(small, Zs)
+        gap = float((comp - dense).abs().max())
+        tol_ok = bool(
+            ((comp - dense).abs() <= SVC_ATOL + SVC_RTOL * dense.abs()).all()
+        )
+        on_tr = torch.sign(decide(model, Xs_d)) == ys_d
+        on_te = torch.sign(dense).cpu().numpy() == ys_te[:1024]
+        svc_n_sv[task] = small.n_sv
+        kept = model.alpha_y.abs()[mask]
+        phase(
+            "train_svc",
+            task=task,
+            seconds=svc_s,
+            n=SVC_ROWS,
+            steps=SVC_STEPS,
+            c=SVC_C,
+            gamma=float(g),
+            n_sv=small.n_sv,
+            min_kept_alpha_over_threshold=float(kept.min()) / (1e-6 * SVC_C),
+            train_acc=float(on_tr.float().mean()),
+            test_acc=float(on_te.mean()),
+            compressed_max_abs_diff=gap,
+        )
+        check(tol_ok, f"svc {task}: compressed and dense differ by {gap}")
+    # On the mnist rows the reference trainer keeps every row (its smallest
+    # alpha is ~6e4 times the threshold, so no row is near the cut); the
+    # class-0 task shows the sparsity.
+    n_sv = svc_n_sv["mnist"]
+    check(n_sv == SVC_MNIST_N_SV, f"svc mnist: n_sv {n_sv}, reference {SVC_MNIST_N_SV}")
+    n_sv = svc_n_sv["class0"]
+    check(0 < n_sv < SVC_ROWS, f"svc class0: n_sv {n_sv} of {SVC_ROWS}")
+    seconds["train"] = time.perf_counter() - t_train
+
+    # --------------------------------------------------------- compile_model
+    t0 = time.perf_counter()
+    budget = Budget(**BUDGET)
+    ff_opts = {"structured": True, "num_features": FF_FEATURES[0]}
+    winner = compile_model(ovr, budget, seed=SEED, family_opts={"fourier": ff_opts})
+    report = winner.meta["compile_report"]
+    for row in report["families"]:
+        phase("compile_model_row", path=3, **row)
+    summary = {k: v for k, v in report.items() if k != "families"}
+    phase("compile_model", path=3, **summary)
+    rows = {(r["family"], r["dtype"]): r for r in report["families"]}
+    check(len(rows) == 6, f"compile_model report cells: {sorted(rows)}")
+    for dt in quantize.DTYPES:
+        row = rows["fourier", dt]
+        reason = row.get("skipped")
+        check(reason in (None, "pruned_by_cost"), f"structured fourier {dt}: {row}")
+    seconds["compile_model"] = time.perf_counter() - t0
+
+    # ------------------------------------ serve the Fastfood artifacts (B6/B7)
+    t0 = time.perf_counter()
+    sample = families.fourier.holdout_sample(ovr, SEED, 256)
+    arts = {
+        dt: training.compile_ovr(
+            ovr, "fourier", dtype=dt, seed=SEED, holdout=sample, **ff_opts
+        )
+        for dt in quantize.DTYPES
+    }
+    served = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for dt, art in arts.items():
+            loaded = CompiledArtifact.load(art.save(str(Path(tmp) / f"{dt}.npz")), dev)
+            check(loaded.digest() == art.digest(), f"save/load changed fastfood {dt}")
+            served.append((f"fastfood/{dt}", loaded))
+            failed = loaded.with_meta(valid_globally=False)
+            served.append((f"fastfood/{dt}, failed verdict", failed))
+    requests, off = [], 0
+    for n in CELL_ROWS:
+        requests.append((X_te[off : off + n].copy(), np.zeros(n, bool)))
+        off += n
+    exact = exact64(ovr, dev)
+    refs = [exact(Z) for Z, _ in requests]
+    engines = []
+    for _, art in served:
+        engine = SVMEngine(art, ovr, device=dev)
+        engine.warmup(list(CELL_ROWS))
+        engines.append(engine)
+    results = [[e.submit(Z) for Z, _ in requests] for e in engines]
+    for per_engine in results:
+        for r in per_engine:
+            r.labels  # materialize: the fallback rows are scored here
+    launches = build.counts()
+    seconds["serve"] = time.perf_counter() - t0
+    phase("third_path_launches", **launches)
+    for name in ("fastfood_score", "fastfood_score_q8", "rbf_scores"):
+        check(launches[name] > 0, f"{name} never launched on the third path")
+
+    for (label, art), engine, per_engine in zip(served, engines, results):
+        fields = serve_cell_checks(
+            label, art, engine, per_engine, requests, refs, exact, dev
+        )
+        fields["compile_mean_abs_err"] = rows["fourier", art.dtype].get("mean_abs")
+        fields["budget_limit"] = report["limit"]
+        phase("serve_cell", path=3, cell=label, **fields)
+    for (label, _), engine in zip(served, engines):
+        medians = {
+            f"rows_{n}": median_request_ms(engine, Z)
+            for (Z, _), n in zip(requests, CELL_ROWS)
+        }
+        phase("serve_cell_median_ms", path=3, cell=label, **medians)
+
+    # --------------------------------- B6/B7 against their twins, and timed
+    t0 = time.perf_counter()
+    ff_arts = {(FF_FEATURES[0], dt): a.to(dev) for dt, a in arts.items()}
+    for dt in quantize.DTYPES:
+        opts = dict(ff_opts, num_features=FF_FEATURES[1])
+        ff_arts[FF_FEATURES[1], dt] = training.compile_ovr(
+            ovr, "fourier", dtype=dt, seed=SEED, holdout=sample, **opts
+        )
+    Zf = torch.from_numpy(X_te[: max(KERNEL_ROWS)].copy()).to(dev)
+    eye = torch.eye(d, device=dev)
+    checks, timings = {}, {}
+    for (f, dt), art in ff_arts.items():
+        twin, kernel, args = kernel_args(art)
+        name = kernel.__name__.removesuffix("_cuda")
+        rows_checked = KERNEL_ROWS if f == FF_FEATURES[0] else (max(KERNEL_ROWS),)
+        for n in rows_checked:
+            checks[name, n, f] = check_fourier_kernel(
+                "kernel_check_fastfood",
+                kernel,
+                twin,
+                args,
+                Zf[:n],
+                FF_TWIN,
+                FF_ABS,
+                kernel=name,
+                n=n,
+                k=K,
+                d=d,
+                f=f,
+            )
+        # The dense (F, d) matrix the structured operator stands for: the
+        # library yardstick is the one product that projects Z through it.
+        a = art.arrays
+        B, G, S = (a[k].to(torch.float32) for k in ("ff_b", "ff_g", "ff_scale"))
+        if dt == "int8":
+            S = S * a["ff_stack_scale"][:, None]
+        W_eq = ffref.fastfood_project(eye, B, G, a["ff_perm"], S).T.contiguous()
+        w_bytes = 1 if dt == "int8" else 4
+        for n in rows_checked:
+            Zn = Zf[:n]
+            timings[name, n, f] = dict(
+                ms=time_ms(lambda: kernel(Zn, *args)),
+                plain_ms=time_ms(lambda: twin(Zn, *args)),
+                library_ms=time_ms(lambda: torch.matmul(Zn, W_eq.T)),
+                bound=bound(*fastfood_work(n, f, K, d, w_bytes)),
+            )
+    phase_kernel_times(timings)
+    seconds["kernel_checks"] = time.perf_counter() - t0
+    phase("third_path_seconds", **seconds)
+
+    n_t, f_t = max(KERNEL_ROWS), FF_FEATURES[0]
+    entries = []
+    for name, line in (("fastfood_score", 137), ("fastfood_score_q8", 198)):
+        t = timings[name, n_t, f_t]
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/fastfood.cu",
+                "replaces": f"src/repro/kernels/fwht/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, n_t, f_t]["max_abs_err"],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"],
+            }
+        )
+    return entries, launches
+
+
 def serve_cell_checks(
-    label, art, engine, results, requests, refs, plain_scores, exact64, dev
+    label, art, engine, results, requests, refs, exact, dev
 ) -> dict:
     """Check one served artifact's results and return its phase fields
     (errors and tolerances listed per request that has such rows).
@@ -843,7 +1218,7 @@ def serve_cell_checks(
             in_n += int(v.sum())
             in_labels.append(ref_labels)
         if (~v).any():
-            tol = exact64(Z[~v])[1]
+            tol = exact(Z[~v])[1]
             err = float(np.abs(r.values[~v] - ref[~v]).max())
             fb_err.append(err)
             fb_tol.append(tol)

@@ -8,6 +8,9 @@
     accuracy fallback (kernel B2);
   * ``rff_score`` / ``rff_score_q8`` — random-Fourier-feature scores off
     f32 (kernel B4) or int8 (kernel B5) weights;
+  * ``fastfood_score`` / ``fastfood_score_q8`` — the same off the
+    structured (Fastfood) projection, f32 (kernel B6) or int8 (kernel B7)
+    operators;
   * ``family_scores`` — a ``CompiledArtifact`` through its family's
     primitive.
 
@@ -24,6 +27,12 @@ the tuning registry.
 from __future__ import annotations
 
 from repro_torch.kernels.common import TileConfig, tuning
+from repro_torch.kernels.fwht.kernel import (
+    fastfood_score_cuda,
+    fastfood_score_q8_cuda,
+    fastfood_score_q8_torch,
+    fastfood_score_torch,
+)
 from repro_torch.kernels.quadform.kernel import (
     quadform_heads_cuda,
     quadform_heads_q8_cuda,
@@ -40,6 +49,10 @@ from repro_torch.kernels.rff_score.kernel import (
 
 __all__ = [
     "family_scores",
+    "fastfood_score",
+    "fastfood_score_q8",
+    "fastfood_score_q8_torch",
+    "fastfood_score_torch",
     "quadform_heads",
     "quadform_heads_q8",
     "quadform_heads_q8_torch",
@@ -133,6 +146,72 @@ def rff_score_q8(
         )
     return rff_score_q8_cuda(
         Z, W_q, w_scale, phase, weights_q, wt_scale, bias, config=config
+    )
+
+
+def fastfood_score(
+    Z, B, G, perm, scale, phase, weights, bias, *, config: TileConfig | None = None
+):
+    """Fastfood (structured RFF) scores.
+
+    Z: (n, d); B/G/scale: (stacks, d') diagonal operators; perm:
+    (stacks, d'); phase: (F,) with F = stacks d'; weights: (K, F) with the
+    2/F scaling folded in at compile time; bias: (K,). Returns (n, K).
+    """
+    if config is None:
+        config = tuning.lookup(
+            "fwht",
+            tuning.shape_key(
+                d=Z.shape[1], f=B.shape[0] * B.shape[1], n=tuning.bucket(Z.shape[0])
+            ),
+        )
+    return fastfood_score_cuda(
+        Z, B, G, perm, scale, phase, weights, bias, config=config
+    )
+
+
+def fastfood_score_q8(
+    Z,
+    b_q,
+    g_q,
+    perm,
+    s_q,
+    stack_scale,
+    phase,
+    weights_q,
+    wt_scale,
+    bias,
+    *,
+    config: TileConfig | None = None,
+):
+    """Fastfood scores off int8 operators.
+
+    b_q/g_q/s_q: (stacks, d') int8 (b_q holds exact +-1 signs);
+    stack_scale: (stacks,) f32 combined G*S row scales; perm: (stacks, d')
+    int16; phase: (F,) f16; weights_q: (K, F) int8 with per-head scales
+    wt_scale (K,); bias (K,) f32. Returns (n, K).
+    """
+    if config is None:
+        config = tuning.lookup(
+            "fwht_q8",
+            tuning.shape_key(
+                d=Z.shape[1],
+                f=b_q.shape[0] * b_q.shape[1],
+                n=tuning.bucket(Z.shape[0]),
+            ),
+        )
+    return fastfood_score_q8_cuda(
+        Z,
+        b_q,
+        g_q,
+        perm,
+        s_q,
+        stack_scale,
+        phase,
+        weights_q,
+        wt_scale,
+        bias,
+        config=config,
     )
 
 

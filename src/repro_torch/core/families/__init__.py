@@ -7,14 +7,13 @@
                                               3.05% per-term rel. err
   poly2        O(K d^2) quadratic form        per-row Eq 3.11 envelope,
                                               7.26% per-term rel. err
-  fourier      O(F d) dense RFF projection    compile-time held-out
-                                              error estimate
+  fourier      O(F d) dense RFF projection,   compile-time held-out
+               or O(F log d) Fastfood         error estimate
+               (``structured=True``)
   ===========  =============================  ========================
 
 Every family also compiles an int8 variant (``dtype="int8"``, see
-``quantize``). The Fastfood projection of fourier (``structured=True``)
-waits for kernels B6/B7 and raises ``NotImplementedError``, which
-``compile_model`` reports as a skipped cell. A family module exports
+``quantize``). A family module exports
 ``NAME``, ``compile(svm, **opts)``, ``score(artifact, Z, config=None)``,
 ``TILE_KERNEL`` and ``tile_lookup(artifact, bucket)``.
 

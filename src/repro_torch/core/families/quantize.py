@@ -28,7 +28,7 @@ parent on a held-out sample) in the meta, so ``compile_model`` can treat
 int8 variants as candidates like any other.
 
 ``quantize_signs`` and ``compact_perm`` serve the Fastfood artifacts
-only, and come with kernels B6/B7.
+only: they narrow operands that need no scale.
 """
 
 from __future__ import annotations
@@ -134,6 +134,27 @@ def quantize_rows(x):
     scale = np.where(absmax > 0.0, absmax / _QMAX, 1.0)
     q = np.clip(np.rint(x / scale[..., None]), -_QMAX, _QMAX)
     return q.astype(np.int8), scale.astype(np.float32)
+
+
+def quantize_signs(x) -> np.ndarray:
+    """Lossless int8 encoding of an exactly-{-1, +1} operand (Fastfood's B
+    diagonal). No scale: anything that is not a sign means the caller
+    passed the wrong array, and raises."""
+    x = _f64(x)
+    if not np.all(np.abs(x) == 1.0):
+        raise ValueError("sign operand must be exactly +-1 everywhere")
+    return x.astype(np.int8)
+
+
+def compact_perm(perm) -> np.ndarray:
+    """Narrowest exact integer dtype for permutation indices: int16 when
+    every index fits (d' <= 32768), int32 otherwise. Lossless either way."""
+    if isinstance(perm, torch.Tensor):
+        perm = perm.detach().cpu().numpy()
+    perm = np.asarray(perm)
+    if perm.size and perm.max() < np.iinfo(np.int16).max:
+        return perm.astype(np.int16)
+    return perm.astype(np.int32)
 
 
 def measure_quant_error(f32_art, q_art, Z) -> dict:

@@ -5,11 +5,14 @@
   ==============  ========================================================
   ``block_n``     Z rows per block: quadform (f32 and int8) is compiled
                   for 32, 64 and 128, rbf_pred and rff_score (f32 and
-                  int8) for 32 and 64
+                  int8) for 32 and 64; fwht (f32 and int8) takes any
+                  positive count
   ``splits``      blocks that share the reduction axis (Hessian column
                   tiles for quadform, SV tiles for rbf_pred, feature
                   tiles for rff_score), summed by a second pass in a
-                  fixed order; ``None`` picks enough to fill the card
+                  fixed order; ``None`` picks enough to fill the card.
+                  fwht splits by Fastfood stack, one a block, and
+                  ignores it
   ==============  ========================================================
 
 The TPU config's ``vmem_limit_mb`` and ``resolve_block_k`` sized a

@@ -17,6 +17,10 @@ DEFAULTS: dict[str, TileConfig] = {
     "rbf_pred": TileConfig(block_n=64),
     "rff_score": TileConfig(block_n=64),
     "rff_score_q8": TileConfig(block_n=64),
+    # Rows per block of B6/B7: eight warps, one row each at d' >= 32, so a
+    # 32-row request still spreads over four blocks a stack.
+    "fwht": TileConfig(block_n=8),
+    "fwht_q8": TileConfig(block_n=8),
 }
 
 

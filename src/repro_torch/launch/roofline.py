@@ -6,9 +6,6 @@ place of the TPU's: 67 TFLOP/s fp32 outside the tensor cores (every
 serving kernel here is fp32 SIMT) and 3.35 TB/s of HBM, the H100 SXM
 data-sheet peaks at 700 W. The prior ranks candidates; measurement still
 decides. The HLO-analysis half of the reference has no counterpart.
-
-The Fastfood prior returns ``None`` until kernels B6/B7 exist, and a
-``None`` is never pruned.
 """
 
 from __future__ import annotations
@@ -58,6 +55,28 @@ def rff_tile_seconds(
     return predict_seconds(flops, stream + io)
 
 
+def fwht_tile_seconds(
+    cfg, *, n: int, d: int, f: int, k: int, weight_bytes: int = 4
+) -> float:
+    """Analytic cost of the fused Fastfood step (FWHT stacks + readout).
+
+    Per row, each of the F / d' stacks runs two d'-wide Walsh-Hadamard
+    transforms plus the diagonals and the permutation, ~2 d' (log2 d' + 2)
+    flops a stack, then the 2 F K readout. The O(F) diagonals (three at
+    ``weight_bytes``, the phase at 4) and the (K, F) readout are streamed
+    once per row tile.
+    """
+    blocks = _row_blocks(n, getattr(cfg, "block_n", None) if cfg else None)
+    dd = 1 << max(1, (d - 1).bit_length())  # next pow2 >= d
+    stacks = -(-int(f) // dd)
+    fp = stacks * dd  # F rounded to stacks
+    log_dd = max(1, dd.bit_length() - 1)
+    flops = float(n) * (2.0 * stacks * dd * (log_dd + 2) + 2.0 * fp * k)
+    stream = float(blocks) * (fp * (3.0 * weight_bytes + 4.0) + k * fp * weight_bytes)
+    io = 4.0 * (n * d + n * k)
+    return predict_seconds(flops, stream + io)
+
+
 def family_candidate_seconds(
     family: str,
     dtype: str,
@@ -74,7 +93,9 @@ def family_candidate_seconds(
     wb = 1 if dtype == "int8" else 4
     if family in ("maclaurin", "poly2"):
         return quadform_tile_seconds(cfg, n=n, d=d, k=k, weight_bytes=wb)
-    if family == "fourier" and not structured:
+    if family == "fourier":
         f = int(num_features) if num_features else DEFAULT_NUM_FEATURES
+        if structured:
+            return fwht_tile_seconds(cfg, n=n, d=d, f=f, k=k, weight_bytes=wb)
         return rff_tile_seconds(cfg, n=n, d=d, f=f, k=k, weight_bytes=wb)
     return None

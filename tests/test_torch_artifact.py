@@ -97,14 +97,16 @@ def test_load_rejects_newer_versions_and_foreign_files(tmp_path, monkeypatch):
 
 
 def test_unported_families_and_dtypes_say_so():
-    """Every family and dtype of the default grid is ported; what is not
-    (the Fastfood projection, kernels B6/B7) raises and names its queue."""
+    """Every family, projection and dtype of the reference is ported (the
+    Fastfood projection came with kernels B6/B7); an unknown family raises
+    and lists the known ones."""
     assert sorted(families.FAMILIES) == ["fourier", "maclaurin", "poly2"]
     with pytest.raises(KeyError, match="unknown"):
         families.get_family("nope")
     _, tm = _svm(1)
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        families.fourier.compile(tm, structured=True)
+    for dtype in ("float32", "int8"):
+        ff = families.fourier.compile(tm, structured=True, dtype=dtype, num_features=64)
+        assert ff.meta["projection"] == "fastfood" and ff.dtype == dtype
     art = families.maclaurin.compile(tm)
     assert families.maclaurin.tile_lookup(art, 64) == ("quadform", "d12_k1_n64")
     q8 = families.maclaurin.quantize_quadform_artifact(art)

@@ -1,6 +1,8 @@
-"""The slice as a whole on the CPU: poly2, dense fourier and the int8
-variants, ``compile_model`` and the engine over every (family, dtype)
-cell, against the JAX package on the same seeded models."""
+"""The slice as a whole on the CPU: poly2, dense and Fastfood fourier and
+the int8 variants, ``compile_model`` and the engine over every (family,
+dtype) cell, against the JAX package on the same seeded models."""
+
+from itertools import product
 
 import numpy as np
 import pytest
@@ -29,6 +31,15 @@ from repro_torch.serve import SVMEngine  # noqa: E402
 NUM_FEATURES = 200  # not a multiple of the 64-feature tile
 FAMILY_NAMES = ("maclaurin", "poly2", "fourier")
 CELLS = [(f, dt) for f in FAMILY_NAMES for dt in ("float32", "int8")]
+# "fastfood" is fourier with structured=True (kernels B6/B7)
+ALL_CELLS = CELLS + [("fastfood", dt) for dt in ("float32", "int8")]
+
+
+def _family(cell):
+    """(family name, compile options) of a parametrized cell name."""
+    if cell == "fastfood":
+        return "fourier", {"structured": True, "num_features": NUM_FEATURES}
+    return cell, {"num_features": NUM_FEATURES}
 
 
 def _svm(seed=0, d=8, n_sv=60, heads=None, scale=0.6):
@@ -108,14 +119,17 @@ def test_exact_poly2_model_and_its_collapse_match_jax():
 # -------------------------------------------------------- compile, per cell
 
 
-@pytest.mark.parametrize("family,dtype", CELLS)
+@pytest.mark.parametrize("family,dtype", ALL_CELLS)
 @pytest.mark.parametrize("heads", [None, 3])
 def test_compile_matches_jax(family, dtype, heads):
-    """Same arrays (W, phase and every int8 code of an operand whose f32
-    parent is identical: byte for byte; the rest within f32 tolerance),
-    same meta keys, same measured errors to f32 rounding."""
+    """Same arrays (W, the Fastfood operators, phase and every int8 code of
+    an operand whose f32 parent is identical: byte for byte; the rest
+    within f32 tolerance), same meta keys, same measured errors to f32
+    rounding."""
     jm, tm = _svm(7, d=10, heads=heads)
-    opts = dict(dtype=dtype, seed=5, num_features=NUM_FEATURES)
+    cell = family
+    family, opts = _family(cell)
+    opts = dict(dtype=dtype, seed=5, **opts)
     j = j_get_family(family).compile(jm, **opts)
     t = families.get_family(family).compile(tm, **opts)
     assert set(t.arrays) == set(j.arrays)
@@ -128,7 +142,8 @@ def test_compile_matches_jax(family, dtype, heads):
     for name, ref in j.arrays.items():
         got, ref = t.arrays[name].numpy(), np.asarray(ref)
         assert got.dtype == ref.dtype, name
-        if family == "fourier" and name in ("W", "W_scale", "phase"):
+        seeded = ("W", "W_scale", "phase") + tuple(a for a in j.arrays if "ff_" in a)
+        if family == "fourier" and name in seeded:
             assert got.tobytes() == ref.tobytes(), name
         elif got.dtype == np.int8:  # codes of a parent equal to f32 rounding
             assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1, name
@@ -144,12 +159,13 @@ def test_holdout_sample_bytes_equal():
         assert got.dtype == ref.dtype and got.tobytes() == ref.tobytes()
 
 
-@pytest.mark.parametrize("family,dtype", CELLS)
+@pytest.mark.parametrize("family,dtype", ALL_CELLS)
 def test_port_scores_repro_written_artifacts(family, dtype, tmp_path):
     """A ``repro``-written artifact of every cell, loaded by the port,
     scores the same rows to the same values and validity."""
     jm, _ = _svm(11, d=10, heads=3)
-    j_art = j_get_family(family).compile(jm, dtype=dtype, num_features=NUM_FEATURES)
+    family, opts = _family(family)
+    j_art = j_get_family(family).compile(jm, dtype=dtype, **opts)
     path = j_art.save(str(tmp_path / "a.npz"))
     t_art = CompiledArtifact.load(path, device="cpu")
     assert t_art.digest() == j_art.digest()
@@ -164,12 +180,17 @@ def test_port_scores_repro_written_artifacts(family, dtype, tmp_path):
 
 
 def test_structured_fourier_waits_for_b6():
+    """Kernels B6/B7 are in: structured fourier compiles (F rounded up to
+    whole stacks of d' = 8), scores, and resolves the fwht tuning keys."""
     _, tm = _svm(2)
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        families.fourier.compile(tm, structured=True)
+    ff = families.fourier.compile(tm, structured=True, num_features=60)
+    assert (ff.meta["dd"], ff.meta["stacks"], ff.meta["num_features"]) == (8, 8, 64)
+    scores, valid = families.fourier.score(ff, tm.X)
+    assert tuple(scores.shape) == (tm.n_sv, 1) and bool(valid.all())
+    assert families.fourier.tile_lookup(ff, 32) == ("fwht", "d8_f64_n32")
+    ff8 = families.fourier.quantize_rff_artifact(ff)
+    assert families.fourier.tile_lookup(ff8, 32) == ("fwht_q8", "d8_f64_n32")
     art = families.fourier.compile(tm, num_features=64)
-    with pytest.raises(NotImplementedError, match="B6/B7"):
-        families.fourier.score(art.with_meta(projection="fastfood"), tm.X)
     assert families.fourier.tile_lookup(art, 32) == ("rff_score", "d8_f64_n32")
     q8 = families.fourier.quantize_rff_artifact(art)
     assert families.fourier.tile_lookup(q8, 32) == ("rff_score_q8", "d8_f64_n32")
@@ -229,17 +250,27 @@ def test_compile_model_matches_jax(seed, cost_margin, monkeypatch):
     assert t_rep["chosen"] == t.family and t_rep["chosen_dtype"] == t.dtype
 
 
-def test_compile_model_reports_structured_fourier_as_skipped():
-    _, tm = _svm(21, d=10, n_sv=80)
-    art = compile_model(
-        tm, Budget(max_err=0.05), seed=3, family_opts={"fourier": {"structured": True}}
-    )
-    rows = _rows(art.meta["compile_report"])
+def test_compile_model_reports_structured_fourier_as_skipped(monkeypatch):
+    """Structured fourier is no longer skipped: both of its cells are
+    measured or pruned by the prior, exactly as the reference's are at the
+    H100's constants, with the same budget verdicts."""
+    monkeypatch.setattr(jroofline, "PEAK_FLOPS", roofline.PEAK_FLOPS)
+    monkeypatch.setattr(jroofline, "HBM_BW", roofline.HBM_BW)
+    jm, tm = _svm(21, d=10, n_sv=80, heads=3)
+    fo = {"fourier": {"structured": True, "num_features": 256}}
+    j = j_compile_model(jm, JBudget(max_err=0.05), seed=3, family_opts=fo)
+    t = compile_model(tm, Budget(max_err=0.05), seed=3, family_opts=fo)
+    j_rows, t_rows = _rows(j.meta["compile_report"]), _rows(t.meta["compile_report"])
+    assert set(t_rows) == set(j_rows) == set(CELLS)
     for dt in ("float32", "int8"):
-        assert "B6/B7" in rows[("fourier", dt)]["skipped"]
-        assert not rows[("fourier", dt)]["meets_budget"]
-        assert "mean_abs" in rows[("maclaurin", dt)]
-    assert art.family in ("maclaurin", "poly2")
+        tr, jr = t_rows[("fourier", dt)], j_rows[("fourier", dt)]
+        assert tr.get("skipped") in (None, "pruned_by_cost")
+        assert tr.get("skipped") == jr.get("skipped")
+        assert "predicted_cost_s" in tr
+        if "mean_abs" in jr:
+            np.testing.assert_allclose(tr["mean_abs"], jr["mean_abs"], rtol=0.05)
+            assert tr["meets_budget"] == jr["meets_budget"]
+            assert tr["artifact_bytes"] == jr["artifact_bytes"]
 
 
 def test_compile_model_impossible_budget_raises_and_budget_validates():
@@ -273,13 +304,12 @@ def test_roofline_priors_are_the_reference_at_h100_constants(monkeypatch):
     for n, d, k in ((1, 780, 10), (256, 10, 3), (4096, 64, 1)):
         for family in ("maclaurin", "poly2", "fourier"):
             for dt in ("float32", "int8"):
-                for f in (None, 4096):
-                    args = dict(n=n, d=d, k=k, num_features=f)
+                for f, structured in product((None, 4096), (False, True)):
+                    args = dict(n=n, d=d, k=k, num_features=f, structured=structured)
                     want = jroofline.family_candidate_seconds(family, dt, **args)
                     got = roofline.family_candidate_seconds(family, dt, **args)
                     assert got == pytest.approx(want, rel=1e-12)
     prior = roofline.family_candidate_seconds
-    assert prior("fourier", "int8", n=1, d=8, k=1, structured=True) is None
     assert prior("nope", "int8", n=1, d=8, k=1) is None
 
 
@@ -292,12 +322,13 @@ def test_autotune_measure_on_the_cpu():
 # ------------------------------------------------------------------ engine
 
 
-@pytest.mark.parametrize("family,dtype", CELLS)
+@pytest.mark.parametrize("family,dtype", ALL_CELLS)
 def test_engine_serves_every_cell_like_the_jax_engine(family, dtype, tmp_path):
     """One ``repro``-written artifact of each cell, served by both engines
     to the same traffic: same values, validity, labels and fallbacks."""
     jm, tm = _svm(31, d=10, heads=3)
-    j_art = j_get_family(family).compile(jm, dtype=dtype, num_features=NUM_FEATURES)
+    family, opts = _family(family)
+    j_art = j_get_family(family).compile(jm, dtype=dtype, **opts)
     t_art = CompiledArtifact.load(j_art.save(str(tmp_path / "a.npz")), device="cpu")
     arts = [(j_art, t_art)]
     if family == "fourier":  # a failed held-out verdict sends every row back

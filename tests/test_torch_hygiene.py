@@ -90,16 +90,21 @@ def test_other_devices_raise():
         qf.quadform_heads_cuda(z, m, v, k1, k1, k1, k1)
 
 
-@pytest.mark.parametrize("source", ["quadform.cu", "rbf_pred.cu", "rff_score.cu"])
+SOURCES = ["quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu"]
+
+
+@pytest.mark.parametrize("source", SOURCES)
 def test_failed_build_raises_with_the_log(monkeypatch, tmp_path, source):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc", lambda: "false")  # a compiler that fails
     with pytest.raises(RuntimeError, match=f"nvcc failed on {source}"):
         build.build_all([source])
     assert not list(tmp_path.iterdir())  # no half-written library left behind
-    sources = ("quadform.cu", "rbf_pred.cu", "rff_score.cu")
-    assert len({build.library_path(s) for s in sources}) == 3
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == sorted(SOURCES)
+    assert len({build.library_path(s) for s in SOURCES}) == len(SOURCES)
     assert set(build.KERNELS) == {
+        "fastfood_score",
+        "fastfood_score_q8",
         "quadform_heads",
         "quadform_heads_q8",
         "rbf_scores",

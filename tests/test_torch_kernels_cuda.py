@@ -1,4 +1,4 @@
-"""Kernels B1-B5 on the card against their plain PyTorch twins.
+"""Kernels B1-B7 on the card against their plain PyTorch twins.
 
 Marked ``cuda``; each test skips inside its body where no card is present,
 so every worker collects the same tests. On a card:
@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import families  # noqa: E402
+from repro_torch.kernels import fwht  # noqa: E402
 from repro_torch.kernels.common import TileConfig  # noqa: E402
 from repro_torch.kernels.quadform import kernel as qf  # noqa: E402
 from repro_torch.kernels.rbf_pred import kernel as rp  # noqa: E402
@@ -215,7 +216,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rk.rff_score_q8_cuda(*r8[:5], r8[5][:1].contiguous(), r8[6])
 
 
-@pytest.mark.parametrize("family", ["maclaurin", "poly2", "fourier"])
+@pytest.mark.parametrize("family", ["maclaurin", "poly2", "fourier", "fastfood"])
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_every_family_on_the_card_matches_the_cpu(cuda, family, dtype):
     rng = np.random.default_rng(2)
@@ -224,15 +225,21 @@ def test_every_family_on_the_card_matches_the_cpu(cuda, family, dtype):
     ay -= ay.mean(1, keepdims=True)
     b = rng.standard_normal(3).astype(np.float32)
     svm_cpu = convert.svm_from_numpy(X, ay, b, 0.02, device="cpu")
-    art = families.get_family(family).compile(svm_cpu, dtype=dtype, num_features=500)
+    opts = {"num_features": 500}
+    if family == "fastfood":  # fourier's structured projection
+        family, opts["structured"] = "fourier", True
+    art = families.get_family(family).compile(svm_cpu, dtype=dtype, **opts)
     Z = (rng.standard_normal((77, 24)) * 0.3).astype(np.float32)
     Z[::6] *= 80.0
+    kind = art.meta.get("projection", "quadform")
     kernel = {
-        ("maclaurin", "float32"): qf.KERNEL,
-        ("maclaurin", "int8"): qf.KERNEL_Q8,
-        ("fourier", "float32"): rk.KERNEL,
-        ("fourier", "int8"): rk.KERNEL_Q8,
-    }[("fourier" if family == "fourier" else "maclaurin", dtype)]
+        ("quadform", "float32"): qf.KERNEL,
+        ("quadform", "int8"): qf.KERNEL_Q8,
+        ("dense", "float32"): rk.KERNEL,
+        ("dense", "int8"): rk.KERNEL_Q8,
+        ("fastfood", "float32"): fwht.KERNEL,
+        ("fastfood", "int8"): fwht.KERNEL_Q8,
+    }[(kind, dtype)]
     results = []
     for dev in ("cpu", cuda):
         svm = convert.svm_from_numpy(X, ay, b, 0.02, device=dev)
@@ -243,3 +250,100 @@ def test_every_family_on_the_card_matches_the_cpu(cuda, family, dtype):
     np.testing.assert_allclose(gpu.values, cpu.values, rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(gpu.valid, cpu.valid)
     assert (gpu.labels == cpu.labels).mean() >= 0.98  # near-ties may split
+
+
+def _fastfood(n, d, stacks, k, seed, dev, q8):
+    """B6's or B7's operands at d' = next pow2 >= d: the int8 ones as the
+    artifact stores them (int16 perm, f16 phase)."""
+    rng = np.random.default_rng(seed)
+    dd = 1 << max(1, (d - 1).bit_length())
+    f = stacks * dd
+    Z = rng.random((n, d)).astype(np.float32)
+    B = rng.choice(np.float32([-1.0, 1.0]), (stacks, dd))
+    G = rng.standard_normal((stacks, dd)).astype(np.float32)
+    perm = np.stack([rng.permutation(dd) for _ in range(stacks)]).astype(np.int32)
+    chi = np.sqrt(rng.chisquare(dd, (stacks, dd)))
+    S = (np.sqrt(2.0 / d) * chi / np.sqrt(dd * dd)).astype(np.float32)
+    phase = rng.uniform(0.0, 2.0 * np.pi, f).astype(np.float32)
+    wt = (rng.standard_normal((k, f)) * 2.0 / f).astype(np.float32)
+    bias = rng.standard_normal(k).astype(np.float32)
+    if q8:
+        g_q, g_s = families.quantize.quantize_rows(G)
+        s_q, s_s = families.quantize.quantize_rows(S)
+        wt_q, wt_s = families.quantize.quantize_rows(wt)
+        arrays = (
+            Z,
+            families.quantize.quantize_signs(B),
+            g_q,
+            perm.astype(np.int16),
+            s_q,
+            (g_s.astype(np.float64) * s_s).astype(np.float32),
+            phase.astype(np.float16),
+            wt_q,
+            wt_s,
+            bias,
+        )
+    else:
+        arrays = (Z, B, G, perm, S, phase, wt, bias)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _fastfood_tol(args, q8):
+    """4x the twin's distance from a float64 evaluation, + 1e-6 (B4's rule:
+    the readout sums cancel, so no output-relative tolerance holds)."""
+    twin = fwht.fastfood_score_q8_torch if q8 else fwht.fastfood_score_torch
+    d64 = [a if not a.is_floating_point() or q8 else a.double() for a in args]
+    d64[0] = args[0].double()  # the twin computes in Z's dtype
+    out0, out64 = twin(*args), twin(*d64)
+    return out0, 4.0 * float((out0.double() - out64).abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("block_n", [None, 1, 32])
+@pytest.mark.parametrize(
+    "n,d,stacks,k",
+    [
+        (1, 3, 1, 1),
+        (7, 20, 3, 3),
+        (33, 100, 2, 17),
+        (300, 780, 4, 10),
+        (65, 1500, 2, 10),
+    ],
+)
+def test_fastfood_kernels_match_plain_and_repeat_bitwise(
+    cuda, n, d, stacks, k, block_n, q8
+):
+    """d' = 4 and 32 put several rows in a warp, 128 one row a warp with
+    K > 16 in two head groups, 1024 the mnist width, 2048 the widest d'."""
+    args = _fastfood(n, d, stacks, k, seed=n + d, dev=cuda, q8=q8)
+    kernel = fwht.KERNEL_Q8 if q8 else fwht.KERNEL
+    fn = fwht.fastfood_score_q8_cuda if q8 else fwht.fastfood_score_cuda
+    config = TileConfig(block_n=block_n) if block_n else None
+    before = kernel.launches
+    out = fn(*args, config=config)
+    assert kernel.launches == before + 1
+    out0, tol = _fastfood_tol(args, q8)
+    torch.cuda.synchronize()
+    assert out.shape == (n, k)
+    assert float((out - out0).abs().max()) <= tol
+    again = fn(*args, config=config)
+    assert torch.equal(again, out)  # no atomics: the same bits every run
+
+
+def test_fastfood_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    f = _fastfood(4, 20, 2, 3, seed=0, dev=cuda, q8=False)
+    with pytest.raises(TypeError, match="int32"):
+        fwht.fastfood_score_cuda(*f[:3], f[3].to(torch.int64), *f[4:])
+    with pytest.raises(ValueError, match="columns"):
+        wide = torch.zeros((4, 40), device=cuda)
+        fwht.fastfood_score_cuda(wide, *f[1:])
+    big = _fastfood(2, 3000, 1, 1, seed=1, dev=cuda, q8=False)
+    with pytest.raises(ValueError, match="2048"):
+        fwht.fastfood_score_cuda(*big)
+    q = _fastfood(4, 20, 2, 3, seed=0, dev=cuda, q8=True)
+    with pytest.raises(TypeError, match="float16"):
+        fwht.fastfood_score_q8_cuda(*q[:6], q[6].float(), *q[7:])
+    with pytest.raises(TypeError, match="int16"):
+        fwht.fastfood_score_q8_cuda(*q[:3], q[3].int(), *q[4:])
+    with pytest.raises(ValueError, match="shape"):
+        fwht.fastfood_score_q8_cuda(*q[:5], q[5][:1].contiguous(), *q[6:])

@@ -128,5 +128,7 @@ def test_tuning_lookup_defaults():
         key = tuning.shape_key(d=780, k=10, n=32)
         assert tuning.lookup(kernel, key) == tuning.DEFAULTS[kernel]
         assert tuning.lookup(kernel) == tuning.DEFAULTS[kernel]
+    for kernel in ("fwht", "fwht_q8"):
+        assert tuning.lookup(kernel, "d780_f4096_n32") == tuning.DEFAULTS[kernel]
     with pytest.raises(KeyError):
-        tuning.lookup("fwht")
+        tuning.lookup("flash_attn")
