@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives three paths at the paper's mnist
-width (d=780, 10 one-vs-rest heads):
+source, all started together) and drives four paths: three at the
+paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -19,7 +19,15 @@ width (d=780, 10 one-vs-rest heads):
    C-SVC with ``compress_support``), ``compile_model`` over every family
    with the Fastfood projection for fourier, and the Fastfood artifacts
    at f32 and int8 (kernels B6, B7) saved, loaded and served, beside
-   copies whose held-out verdict failed.
+   copies whose held-out verdict failed;
+4. ``smollm-135m`` at full width (30 layers, d_model 576, 9/3 GQA heads)
+   from seeded random weights: bf16 prefill of 4 x 2048 tokens with
+   blockwise attention, flash attention (kernel B9, one launch a layer)
+   and the maclaurin backend (kernel B8, one launch a layer); f32 decode
+   of a 1024-token prompt through an f32 and a bf16 KV cache, an int8 KV
+   cache and the ``MacState``, held against the matching forward (B9 or
+   B8 at f32) or the next wider cache; then 32 greedy tokens from the
+   bf16, int8 and ``MacState`` caches.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Each kernel is held against its plain PyTorch twin at
@@ -30,7 +38,8 @@ The model of paths 1 and 2 (16384 SVs) is random from a seed, shaped like
 a trained one so that no constant swamps what the checks look at: each
 head's ``alpha_y`` sums to 0 (the SVM dual's equality constraint), and
 ``b`` makes every head score 0 at z = 0, so the labels follow z. Path 3's
-model is trained.
+model is trained. Path 4's weights are random from a seeded
+``torch.Generator`` at the reference's scales.
 
 Output: phase lines (each with its seconds), the card line from
 nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
@@ -62,6 +71,7 @@ EXACT_ROWS = 64
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances: fp32 on both sides, sums taken in another order.
@@ -107,6 +117,49 @@ FF_FEATURES = (4096, 1024)  # Fastfood basis served, and the default
 # B6/B7: B4's rule, at most FF_TWIN times the twin's distance from float64.
 FF_TWIN, FF_ABS = 4.0, 1e-6
 
+# Fourth path: the LM side at full width, weights random from SEED.
+LM_NAME = "smollm-135m"
+LM_B, LM_T = 4, 2048  # prefill batch and tokens
+LM_ATTN = (LM_B * 9, LM_T, 64, 64)  # (B*Hq, T, hd, hd) that B8/B9 see in prefill
+ATTN_CASES = (  # (kernel, case, (bh, t, d, dv), dtype)
+    ("flash_attention", "model bf16", LM_ATTN, "bfloat16"),
+    ("flash_attention", "model f32", LM_ATTN, "float32"),
+    ("maclaurin_attention", "model", LM_ATTN, "float32"),
+    ("flash_attention", "ragged bf16", (LM_B * 9, 2000, 64, 64), "bfloat16"),
+    ("flash_attention", "ragged f32", (LM_B * 9, 2000, 64, 64), "float32"),
+    ("maclaurin_attention", "ragged", (LM_B * 9, 2000, 64, 64), "float32"),
+    ("maclaurin_attention", "hd128", (8, 1024, 128, 128), "float32"),  # S2 8 MB a head
+)
+# B8/B9: at most ATTN_TWIN times the twin's distance from the float64
+# quadratic-form oracle, + ATTN_ABS. B9 in bf16 is also held element by
+# element against the twin's f32 value before rounding (the twin on the same
+# inputs widened to f32, as the kernel widens them): the kernel rounds a
+# value within the f32 rule's tolerance ``tol32`` of it, so each element may
+# differ by half a bf16 step of itself, BF16_HALF_STEP |x|, + (1 +
+# BF16_HALF_STEP) tol32. A control (the twin with the first key tile dropped
+# for every later row) must fail that check.
+ATTN_TWIN, ATTN_ABS = 4.0, 1e-6
+BF16_HALF_STEP = 2.0**-8
+# Logits against a reference run of the same weights, |delta| <= REL *
+# max|ref logit|, each REL about twice the reading on an H100 80GB HBM3 at
+# 700 W (chip_smoke.py's lm_prefill and lm_consistency lines): flash against
+# blockwise prefill in bf16 0.0197 (each layer's attention differs by bf16
+# rounding: blockwise rounds its softmax weights, flash keeps them f32); an
+# f32 decode's bf16 KV cache against its f32 one 0.0068; the int8 KV cache
+# against the bf16 one 0.0206. Top-1 must also agree wherever the
+# reference's top-2 gap exceeds GAP * max|ref logit|, a fixed share above
+# twice the reading (so no such position may flip at the measured error) and
+# below twice REL (so the check is not implied by the max one). The
+# maclaurin backend, another attention function, is the control: its logits
+# must be further than every REL from the softmax ones.
+PREFILL_REL, PREFILL_GAP = 0.04, 0.0625
+BF16_CACHE_REL, BF16_CACHE_GAP = 0.015, 0.02
+INT8_CACHE_REL, INT8_CACHE_GAP = 0.045, 0.06
+CONS_B, CONS_T, GEN_STEPS = 2, 1024, 32  # f32 decode batch, prompt, generation
+# Decode against the forward: the reference's own tolerance
+# (tests/test_models.py:72-74), elementwise |delta| <= atol + rtol |ref|.
+CONS_RTOL = CONS_ATOL = 2e-2
+
 
 class PhaseFailed(RuntimeError):
     pass
@@ -138,9 +191,10 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time in ms for the work, and which of the two rates sets it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    """Least time in ms for the work, and which of the two rates sets it
+    (operations at ``peak``, fp32 unless stated)."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -202,6 +256,43 @@ def fastfood_work(
         flops += 1.0 * n * f + 1.0 * n * k
         nbytes += 4.0 * (f // dd + k)
     return flops, nbytes
+
+
+def flash_work(bh: int, t: int, d: int, dv: int, nbytes_per: int) -> tuple[float, float]:
+    """(flops, bytes) of kernel B9, causal: for each (row, key) pair on or
+    below the diagonal, the q.k product (2d), p.v (2dv) and four
+    elementwise operations (scale, subtract, exp, add); q, k, v read once
+    and the output written once at ``nbytes_per`` a value."""
+    pairs = bh * t * (t + 1) / 2.0
+    flops = pairs * (2.0 * d + 2.0 * dv + 4.0)
+    nbytes = nbytes_per * bh * t * (2.0 * d + 2.0 * dv)
+    return flops, nbytes
+
+
+def maclaurin_work(bh: int, t: int, d: int, dv: int, chunk: int) -> tuple[float, float]:
+    """(flops, bytes) of the function kernel B8 computes: the smaller of two
+    ways to the same sums. The chunked moments, as the reference kernel
+    computes them: per query phi2(q) (d^2), the readout phi2(q).S2 and
+    phi2(q).k2 (2 d^2 (dv + 1)), q.S1 and q.k1 (2 d (dv + 1)), and the sums
+    (2 dv + 6); per key of every chunk but the last phi2(k) (d^2), S2 and
+    k2 (2 d^2 (dv + 1)), S1 and k1 (2 d (dv + 1)), v0 (dv); per (row, key)
+    pair of a chunk on or below the diagonal q.k (2d), w(u) (4) and w v plus
+    the row sum (2 dv + 2). The causal quadratic form: that last count over
+    every pair on or below the diagonal, the smaller below T ~ 2 d dv. The
+    inputs are f32 (the reference casts them), read once; the output is
+    written once."""
+    per_q = d * d + 2.0 * d * d * (dv + 1) + 2.0 * d * (dv + 1) + 2.0 * dv + 6.0
+    folded = min(t, (t - 1) // chunk * chunk)  # keys of every chunk but the last
+    per_k = d * d + 2.0 * d * d * (dv + 1) + 2.0 * d * (dv + 1) + dv
+    pairs = 0.0
+    for c0 in range(0, t, chunk):
+        n = min(chunk, t - c0)
+        pairs += n * (n + 1) / 2.0
+    per_pair = 2.0 * d + 2.0 * dv + 6.0
+    chunked = bh * (t * per_q + folded * per_k + pairs * per_pair)
+    quadratic = bh * t * (t + 1) / 2.0 * per_pair
+    nbytes = 4.0 * bh * t * (2.0 * d + 2.0 * dv)
+    return min(chunked, quadratic), nbytes
 
 
 def kernel_args(art):
@@ -619,7 +710,11 @@ def run(dev) -> list[dict]:
     )
     # ================================================== third path (B6, B7)
     kernels_ff, launches3 = third_path(dev)
-    per_path = {n: [launches[n], launches2[n], launches3[n]] for n in launches}
+    # =================================================== fourth path (B8, B9)
+    kernels_lm, launches4 = fourth_path(dev)
+    per_path = {
+        n: [launches[n], launches2[n], launches3[n], launches4[n]] for n in launches4
+    }
 
     kernels = [
         {
@@ -651,10 +746,10 @@ def run(dev) -> list[dict]:
             "library_ms": r_lib,
         },
     ]
-    for entry in kernels_q8_rff + kernels_ff:
+    for entry in kernels + kernels_q8_rff + kernels_ff + kernels_lm:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
-    return kernels + kernels_q8_rff + kernels_ff
+    return kernels + kernels_q8_rff + kernels_ff + kernels_lm
 
 
 def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
@@ -1168,6 +1263,380 @@ def third_path(dev):
                 "replaces": f"src/repro/kernels/fwht/kernel.py:{line}",
                 "launches": launches[name],
                 "max_abs_err": checks[name, n_t, f_t]["max_abs_err"],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"],
+            }
+        )
+    return entries, launches
+
+
+def lm_config(**changes):
+    """The fourth path's model configuration: ``LM_NAME`` at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_NAME), **changes)
+
+
+def attention_kernel_checks(dev) -> tuple[dict, dict]:
+    """B9 and B8 against their plain twins and float64 at the model's
+    attention shapes, and timed. Returns (checks, timings), keyed by
+    (kernel, case)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.common import tuning
+    from repro_torch.kernels.flash_attn import kernel as fa
+    from repro_torch.kernels.maclaurin_attn import kernel as ma
+    from repro_torch.kernels.maclaurin_attn.ref import (
+        maclaurin_attention_ref,
+        softmax_attention_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(bh, t, d, dv, dtype):
+        q, k = (torch.randn((bh, t, d), generator=gen, device=dev) for _ in range(2))
+        v = torch.randn((bh, t, dv), generator=gen, device=dev)
+        return [x.to(dtype).contiguous() for x in (q, k, v)]
+
+    checks, timings = {}, {}
+    chunk = tuning.lookup("maclaurin_attn").chunk  # the model's, the one B8 chunk
+    for name, case, (bh, t, d, dv), dtype in ATTN_CASES:
+        is_flash = name == "flash_attention"
+        dtype = getattr(torch, dtype)
+        q, k, v = inputs(bh, t, d, dv, dtype)
+        if is_flash:
+            launch = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
+            plain = lambda: fa.flash_attention_torch(q, k, v)  # noqa: E731
+            exact_fn = softmax_attention_ref
+        else:
+            launch = lambda: ma.maclaurin_attention_cuda(q, k, v)  # noqa: E731
+            plain = lambda: ma.maclaurin_attention_torch(q, k, v)  # noqa: E731
+            exact_fn = maclaurin_attention_ref
+        out, again, twin = launch(), launch(), plain()
+        exact = exact_fn(q.double(), k.double(), v.double(), scale=d**-0.5)
+        torch.cuda.synchronize()
+        err, twin_err = max_err(out, twin), max_err(twin, exact)
+        tol = ATTN_TWIN * twin_err + ATTN_ABS
+        res = dict(
+            max_abs_err=err,
+            twin_max_abs_err_vs_float64=twin_err,
+            max_abs_err_vs_float64=max_err(out, exact),
+            tol=tol,
+            max_abs_ref=float(twin.double().abs().max()),
+            same_bits_again=bool(torch.equal(again, out)),
+        )
+        if dtype == torch.bfloat16:
+            res.update(bf16_rounding_check(q, k, v, out, exact))
+        phase(
+            "kernel_check",
+            kernel=name,
+            case=case,
+            bh=bh,
+            t=t,
+            d=d,
+            dv=dv,
+            dtype=str(dtype).removeprefix("torch."),
+            chunk=None if is_flash else chunk,
+            **res,
+        )
+        what = f"{name} {case}"
+        check(err <= tol, f"{what}: {err} > {tol}")
+        if dtype == torch.bfloat16:
+            check(res["bf16_worst_margin"] >= 0, f"{what}: beyond bf16 rounding of the f32 twin")
+            check(res["control_bf16_worst_margin"] < 0, f"{what}: the dropped-tile control passed")
+        check(res["same_bits_again"], f"{what}: bits differ run to run")
+        check(bool(torch.isfinite(out).all()), f"{what}: not finite")
+        checks[name, case] = res
+        del exact
+        if t % 64:  # ragged cases are checked, not timed
+            continue
+        if is_flash:
+            q4, k4, v4 = (x.view(1, bh, t, -1) for x in (q, k, v))
+            library = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
+            work = flash_work(bh, t, d, dv, q.element_size())
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        else:
+            library = None  # no PyTorch call computes w(u) attention
+            work = maclaurin_work(bh, t, d, dv, chunk)
+            peak = PEAK_FP32_FLOPS
+        iters = 5 if is_flash else 3
+        timings[name, case] = dict(
+            ms=time_ms(launch, iters=iters, warm=1),
+            plain_ms=time_ms(plain, iters=iters, warm=1),
+            library_ms=time_ms(library, iters=iters, warm=1) if library else None,
+            bound=bound(*work, peak=peak),
+        )
+        t_ = timings[name, case]
+        phase(
+            "kernel_time",
+            kernel=name,
+            case=case,
+            bound_ms=t_["bound"][0],
+            bound_by=t_["bound"][1],
+            **{k_: t_[k_] for k_ in ("ms", "plain_ms", "library_ms")},
+        )
+    return checks, timings
+
+
+def bf16_rounding_check(q, k, v, out, exact) -> dict:
+    """B9's bf16 output against the f32 twin's value before rounding, element
+    by element (see BF16_HALF_STEP), and the same check of a control: the
+    output with the last query tile's rows recomputed without the first key
+    tile, the rows whose values are smallest and change least. Returns the
+    worst margin of each (negative: the check fails) and the control's
+    max|delta| (one bf16 step of max|out|, the limit this check replaced,
+    would let it pass)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as fa
+
+    twin32 = fa.flash_attention_torch(q.float(), k.float(), v.float()).double()
+    tol32 = ATTN_TWIN * max_err(twin32, exact) + ATTN_ABS
+
+    def margin(x):
+        room = BF16_HALF_STEP * twin32.abs() + (1 + BF16_HALF_STEP) * tol32
+        return float((room - (x.double() - twin32).abs()).min())
+
+    tile = fa.BLOCK
+    rows = min(tile, q.shape[1] - tile)
+    late = fa.flash_attention_torch(q[:, tile:], k[:, tile:], v[:, tile:])[:, -rows:]
+    control = torch.cat([out[:, :-rows], late], dim=1)
+    return dict(
+        bf16_worst_margin=margin(out),
+        bf16_tol32=tol32,
+        control_bf16_worst_margin=margin(control),
+        control_max_abs_err=max_err(control, twin32),
+    )
+
+
+def logit_gate(test, ref, rel: float, gap: float, against: str = "ref") -> dict:
+    """``test`` logits against ``ref``: max|delta| within ``rel`` of
+    max|ref|, and top-1 equal wherever ref's top-2 gap exceeds ``gap`` of
+    max|ref| (see PREFILL_REL)."""
+    test, ref = test.float(), ref.float()
+    delta = float((test - ref).abs().max())
+    scale = float(ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > gap * scale
+    agree = test.argmax(-1) == ref.argmax(-1)
+    return {
+        f"max_abs_vs_{against}": delta,
+        "max_abs_ref": scale,
+        "rel": delta / scale,
+        "rel_tol": rel,
+        "max_ok": delta <= rel * scale,
+        "top1_agree": float(agree.float().mean()),
+        "decided_positions": int(decided.sum()),
+        "gap": gap,
+        "top1_ok": bool(agree[decided].all()),
+    }
+
+
+def fourth_path(dev):
+    """Path 4, the LM side (kernels B8, B9): ``LM_NAME`` at full width from
+    seeded random weights. Prefill through ``make_prefill_step`` with the
+    blockwise, flash and maclaurin attention; decode token by token through
+    ``make_serve_step`` at f32 with an f32, a bf16 and an int8 KV cache and
+    the ``MacState``, held against the matching forward or the next wider
+    cache; then ``greedy_generate`` from the filled caches. Returns (the
+    B8/B9 ``kernels`` entries, every kernel's launches on this path)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.decode_step import (
+        greedy_generate,
+        make_prefill_step,
+        make_serve_step,
+    )
+
+    seconds = {}
+    t0 = time.perf_counter()
+    checks, timings = attention_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    seconds["lm_kernels"] = time.perf_counter() - t0
+
+    # ---------------------------------------------------------- lm_prefill
+    t0 = time.perf_counter()
+    cfg = lm_config()
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_T), generator=gen, device=dev)
+    prefill_cfgs = {
+        "blockwise": lm_config(attention_impl="blockwise"),
+        "flash": lm_config(attention_impl="flash"),
+        "maclaurin": lm_config(attention_backend="maclaurin"),
+    }
+    want = {
+        "blockwise": {},
+        "flash": {"flash_attention": cfg.n_layers},
+        "maclaurin": {"maclaurin_attention": cfg.n_layers},
+    }
+    build.reset_counts()
+    logits, per_cfg = {}, {}
+    for label, c in prefill_cfgs.items():
+        before = build.counts()
+        logits[label] = make_prefill_step(c)(params, tokens)
+        torch.cuda.synchronize()
+        after = build.counts()
+        per_cfg[label] = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        check(
+            per_cfg[label] == want[label],
+            f"prefill {label}: launches {per_cfg[label]}, want {want[label]}",
+        )
+        check(bool(torch.isfinite(logits[label]).all()), f"prefill {label}: not finite")
+    flash = logit_gate(logits["flash"], logits["blockwise"], PREFILL_REL, PREFILL_GAP)
+    control = logit_gate(logits["maclaurin"], logits["blockwise"], PREFILL_REL, PREFILL_GAP)
+    phase(
+        "lm_prefill",
+        model=cfg.name,
+        params=n_params,
+        dtype=cfg.dtype,
+        batch=LM_B,
+        tokens=LM_T,
+        launches=per_cfg,
+        flash_vs_blockwise=flash,
+        control_maclaurin_vs_blockwise=control,
+    )
+    check(flash["max_ok"], f"flash vs blockwise logits beyond {PREFILL_REL} of max|logit|")
+    check(flash["top1_ok"], "flash vs blockwise top-1 on decided positions")
+    check(not control["max_ok"], "the maclaurin control passed the flash gate")
+    del logits
+    seconds["lm_prefill"] = time.perf_counter() - t0
+
+    # ------------------------------------------------------ lm_consistency
+    t0 = time.perf_counter()
+    cfg32 = lm_config(dtype="float32")
+    prompt = tokens[:CONS_B, :CONS_T]
+    s_max = CONS_T + GEN_STEPS
+    kinds = {  # config, and the KV cache's dtype where it has one
+        "f32": (lm_config(dtype="float32", attention_impl="flash"), torch.float32),
+        "bf16": (lm_config(dtype="float32"), torch.bfloat16),
+        "int8": (lm_config(dtype="float32", kv_cache_dtype="int8"), None),
+        "maclaurin": (lm_config(dtype="float32", attention_backend="maclaurin"), None),
+    }
+    full = {
+        "f32": tf.forward(kinds["f32"][0], params, prompt)[0],  # B9 at f32
+        "maclaurin": tf.forward(kinds["maclaurin"][0], params, prompt)[0],  # B8, chunk 64
+    }
+    caches, decoded, step_ms = {}, {}, {}
+    for kind, (c, cache_dtype) in kinds.items():
+        cache = tf.init_cache(c, CONS_B, s_max, dtype=cache_dtype, device=dev)
+        step = make_serve_step(c)
+        outs = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for pos in range(CONS_T):
+            lg, cache = step(params, prompt[:, pos : pos + 1], pos, cache)
+            outs.append(lg)
+        torch.cuda.synchronize()
+        step_ms[kind] = (time.perf_counter() - t1) * 1e3 / CONS_T
+        caches[kind], decoded[kind] = cache, torch.cat(outs, dim=1)
+    gates = {}
+    # the reference's consistency check: decode against the forward
+    for kind in ("f32", "maclaurin"):
+        dec, ref = decoded[kind], full[kind]
+        err = (dec - ref).abs()
+        over = float((err - (CONS_ATOL + CONS_RTOL * ref.abs())).max())
+        gates[kind] = dict(
+            max_abs_err_vs_forward=float(err.max()),
+            max_abs_ref=float(ref.abs().max()),
+            worst_margin_to_tol=-over,
+            top1_agree=float((dec.argmax(-1) == ref.argmax(-1)).float().mean()),
+        )
+        check(over <= 0, f"{kind} decode vs forward beyond rtol=atol={CONS_RTOL}")
+    # a narrower cache against the next wider one, and the control
+    for kind, wider, rel, gap in (
+        ("bf16", "f32", BF16_CACHE_REL, BF16_CACHE_GAP),
+        ("int8", "bf16", INT8_CACHE_REL, INT8_CACHE_GAP),
+    ):
+        gates[kind] = logit_gate(decoded[kind], decoded[wider], rel, gap, against=wider)
+        check(gates[kind]["max_ok"], f"{kind} cache vs {wider} beyond {rel} of max|logit|")
+        check(gates[kind]["top1_ok"], f"{kind} cache top-1 on decided positions")
+    rel = max(BF16_CACHE_REL, INT8_CACHE_REL)
+    control = logit_gate(decoded["maclaurin"], decoded["f32"], rel, INT8_CACHE_GAP, against="f32")
+    gates["control_maclaurin"] = control
+    check(not control["max_ok"], "the maclaurin control passed the cache gates")
+    phase(
+        "lm_consistency",
+        model=cfg32.name,
+        dtype="float32",
+        batch=CONS_B,
+        tokens=CONS_T,
+        step_ms=step_ms,
+        **gates,
+    )
+    next_tok = decoded["bf16"][:, -1:].argmax(-1).to(torch.int32)
+    del full, decoded, dec, ref
+    seconds["lm_consistency"] = time.perf_counter() - t0
+
+    # --------------------------------------------------------- lm_generate
+    t0 = time.perf_counter()
+    generated = {}
+    for kind in ("bf16", "int8", "maclaurin"):
+        c = kinds[kind][0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, cache = greedy_generate(
+            c, params, next_tok, caches[kind], steps=GEN_STEPS, start_pos=CONS_T
+        )
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / GEN_STEPS
+        check(toks.shape == (CONS_B, GEN_STEPS), f"generate {kind}: shape {tuple(toks.shape)}")
+        check(bool(((toks >= 0) & (toks < c.vocab_size)).all()), f"generate {kind}: token ids")
+        generated[kind] = toks
+        grown = tf.cache_bytes(tf.init_cache(c, CONS_B, 16 * s_max, device=dev))
+        if kind == "maclaurin":
+            check(grown == tf.cache_bytes(cache), "MacState bytes grew with the context")
+        else:
+            check(grown == 16 * tf.cache_bytes(cache), f"{kind} KV bytes not linear in S")
+        phase(
+            "lm_generate",
+            cache=kind,
+            steps=GEN_STEPS,
+            start_pos=CONS_T,
+            ms_per_token=ms,
+            state_bytes=tf.cache_bytes(cache),
+            state_bytes_at_16x_context=grown,
+            first_tokens=toks[0, :8].tolist(),
+        )
+    same = float((generated["int8"] == generated["bf16"]).float().mean())
+    phase("lm_generate_agreement", int8_vs_bf16_tokens=same)
+    launches = build.counts()
+    phase("fourth_path_launches", **launches)
+    seconds["lm_generate"] = time.perf_counter() - t0
+
+    # ---------------------------------------------------- prefill timings
+    t0 = time.perf_counter()
+    for label, c in prefill_cfgs.items():
+        step = make_prefill_step(c)
+        ms = time_ms(lambda: step(params, tokens), iters=3, warm=1)
+        phase("lm_prefill_time", config=label, ms=ms, tokens_per_s=LM_B * LM_T / ms * 1e3)
+    seconds["prefill_timing"] = time.perf_counter() - t0
+    phase("fourth_path_seconds", **seconds)
+
+    entries = []
+    for name, source, line in (
+        ("maclaurin_attention", "maclaurin_attn", 137),
+        ("flash_attention", "flash_attn", 95),
+    ):
+        case = "model" if name == "maclaurin_attention" else "model bf16"
+        t = timings[name, case]
+        entries.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}.cu",
+                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, case]["max_abs_err"],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0],

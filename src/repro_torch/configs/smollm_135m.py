@@ -1,0 +1,15 @@
+"""SmolLM-135M [hf:HuggingFaceTB/SmolLM-135M] — llama-arch small, GQA 9/3."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m",
+    family="dense",
+    n_layers=30,
+    d_model=576,
+    n_heads=9,
+    n_kv_heads=3,
+    head_dim=64,
+    d_ff=1536,
+    vocab_size=49152,
+)

@@ -1,4 +1,4 @@
-"""Carry ``repro``'s parameters across as numpy arrays.
+"""Carry ``repro``'s parameters and models across as numpy arrays.
 
 The two packages share no objects: a model built by ``repro`` (or any
 other source) enters the port as plain arrays, so both packages compute
@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.families.base import CompiledArtifact
 from repro_torch.core.maclaurin import ApproxModel
 from repro_torch.core.rbf import SVMModel
+from repro_torch.models.transformer import LMParams
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -53,3 +55,27 @@ def artifact_from_numpy(family: str, arrays: dict, meta: dict, device=None):
     dev = _device.resolve(device)
     tensors = {k: torch.from_numpy(np.array(v)).to(dev) for k, v in arrays.items()}
     return CompiledArtifact(family=family, arrays=tensors, meta=dict(meta))
+
+
+def _leaf(tree, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def lm_params_from_numpy(cfg: ModelConfig, params: dict, device=None) -> LMParams:
+    """The port's ``LMParams`` from ``repro``'s ``init_params`` tree as numpy
+    arrays: ``embed``/``lm_head``/``final_ln`` as they are, and ``layers``
+    with every leaf stacked along a first axis of ``cfg.n_layers``. Every
+    parameter keeps the reference's key and (in, out) layout and is stored
+    f32, as the reference stores it."""
+    dev = _device.resolve(device)
+    with torch.no_grad():
+        model = LMParams(cfg, torch.Generator(device=dev), dev)
+        for name in ("embed", "lm_head", "final_ln"):
+            for path, p in getattr(model, name).named_parameters():
+                p.copy_(_f32(_leaf(params[name], path), dev))
+        for i, layer in enumerate(model.layers):
+            for path, p in layer.named_parameters():
+                p.copy_(_f32(_leaf(params["layers"], path)[i], dev))
+    return model

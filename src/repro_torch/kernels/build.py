@@ -169,11 +169,12 @@ def on_card(Z: torch.Tensor, name: str) -> bool:
     return True
 
 
-def check_operands(Z: torch.Tensor, operands: dict) -> None:
-    """Raise unless Z is contiguous f32 and every ``name: (tensor, shape,
-    dtype)`` operand has its shape and dtype, lies on Z's device and is
-    contiguous: what a kernel takes as a bare pointer."""
-    everything = {"Z": (Z, tuple(Z.shape), torch.float32), **operands}
+def check_operands(Z: torch.Tensor, operands: dict, z_dtype=torch.float32) -> None:
+    """Raise unless Z is contiguous and of ``z_dtype`` (f32 by default) and
+    every ``name: (tensor, shape, dtype)`` operand has its shape and dtype,
+    lies on Z's device and is contiguous: what a kernel takes as a bare
+    pointer."""
+    everything = {"Z": (Z, tuple(Z.shape), z_dtype), **operands}
     for name, (t, shape, dtype) in everything.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")

@@ -13,6 +13,15 @@
                   fixed order; ``None`` picks enough to fill the card.
                   fwht splits by Fastfood stack, one a block, and
                   ignores it
+  ``chunk``       maclaurin_attn: sequence positions per chunk. Keys of
+                  earlier chunks reach a query through the running
+                  moments, keys of its own chunk exactly (the TPU
+                  kernel's grid step; any positive count)
+  ``block_q``     flash_attn: query rows per block (the kernel is
+                  compiled for 64 only)
+  ``block_k``     flash_attn: key rows per tile of the block's loop
+                  (64 only); with ``block_q`` it also sets the
+                  reference's refusal of padded non-causal keys
   ==============  ========================================================
 
 The TPU config's ``vmem_limit_mb`` and ``resolve_block_k`` sized a
@@ -33,12 +42,15 @@ from repro_torch.kernels.common.tiles import ROW_QUANTUM, round_up
 class TileConfig:
     block_n: int = 64
     splits: int | None = None
+    chunk: int = 128
+    block_q: int = 64
+    block_k: int = 64
 
     def __post_init__(self):
-        if not (isinstance(self.block_n, int) and self.block_n > 0):
-            raise ValueError(
-                f"TileConfig.block_n must be a positive int, got {self.block_n!r}"
-            )
+        for name in ("block_n", "chunk", "block_q", "block_k"):
+            v = getattr(self, name)
+            if not (isinstance(v, int) and v > 0):
+                raise ValueError(f"TileConfig.{name} must be a positive int, got {v!r}")
         if self.splits is not None and not (
             isinstance(self.splits, int) and self.splits > 0
         ):

@@ -21,6 +21,12 @@ DEFAULTS: dict[str, TileConfig] = {
     # 32-row request still spreads over four blocks a stack.
     "fwht": TileConfig(block_n=8),
     "fwht_q8": TileConfig(block_n=8),
+    # B8: one 64-row sub-tile a chunk, so the exact intra-chunk term (which
+    # grows with the chunk) is as small as the kernel's tiling allows. The
+    # model's chunked form runs at this chunk too.
+    "maclaurin_attn": TileConfig(chunk=64),
+    # B9: the one tile the kernel is compiled for.
+    "flash_attn": TileConfig(block_q=64, block_k=64),
 }
 
 

@@ -1,0 +1,198 @@
+"""GQA attention: full causal (prefill), and cached decode.
+
+The port of ``repro/models/attention.py`` (cross-attention follows with
+the VLM slice). Head layout convention: activations (B, T, H, hd).
+``Attention`` holds the projections under the reference's keys (``w_q``,
+``w_k``, ``w_v``, ``w_o`` and, with ``qkv_bias``, ``b_q``, ``b_k``,
+``b_v``), in its (in, out) layout.
+
+The reference's decode writes one cache slot with
+``dynamic_update_slice`` and returns new arrays; the port writes the slot
+in place (an index write into the cache tensors) and returns the same
+tensors, so a decode step allocates no second cache.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.layers import ParamModule, apply_rope, init_, zeros_
+
+
+class Attention(ParamModule):
+    def __init__(self, d, n_heads, n_kv, head_dim, qkv_bias, generator, device=None):
+        super().__init__()
+        self.w_q = init_((d, n_heads * head_dim), generator, device)
+        self.w_k = init_((d, n_kv * head_dim), generator, device)
+        self.w_v = init_((d, n_kv * head_dim), generator, device)
+        hq = n_heads * head_dim
+        self.w_o = init_((hq, d), generator, device, scale=1.0 / (hq**0.5))
+        if qkv_bias:
+            self.b_q = zeros_((n_heads * head_dim,), device)
+            self.b_k = zeros_((n_kv * head_dim,), device)
+            self.b_v = zeros_((n_kv * head_dim,), device)
+
+
+def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta):
+    B, T, _ = x.shape
+    q = x @ params["w_q"]
+    k = x @ params["w_k"]
+    v = x @ params["w_v"]
+    if "b_q" in params:
+        q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    q = q.reshape(B, T, n_heads, head_dim)
+    k = k.reshape(B, T, n_kv, head_dim)
+    v = v.reshape(B, T, n_kv, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def _gqa_scores_full(q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch.float32):
+    """q: (B,T,Hq,hd), k/v: (B,S,Hkv,hd). Softmax attention, blockwise over
+    query chunks of 512, so the (T x S) score matrix never materializes —
+    peak extra memory is one (B,Hkv,g,chunk,S) slab. Full-softmax rows per
+    chunk (S is not chunked), so no online-softmax state is needed.
+    """
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    scale = 1.0 / (hd**0.5)
+    qh = q.reshape(B, T, Hkv, g, hd)
+    if T <= chunk:
+        return _attn_chunk(qh, k, v, 0, causal, scale, T, scores_dtype).reshape(B, T, Hq, hd)
+    n_chunks = T // chunk
+    assert n_chunks * chunk == T, f"T={T} not divisible by attention chunk {chunk}"
+    outs = [
+        _attn_chunk(qh[:, c0 : c0 + chunk], k, v, c0, causal, scale, T, scores_dtype)
+        for c0 in range(0, T, chunk)
+    ]
+    return torch.cat(outs, dim=1).reshape(B, T, Hq, hd)
+
+
+def _attn_chunk(qc, k, v, offset, causal: bool, scale: float, T: int, scores_dtype=torch.float32):
+    """One query chunk against the full key set. qc: (B,c,Hkv,g,hd).
+
+    The scores accumulate in f32 (the products of bf16 inputs are exact in
+    f32, so this is the reference's ``preferred_element_type``) and are kept
+    in ``scores_dtype``; the normalizer accumulates in f32."""
+    c = qc.shape[1]
+    S = k.shape[1]
+    f32 = torch.float32
+    u = torch.einsum("bthgd,bshd->bhgts", qc.to(f32), k.to(f32)).to(scores_dtype) * scale
+    if causal:
+        rows = offset + torch.arange(c, device=qc.device)[:, None] + (S - T)
+        cols = torch.arange(S, device=qc.device)[None, :]
+        u = u.masked_fill(rows < cols, -torch.inf)
+    m = torch.amax(u, dim=-1, keepdim=True)
+    e = torch.exp(u - m)
+    den = torch.sum(e.to(f32), dim=-1, keepdim=True)
+    w = (e / den.to(e.dtype)).to(qc.dtype)
+    return torch.einsum("bhgts,bshd->bthgd", w, v.to(qc.dtype))
+
+
+def self_attention(
+    params, x, *, n_heads, n_kv, head_dim, positions, rope_theta=10000.0,
+    causal=True, scores_dtype=torch.float32,
+):
+    """Prefill path: full attention over the sequence."""
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta)
+    out = _gqa_scores_full(q, k, v, causal, scores_dtype=scores_dtype)
+    B, T = x.shape[:2]
+    return out.reshape(B, T, n_heads * head_dim) @ params["w_o"]
+
+
+def _decode_scores(q, cache_k, pos, n_heads, head_dim):
+    """Softmax weights of one query over the cache, slots past ``pos``
+    masked: (B, Hkv, g, 1, S) f32."""
+    B, _, Hkv, _ = cache_k.shape
+    g = n_heads // Hkv
+    qh = q.reshape(B, 1, Hkv, g, head_dim)
+    f32 = torch.float32
+    u = torch.einsum("bthgd,bshd->bhgts", qh.to(f32), cache_k.to(f32)) * (1.0 / head_dim**0.5)
+    valid = torch.arange(cache_k.shape[1], device=q.device) <= pos
+    return torch.softmax(u.masked_fill(~valid, -torch.inf), dim=-1)
+
+
+def decode_attention(params, x, cache_k, cache_v, pos, *, n_heads, n_kv, head_dim, rope_theta=10000.0):
+    """One-token cached decode. x: (B, 1, d); cache_k/v: (B, S, Hkv, hd).
+
+    Returns (out (B,1,d), cache_k, cache_v): slot ``pos`` is written in
+    place. Reads the full cache (the memory-bound op) and writes one slot.
+    """
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    w = _decode_scores(q, cache_k, pos, n_heads, head_dim).to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", w, cache_v.to(q.dtype))
+    out = out.reshape(B, 1, n_heads * head_dim) @ params["w_o"]
+    return out, cache_k, cache_v
+
+
+# int8 KV quantization granularity: symmetric scale per (token, head,
+# KV_QUANT_GROUP-channel group). Per-token-per-head scales (one scale over
+# the whole head_dim) lose argmax parity against the fp path on small
+# models — one outlier channel inflates the scale and the other channels'
+# resolution collapses; 16-channel groups restore exact argmax agreement.
+KV_QUANT_GROUP = 16
+
+
+def _kv_group(head_dim: int) -> int:
+    """Channels per scale group: the largest divisor of head_dim that is
+    <= KV_QUANT_GROUP (gcd), so grouping works for any head_dim."""
+    return math.gcd(head_dim, KV_QUANT_GROUP)
+
+
+def kv_quant_groups(head_dim: int) -> int:
+    """Scale entries per (token, head); init_cache sizes the scale caches
+    with this so it stays in lock-step with decode_attention_quant."""
+    return head_dim // _kv_group(head_dim)
+
+
+def decode_attention_quant(
+    params, x, cache_k, cache_v, k_scale, v_scale, pos,
+    *, n_heads, n_kv, head_dim, rope_theta=10000.0,
+):
+    """Cached decode with an int8 KV cache (grouped sub-channel symmetric
+    scales). The cache tiles are dequantized group-wise right before the
+    dot:
+
+        k_s = k_int8_s,g * kscale_s,g          (g = 16-channel group)
+
+    The new token is quantized with round-half-even (``torch.round``, as
+    ``jnp.round``) at scales max|t|/127 + 1e-9, and slot ``pos`` of the four
+    cache tensors is written in place."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta)
+    group = _kv_group(head_dim)
+    G = head_dim // group
+
+    def quantize(t):  # (B, 1, Hkv, hd) -> int8 + (B, 1, Hkv, G) group scales
+        tg = t.reshape(*t.shape[:-1], G, group)
+        s = torch.amax(torch.abs(tg), dim=-1, keepdim=True) / 127.0 + 1e-9
+        q8 = torch.clamp(torch.round(tg / s), -127, 127).to(torch.int8)
+        return q8.reshape(t.shape), s[..., 0]
+
+    def dequantize(c8, s):  # (B, S, Hkv, hd) int8 + (B, S, Hkv, G) -> f32
+        cg = c8.to(torch.float32).reshape(*c8.shape[:-1], G, group)
+        return (cg * s[..., None]).reshape(c8.shape)
+
+    kq, ks = quantize(k)
+    vq, vs = quantize(v)
+    cache_k[:, pos] = kq[:, 0]
+    cache_v[:, pos] = vq[:, 0]
+    k_scale[:, pos] = ks[:, 0].to(k_scale.dtype)
+    v_scale[:, pos] = vs[:, 0].to(v_scale.dtype)
+
+    k_deq = dequantize(cache_k, k_scale).to(q.dtype)
+    w = _decode_scores(q, k_deq, pos, n_heads, head_dim)
+    out = torch.einsum(
+        "bhgts,bshd->bthgd", w.to(q.dtype), dequantize(cache_v, v_scale).to(q.dtype)
+    )
+    out = out.reshape(B, 1, n_heads * head_dim) @ params["w_o"]
+    return out, cache_k, cache_v, k_scale, v_scale

@@ -1,5 +1,6 @@
-"""``repro_torch.serve`` — the serving engine (the runtime and the HTTP
-front door follow in ROADMAP queue A8)."""
+"""``repro_torch.serve`` — the serving engine, and the LM's prefill and
+decode steps (``decode_step``). The runtime and the HTTP front door follow
+in ROADMAP queue A8."""
 
 from repro_torch.serve.svm_engine import (
     EngineResult,

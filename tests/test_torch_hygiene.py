@@ -15,6 +15,8 @@ from repro_torch.core import families  # noqa: E402
 from repro_torch.core.families import CompiledArtifact  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.quadform import kernel as qf  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.serve import SVMEngine  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -90,7 +92,38 @@ def test_other_devices_raise():
         qf.quadform_heads_cuda(z, m, v, k1, k1, k1, k1)
 
 
-SOURCES = ["quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu"]
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    cfg = get_config("smollm-135m").reduced()
+    params = transformer.init_params(cfg, device="cpu")
+    tree = {
+        name: {path: p.numpy() for path, p in getattr(params, name).named_parameters()}
+        for name in ("embed", "lm_head", "final_ln")
+    }
+    layers = [dict(layer.named_parameters()) for layer in params.layers]
+    stacked = {}
+    for path in layers[0]:
+        group, key = path.split(".")
+        stacked.setdefault(group, {})[key] = np.stack([lay[path].numpy() for lay in layers])
+    tree["layers"] = stacked
+    back = convert.lm_params_from_numpy(cfg, tree, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(back.parameters(), params.parameters()))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.lm_params_from_numpy(cfg, tree)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_cache(cfg, 1, 8)
+
+
+SOURCES = [
+    "quadform.cu",
+    "rbf_pred.cu",
+    "rff_score.cu",
+    "fastfood.cu",
+    "flash_attn.cu",
+    "maclaurin_attn.cu",
+]
 
 
 @pytest.mark.parametrize("source", SOURCES)
@@ -105,6 +138,8 @@ def test_failed_build_raises_with_the_log(monkeypatch, tmp_path, source):
     assert set(build.KERNELS) == {
         "fastfood_score",
         "fastfood_score_q8",
+        "flash_attention",
+        "maclaurin_attention",
         "quadform_heads",
         "quadform_heads_q8",
         "rbf_scores",

@@ -1,4 +1,4 @@
-"""Kernels B1-B7 on the card against their plain PyTorch twins.
+"""Kernels B1-B9 on the card against their plain PyTorch twins.
 
 Marked ``cuda``; each test skips inside its body where no card is present,
 so every worker collects the same tests. On a card:
@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import families  # noqa: E402
-from repro_torch.kernels import fwht  # noqa: E402
+from repro_torch.kernels import flash_attn, fwht, maclaurin_attn  # noqa: E402
 from repro_torch.kernels.common import TileConfig  # noqa: E402
 from repro_torch.kernels.quadform import kernel as qf  # noqa: E402
 from repro_torch.kernels.rbf_pred import kernel as rp  # noqa: E402
@@ -347,3 +347,117 @@ def test_fastfood_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fwht.fastfood_score_q8_cuda(*q[:3], q[3].int(), *q[4:])
     with pytest.raises(ValueError, match="shape"):
         fwht.fastfood_score_q8_cuda(*q[:5], q[5][:1].contiguous(), *q[6:])
+
+
+# ------------------------------------------------- B8, B9: the LM kernels
+#
+# The rule of B2 and B4-B7: the kernel may be at most 4x as far from its
+# plain twin as that twin is from the float64 answer (the quadratic-form
+# oracle in float64), + 1e-6. B9 in bf16 is also held element by element
+# against the twin's f32 value before rounding (the twin on the same inputs
+# widened to f32, as the kernel widens them): the kernel rounds a value
+# within the f32 rule's tolerance of it, so each element may differ by half
+# a bf16 step of itself (2^-8 |x|) plus that tolerance.
+
+
+def _attn_inputs(bh, t, d, dv, seed, dev, scale=1.0, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    q, k = ((rng.standard_normal((bh, t, d)) * scale).astype(np.float32) for _ in range(2))
+    v = rng.standard_normal((bh, t, dv)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev).to(dtype) for a in (q, k, v)]
+
+
+def _within_rule(out, twin, exact):
+    err = float((out.double() - twin.double()).abs().max())
+    twin_err = float((twin.double() - exact).abs().max())
+    assert err <= 4.0 * twin_err + 1e-6, (err, twin_err)
+    return err
+
+
+def _within_bf16_rounding(out, q, k, v, exact, **kw):
+    twin32 = flash_attn.flash_attention_torch(q.float(), k.float(), v.float(), **kw).double()
+    tol32 = 4.0 * float((twin32 - exact).abs().max()) + 1e-6
+    over = (out.double() - twin32).abs() - (2.0**-8 * twin32.abs() + (1 + 2.0**-8) * tol32)
+    assert float(over.max()) <= 0, float(over.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "bh,t,d,dv",
+    [
+        (3, 1, 32, 32),
+        (2, 100, 64, 64),
+        (4, 257, 96, 96),
+        (1, 130, 128, 128),
+        (2, 77, 64, 24),
+        (2, 300, 16, 16),
+        (1, 640, 64, 128),
+        (36, 256, 64, 64),
+    ],
+)
+def test_flash_kernel_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv, dtype):
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, dtype=dtype)
+    before = flash_attn.KERNEL.launches
+    out = flash_attn.flash_attention_cuda(q, k, v)
+    assert flash_attn.KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == (bh, t, dv)
+    twin = flash_attn.flash_attention_torch(q, k, v)
+    exact = flash_attn.softmax_attention_ref(q.double(), k.double(), v.double(), scale=d**-0.5)
+    torch.cuda.synchronize()
+    _within_rule(out, twin, exact)
+    if dtype == torch.bfloat16:
+        _within_bf16_rounding(out, q, k, v, exact)
+    again = flash_attn.flash_attention_cuda(q, k, v)
+    assert torch.equal(again, out)  # no atomics: the same bits every run
+
+
+def test_flash_kernel_full_attention_and_large_logits(cuda):
+    q, k, v = _attn_inputs(2, 128, 64, 64, seed=1, dev=cuda)
+    out = flash_attn.flash_attention_cuda(q, k, v, causal=False)
+    s = (q.double() @ k.double().transpose(1, 2)) / 8.0
+    exact = torch.softmax(s, -1) @ v.double()
+    twin = flash_attn.flash_attention_torch(q, k, v, causal=False)
+    _within_rule(out, twin, exact)
+    with pytest.raises(ValueError, match="explicit mask"):
+        flash_attn.flash_attention_cuda(q[:, :100], k[:, :100], v[:, :100], causal=False)
+    big = [x * 30 for x in _attn_inputs(1, 64, 16, 16, seed=0, dev=cuda)]
+    out = flash_attn.flash_attention_cuda(*big[:2], big[2] / 30)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 100, 256])
+@pytest.mark.parametrize(
+    "bh,t,d,dv", [(2, 1, 16, 16), (3, 200, 32, 48), (2, 300, 64, 64), (1, 257, 96, 96), (2, 160, 128, 128), (2, 128, 64, 24)]
+)
+def test_maclaurin_kernel_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv, chunk):
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
+    config = TileConfig(chunk=chunk)
+    before = maclaurin_attn.KERNEL.launches
+    out = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config)
+    assert maclaurin_attn.KERNEL.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (bh, t, dv)
+    twin = maclaurin_attn.maclaurin_attention_torch(q, k, v, config=config)
+    exact = maclaurin_attn.maclaurin_attention_ref(q.double(), k.double(), v.double(), scale=d**-0.5)
+    torch.cuda.synchronize()
+    _within_rule(out, twin, exact)
+    again = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config)
+    assert torch.equal(again, out)  # no atomics: the same bits every run
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v = _attn_inputs(2, 64, 64, 64, seed=0, dev=cuda)
+    for blocks in (dict(block_q=128), dict(block_q=16, block_k=16), dict(block_k=32)):
+        with pytest.raises(ValueError, match="compiled for 64 x 64"):
+            flash_attn.flash_attention_cuda(q, k, v, **blocks)
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention_cuda(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attn.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    wide = _attn_inputs(1, 16, 160, 16, seed=0, dev=cuda)
+    with pytest.raises(ValueError, match="128"):
+        flash_attn.flash_attention_cuda(*wide)
+    odd = _attn_inputs(1, 16, 48, 16, seed=0, dev=cuda)
+    with pytest.raises(ValueError, match="compiled for"):
+        maclaurin_attn.maclaurin_attention_cuda(*odd)

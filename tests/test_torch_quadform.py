@@ -130,5 +130,7 @@ def test_tuning_lookup_defaults():
         assert tuning.lookup(kernel) == tuning.DEFAULTS[kernel]
     for kernel in ("fwht", "fwht_q8"):
         assert tuning.lookup(kernel, "d780_f4096_n32") == tuning.DEFAULTS[kernel]
+    assert tuning.lookup("flash_attn").block_q == tuning.DEFAULTS["flash_attn"].block_q
+    assert tuning.lookup("maclaurin_attn").chunk == tuning.DEFAULTS["maclaurin_attn"].chunk
     with pytest.raises(KeyError):
-        tuning.lookup("flash_attn")
+        tuning.lookup("no_such_kernel")
