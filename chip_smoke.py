@@ -50,6 +50,7 @@ without a card, or without the repo's ``src/`` beside it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +73,11 @@ EXACT_ROWS = 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# f32-accurate products from the tensor cores: 3xTF32 spends three TF32
+# products (hi*hi + hi*lo + lo*hi) on one, at the 495 TFLOP/s dense TF32
+# rate of NVIDIA's H100 SXM data sheet. The bound of the f32 attention
+# kernels: B9 in f32, and B8 by either route (its moments are products too).
+PEAK_F32_3XTF32 = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
 # Tolerances: fp32 on both sides, sums taken in another order.
@@ -129,7 +135,15 @@ ATTN_CASES = (  # (kernel, case, (bh, t, d, dv), dtype)
     ("flash_attention", "ragged f32", (LM_B * 9, 2000, 64, 64), "float32"),
     ("maclaurin_attention", "ragged", (LM_B * 9, 2000, 64, 64), "float32"),
     ("maclaurin_attention", "hd128", (8, 1024, 128, 128), "float32"),  # S2 8 MB a head
+    # past T ~ 2 d dv, where the moments' count is ~6.8x below the quadratic
+    # form's, yet the quadratic route is faster; and where the moments route is
+    ("maclaurin_attention", "d16", (8, 4096, 16, 16), "float32"),
+    ("maclaurin_attention", "long d16", (64, 8192, 16, 16), "float32"),
 )
+# ``--route-sweep``: B8's routes timed apart at these head counts and T.
+SWEEP_HEADS = (1, 4, 16, 64, 256)
+SWEEP_T = (256, 512, 1024, 2048, 4096, 8192, 16384, 32768, 65536)
+SWEEP_MS = 100.0
 # B8/B9: at most ATTN_TWIN times the twin's distance from the float64
 # quadratic-form oracle, + ATTN_ABS. B9 in bf16 is also held element by
 # element against the twin's f32 value before rounding (the twin on the same
@@ -440,6 +454,82 @@ def push_out(Z, msq: float, gamma: float):
     return (Z * np.sqrt(target / zsq)).astype(np.float32)
 
 
+_FUNCTION = re.compile(r"Function : (\S+)")
+_OPCODE = re.compile(r"\b((?:HGMMA|HMMA|LDSM|LDGSTS)\.?[\w.]*)")
+_USAGE = re.compile(r"Function ([^\s:]+):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)")
+
+
+def read_compiled(sass: str, usage: str) -> dict[str, dict]:
+    """Per function of a ``cuobjdump -sass`` listing, the count of each
+    tensor-core MMA (HMMA, HGMMA), ldmatrix (LDSM) and cp.async (LDGSTS)
+    opcode; with its registers and its stack and local bytes (spills) from
+    the ``cuobjdump -res-usage`` text."""
+    kernels: dict[str, dict] = {}
+    current = None
+    for line in sass.splitlines():
+        if m := _FUNCTION.search(line):
+            current = kernels.setdefault(m.group(1), {}).setdefault("sass", {})
+        elif current is not None:
+            for op in _OPCODE.findall(line):
+                current[op] = current.get(op, 0) + 1
+    for name, regs, stack, local in _USAGE.findall(usage):
+        kernels.setdefault(name, {}).update(
+            registers=int(regs), stack_bytes=int(stack), local_bytes=int(local)
+        )
+    return kernels
+
+
+def compiled_attention(lib: Path, cuobjdump: Path) -> dict:
+    """What nvcc made of the tile engine in a built attention library
+    (``read_compiled``); fails unless each instantiation of the engine runs
+    its products on the tensor cores."""
+    sass, usage = (
+        subprocess.run([str(cuobjdump), flag, str(lib)], capture_output=True, text=True, check=True).stdout
+        for flag in ("-sass", "-res-usage")
+    )
+    engine = {n: k for n, k in read_compiled(sass, usage).items() if "attn_fwd" in n}
+    check(bool(engine), f"{lib.name}: no tile engine instantiation in the SASS")
+    for name, k in engine.items():
+        mma = sum(c for op, c in k.get("sass", {}).items() if "MMA" in op)
+        check(mma > 0, f"{lib.name}: {name} holds no tensor-core MMA")
+    return engine
+
+
+def route_sweep(dev, out_path: Path) -> None:
+    """Time kernel B8's two routes apart (``force_route``) over head counts,
+    lengths and widths, into ``out_path`` as JSON lines: the measurements
+    ``maclaurin_attn.route``'s cost model is fitted to. Each (route, width,
+    heads) series runs T upward until one call passes SWEEP_MS."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.maclaurin_attn import kernel as ma
+
+    build.build_all(["maclaurin_attn.cu"])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    widths = [(d, d) for d in ma.HEAD_DIMS] + [(16, 64), (32, 20), (64, 24), (64, 160), (128, 64)]
+    with open(out_path, "w") as f:
+        for d, dv in widths:
+            for bh in SWEEP_HEADS:
+                for taken in ma.ROUTES:
+                    for t in SWEEP_T:
+                        if 4 * bh * t * (2 * d + 2 * dv) > 8e9:
+                            break
+                        q, k = (torch.randn((bh, t, d), generator=gen, device=dev) for _ in range(2))
+                        v = torch.randn((bh, t, dv), generator=gen, device=dev)
+                        launch = lambda: ma.maclaurin_attention_cuda(q, k, v, force_route=taken)  # noqa: E731
+                        once = time_ms(launch, iters=1, warm=1)
+                        iters = max(1, min(10, int(SWEEP_MS / 2 / max(once, 1e-3))))
+                        ms = time_ms(launch, iters=iters, warm=0) if iters > 1 else once
+                        row = dict(route=taken, bh=bh, t=t, d=d, dv=dv, ms=ms)
+                        f.write(json.dumps(row) + "\n")
+                        phase("route_sweep", **row)
+                        del q, k, v
+                        if once > SWEEP_MS:
+                            break
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -450,6 +540,9 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside it", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--route-sweep"]:
+        route_sweep(torch.device("cuda"), Path(sys.argv[2]))
+        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True,
@@ -488,6 +581,10 @@ def run(dev) -> list[dict]:
     t0 = time.perf_counter()
     libs = build.build_all()
     phase("build", seconds=time.perf_counter() - t0, libs=[p.name for p in libs])
+    for lib in libs:
+        if lib.name.startswith(("flash_attn-", "maclaurin_attn-")):
+            engine = compiled_attention(lib, Path(build.nvcc()).parent / "cuobjdump")
+            phase("compiled", lib=lib.name, **engine)
 
     # ------------------------------------------------------------ main path
     seconds = {}
@@ -1284,8 +1381,9 @@ def lm_config(**changes):
 
 def attention_kernel_checks(dev) -> tuple[dict, dict]:
     """B9 and B8 against their plain twins and float64 at the model's
-    attention shapes, and timed. Returns (checks, timings), keyed by
-    (kernel, case)."""
+    attention shapes, and timed; B8 by each of its routes, forced, and
+    unforced by the one ``route`` picks, which must be the faster. Returns
+    (checks, timings), keyed by (kernel, case), for B8 of the route taken."""
     import torch
     import torch.nn.functional as F
 
@@ -1304,6 +1402,16 @@ def attention_kernel_checks(dev) -> tuple[dict, dict]:
         v = torch.randn((bh, t, dv), generator=gen, device=dev)
         return [x.to(dtype).contiguous() for x in (q, k, v)]
 
+    def oracle(fn, q, k, v):
+        """``fn`` in float64, a few heads at a time (it holds T x T weights)."""
+        g = max(1, 2**28 // q.shape[1] ** 2)
+        scale = q.shape[-1] ** -0.5
+        parts = [
+            fn(*(x[i : i + g].double() for x in (q, k, v)), scale=scale)
+            for i in range(0, q.shape[0], g)
+        ]
+        return torch.cat(parts)
+
     checks, timings = {}, {}
     chunk = tuning.lookup("maclaurin_attn").chunk  # the model's, the one B8 chunk
     for name, case, (bh, t, d, dv), dtype in ATTN_CASES:
@@ -1311,72 +1419,96 @@ def attention_kernel_checks(dev) -> tuple[dict, dict]:
         dtype = getattr(torch, dtype)
         q, k, v = inputs(bh, t, d, dv, dtype)
         if is_flash:
-            launch = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
+            launches = {None: lambda: fa.flash_attention_cuda(q, k, v)}
             plain = lambda: fa.flash_attention_torch(q, k, v)  # noqa: E731
             exact_fn = softmax_attention_ref
+            route = None
         else:
-            launch = lambda: ma.maclaurin_attention_cuda(q, k, v)  # noqa: E731
+            route = ma.route(bh, t, d, dv)
+            launches = {
+                r: (lambda r=r: ma.maclaurin_attention_cuda(q, k, v, force_route=r))
+                for r in (route, *(r for r in ma.ROUTES if r != route))
+            }
             plain = lambda: ma.maclaurin_attention_torch(q, k, v)  # noqa: E731
             exact_fn = maclaurin_attention_ref
-        out, again, twin = launch(), launch(), plain()
-        exact = exact_fn(q.double(), k.double(), v.double(), scale=d**-0.5)
-        torch.cuda.synchronize()
-        err, twin_err = max_err(out, twin), max_err(twin, exact)
+        twin = plain()
+        exact = oracle(exact_fn, q, k, v)
+        twin_err = max_err(twin, exact)
         tol = ATTN_TWIN * twin_err + ATTN_ABS
-        res = dict(
-            max_abs_err=err,
-            twin_max_abs_err_vs_float64=twin_err,
-            max_abs_err_vs_float64=max_err(out, exact),
-            tol=tol,
-            max_abs_ref=float(twin.double().abs().max()),
-            same_bits_again=bool(torch.equal(again, out)),
-        )
-        if dtype == torch.bfloat16:
-            res.update(bf16_rounding_check(q, k, v, out, exact))
-        phase(
-            "kernel_check",
-            kernel=name,
-            case=case,
-            bh=bh,
-            t=t,
-            d=d,
-            dv=dv,
-            dtype=str(dtype).removeprefix("torch."),
-            chunk=None if is_flash else chunk,
-            **res,
-        )
-        what = f"{name} {case}"
-        check(err <= tol, f"{what}: {err} > {tol}")
-        if dtype == torch.bfloat16:
-            check(res["bf16_worst_margin"] >= 0, f"{what}: beyond bf16 rounding of the f32 twin")
-            check(res["control_bf16_worst_margin"] < 0, f"{what}: the dropped-tile control passed")
-        check(res["same_bits_again"], f"{what}: bits differ run to run")
-        check(bool(torch.isfinite(out).all()), f"{what}: not finite")
-        checks[name, case] = res
+        for r, launch in launches.items():
+            out, again = launch(), launch()
+            torch.cuda.synchronize()
+            err = max_err(out, twin)
+            res = dict(
+                max_abs_err=err,
+                twin_max_abs_err_vs_float64=twin_err,
+                max_abs_err_vs_float64=max_err(out, exact),
+                tol=tol,
+                max_abs_ref=float(twin.double().abs().max()),
+                same_bits_again=bool(torch.equal(again, out)),
+            )
+            if r == route and not is_flash:
+                unforced = ma.maclaurin_attention_cuda(q, k, v)
+                res["unforced_same_bits"] = bool(torch.equal(unforced, out))
+            if dtype == torch.bfloat16:
+                res.update(bf16_rounding_check(q, k, v, out, exact))
+            phase(
+                "kernel_check",
+                kernel=name,
+                case=case,
+                bh=bh,
+                t=t,
+                d=d,
+                dv=dv,
+                dtype=str(dtype).removeprefix("torch."),
+                chunk=None if is_flash else chunk,
+                route=r,
+                route_taken=route,
+                **res,
+            )
+            what = f"{name} {case}" + (f" ({r} route)" if r else "")
+            check(err <= tol, f"{what}: {err} > {tol}")
+            if dtype == torch.bfloat16:
+                check(res["bf16_worst_margin"] >= 0, f"{what}: beyond bf16 rounding of the f32 twin")
+                check(res["control_bf16_worst_margin"] < 0, f"{what}: the dropped-tile control passed")
+            check(res["same_bits_again"], f"{what}: bits differ run to run")
+            check(res.get("unforced_same_bits", True), f"{what}: unforced, another route ran")
+            check(bool(torch.isfinite(out).all()), f"{what}: not finite")
+            if r == route:
+                checks[name, case] = res
+            del out, again
         del exact
         if t % 64:  # ragged cases are checked, not timed
             continue
+        iters = 5 if is_flash else 3
         if is_flash:
             q4, k4, v4 = (x.view(1, bh, t, -1) for x in (q, k, v))
             library = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)  # noqa: E731
             work = flash_work(bh, t, d, dv, q.element_size())
-            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_3XTF32
         else:
             library = None  # no PyTorch call computes w(u) attention
             work = maclaurin_work(bh, t, d, dv, chunk)
-            peak = PEAK_FP32_FLOPS
-        iters = 5 if is_flash else 3
+            peak = PEAK_F32_3XTF32  # the card's f32-accurate product rate, whichever route
+        route_ms = {r: time_ms(launch, iters=iters, warm=1) for r, launch in launches.items()}
         timings[name, case] = dict(
-            ms=time_ms(launch, iters=iters, warm=1),
+            ms=route_ms[route],
             plain_ms=time_ms(plain, iters=iters, warm=1),
             library_ms=time_ms(library, iters=iters, warm=1) if library else None,
             bound=bound(*work, peak=peak),
         )
         t_ = timings[name, case]
+        for r, ms in route_ms.items():
+            check(ms >= t_["bound"][0], f"{name} {case} ({r} route): faster than its bound")
+        if not is_flash:
+            other = min(ms for r, ms in route_ms.items() if r != route)
+            check(t_["ms"] <= other, f"{name} {case}: the {route} route taken is the slower")
         phase(
             "kernel_time",
             kernel=name,
             case=case,
+            route=route,
+            route_ms={r: ms for r, ms in route_ms.items() if r},
             bound_ms=t_["bound"][0],
             bound_by=t_["bound"][1],
             **{k_: t_[k_] for k_ in ("ms", "plain_ms", "library_ms")},

@@ -1,4 +1,4 @@
-// Chunked causal Maclaurin attention, w(u) = 1 + u + u^2/2 (B8).
+// Causal Maclaurin attention, w(u) = 1 + u + u^2/2 (B8), by two routes.
 //
 // Replaces repro/kernels/maclaurin_attn/kernel.py::maclaurin_attention_pallas
 // (body _kernel). For every (batch*head) b, q and k (T, D), v (T, DV), with
@@ -6,8 +6,35 @@
 //
 //   out_t = sum_{j<=t} w(u_tj) v_j / sum_{j<=t} w(u_tj)
 //
-// Keys of the query's own chunk enter exactly; keys of earlier chunks
-// through the running moments of the paper's collapse (Eq 3.7):
+// What bounds it on an H100: the function needs the smaller of two counts.
+// The causal quadratic form does T (T + 1) / 2 (2 D + 2 DV + 6) flops a
+// head; the chunked moments schedule below does, per head and key, 2 D^2
+// (DV + 1) to update the moments and per query as many to read them out,
+// plus the exact intra-chunk term: ~4 T D^2 DV. The second is smaller only
+// from T ~ 2 D DV (8192 at D = DV = 64). At the smollm-135m prefill shape
+// (b = 36, T = 2048, D = DV = 64) the quadratic count, 19.8 GFLOP, against
+// 75 MB of f32 inputs and output, is bound by operations: 0.120 ms at the
+// rate of f32-accurate 3xTF32 products (495 / 3 TFLOP/s). The counts do
+// not pick the route: the quadratic route runs on the tensor cores, the
+// moments route as SIMT FMAs a block a head at a time, so the wrapper
+// (kernels/maclaurin_attn/kernel.py::route) takes the one that a cost
+// model fitted to both routes' times on the card finds faster: the
+// quadratic form at every model shape, the moments only at long T with
+// few blocks (e.g. b = 64, D = DV = 16 past T ~ 4096). The entry point
+// takes the route as an argument.
+//
+// Quadratic route: the tile engine of attn_tile.cuh with the Maclaurin
+// weight. A block of 4 warps owns (b, at most 128 value columns, a 64-row
+// query tile) and loops over the key tiles on or below the diagonal: S = Q
+// K^T and then W V on the tensor cores as 3xTF32, W = w(scale S) set to 0
+// above the diagonal and past T, the numerator acc += W V and the
+// denominator l += rowsum(W) in registers, out = acc / l. w >= 1/2, so
+// there is no running max and no rescale. This is the reference's
+// quadratic oracle (ref.py) in f32.
+//
+// Moments route (long sequences with few heads): keys of the query's own
+// chunk enter exactly; keys of earlier chunks through the running moments
+// of the paper's collapse (Eq 3.7):
 //
 //   sum_j w(u_tj) v_j = V0 + scale q^T S1 + scale^2/2 phi2(q)^T S2
 //   S1 = sum k v^T (D, DV),  S2 = sum phi2(k) v^T (D^2, DV),  V0 = sum v
@@ -18,39 +45,33 @@
 // q^T M_c q: Y = Q M_c, then rowsum(Y * Q). The denominator is the same
 // sum with v = 1, so it is carried as one more column (all ones) of V:
 // its M is sum k k^T, its S1 column sum k, its V0 the count. Every
-// operation is f32, as the reference casts its inputs (kernel.py:155).
+// operation is an f32 FMA, as the reference casts its inputs
+// (kernel.py:155). The kernel returns only the output: the model's decode
+// state is built apart from it (models/maclaurin_attention.py), so the
+// moments serve here only as the faster route at long T.
 //
-// What bounds it on an H100 (fp32, no tensor cores): the function needs the
-// smaller of two counts. This chunked schedule does, per head and key,
-// 2 D^2 (DV + 1) flops to update the moments and per query as many to read
-// them out, plus the exact intra-chunk term: ~4 T D^2 DV. The causal
-// quadratic form does T (T + 1) / 2 (2 D + 2 DV + 6). The first is smaller
-// only from T ~ 2 D DV (8192 at D = DV = 64). At the smollm-135m prefill
-// shape (b = 36, T = 2048, D = DV = 64) the quadratic count, 19.8 GFLOP
-// (0.30 ms at 67 TFLOP/s), is the bound, against 75 MB of f32 inputs and
-// output (0.02 ms): bound by operations, with this kernel doing ~4x the
-// least work. It keeps the chunked schedule because the model's state is
-// the same moments (decode reads them) and its working set is O(D^2 DV).
-//
-// Design. The TPU kernel carried S2 (D^2 x DV: 1 MB a head at D = 64, 8 MB
-// at 128) in VMEM across a sequential chunk grid axis. A block has at most
-// 227 KB of shared memory and blocks carry nothing between them. So S2 is
-// split by column: a block owns (b, dvt value columns) and keeps their
-// M_c, and the denominator's, in dynamic shared memory (dvt is chosen at
-// launch to fit: 8 at D = 64, 1 at D = 128), and loops over the
-// chunks of its head in order. Each block recomputes the denominator and
-// the intra-chunk scores of its head; the grid is (DV / dvt, b). Within a
-// chunk, 64-row sub-tiles of queries are read out (order 0 and 1 terms,
-// then q^T M_c q for each column, then the exact intra-chunk term against
-// the chunk's keys up to the row, masked rows >= cols), and only then are
-// the chunk's keys folded into the moments: chunk c's keys are "previous"
-// only for chunk c + 1. 256 threads form a 16 x 16 grid; thread (ty, tx)
-// owns rows ty*4 .. ty*4+3 of a sub-tile and columns tx + 16j, and owns
-// the entries (ty + 16i, tx + 16j) of every M_c in the update, so no two
-// threads write one value and no atomics are used: bitwise the same every
-// run. Ragged T (the reference pads to a multiple of the chunk) is masked
-// here: keys past T are zero rows and are never folded in, rows past T are
-// not written. D is a template argument (16, 32, 64, 96, 128).
+// Design of the moments route. The TPU kernel carried S2 (D^2 x DV: 1 MB a
+// head at D = 64, 8 MB at 128) in VMEM across a sequential chunk grid
+// axis. A block has at most 227 KB of shared memory and blocks carry
+// nothing between them. So S2 is split by column: a block owns (b, dvt
+// value columns) and keeps their M_c, and the denominator's, in dynamic
+// shared memory (dvt is chosen at launch to fit: 8 at D = 64, 1 at D =
+// 128), and loops over the chunks of its head in order. Each block
+// recomputes the denominator and the intra-chunk scores of its head; the
+// grid is (DV / dvt, b). Within a chunk, 64-row sub-tiles of queries are
+// read out (order 0 and 1 terms, then q^T M_c q for each column, then the
+// exact intra-chunk term against the chunk's keys up to the row, masked
+// rows >= cols), and only then are the chunk's keys folded into the
+// moments: chunk c's keys are "previous" only for chunk c + 1. 256 threads
+// form a 16 x 16 grid; thread (ty, tx) owns rows ty*4 .. ty*4+3 of a
+// sub-tile and columns tx + 16j, and owns the entries (ty + 16i, tx + 16j)
+// of every M_c in the update, so no two threads write one value and no
+// atomics are used: bitwise the same every run. Ragged T (the reference
+// pads to a multiple of the chunk) is masked here: keys past T are zero
+// rows and are never folded in, rows past T are not written. D is a
+// template argument (16, 32, 64, 96, 128).
+
+#include "attn_tile.cuh"
 
 #include <cuda_runtime.h>
 
@@ -307,17 +328,28 @@ extern "C" {
 const char* repro_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // q, k (BH, T, D), v (BH, T, DV), out (BH, T, DV): f32, contiguous, on the
-// device. D in {16, 32, 64, 96, 128}; chunk >= 1; DV >= 1.
+// device. D in {16, 32, 64, 96, 128}; chunk >= 1; DV >= 1. route 0: the
+// chunked moments; route 1: the causal quadratic form (chunk unused).
 int maclaurin_attn_f32(const float* q, const float* k, const float* v, float* out, int BH,
-                       int T, int D, int DV, int chunk, float scale, cudaStream_t stream) {
+                       int T, int D, int DV, int chunk, int route, float scale,
+                       cudaStream_t stream) {
   if (BH <= 0 || T <= 0 || DV <= 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  if (D != 16 && D != 32 && D != 64 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    using attn_tile::Maclaurin;
+    if (D <= 64 && DV <= 64)
+      return (int)attn_tile::launch<Maclaurin, false, 64>(q, k, v, out, BH, T, D, DV, scale, 1,
+                                                          stream);
+    return (int)attn_tile::launch<Maclaurin, false, 128>(q, k, v, out, BH, T, D, DV, scale, 1,
+                                                         stream);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 16: return (int)launch<16>(q, k, v, out, BH, T, DV, chunk, scale, stream);
     case 32: return (int)launch<32>(q, k, v, out, BH, T, DV, chunk, scale, stream);
     case 64: return (int)launch<64>(q, k, v, out, BH, T, DV, chunk, scale, stream);
     case 96: return (int)launch<96>(q, k, v, out, BH, T, DV, chunk, scale, stream);
-    case 128: return (int)launch<128>(q, k, v, out, BH, T, DV, chunk, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)launch<128>(q, k, v, out, BH, T, DV, chunk, scale, stream);
   }
 }
 

@@ -7,10 +7,11 @@ interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``build/kernels/`` at the root of the checkout, named
-by a hash of its source and flags, so an edited source never loads a
-stale build. Building happens at the first launch, or up front for every
-source at once with ``build_all`` (one nvcc process per source, all
-started together). A failed build raises; nothing falls back.
+by a hash of its source, every ``csrc`` header it includes (directly or
+through another header) and the flags, so an edited source or header
+never loads a stale build. Building happens at the first launch, or up
+front for every source at once with ``build_all`` (one nvcc process per
+source, all started together). A failed build raises; nothing falls back.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``CudaKernel.launch`` raises on a non-zero code and otherwise adds one to
@@ -24,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,6 +45,7 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 KERNELS: dict[str, "CudaKernel"] = {}
@@ -59,11 +62,25 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def includes(source: str) -> list[str]:
+    """``source`` and the ``csrc`` headers it includes with ``#include "..."``,
+    directly or through another header, in the order first met."""
+    found, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in found or not (CSRC / name).is_file():
+            continue  # a missing header is nvcc's error to report
+        found.append(name)
+        todo += [m.decode() for m in _INCLUDE.findall((CSRC / name).read_bytes())]
+    return found
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    digest = hashlib.sha256(text).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in includes(source):
+        h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source: str) -> tuple[Path, Path, subprocess.Popen] | None:

@@ -1,16 +1,17 @@
 """Kernel B9: fused causal softmax attention with an online softmax.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attn.cu`` (CUDA C++ for
-``sm_90a``; the source's header note says what bounds it and how a block
-carries the running (m, l, acc)) on CUDA tensors, and computes with its
-plain twin ``flash_attention_torch`` on CPU tensors. It replaces
+``sm_90a`` on the tensor-core tile engine of ``csrc/attn_tile.cuh``; the
+source's header note says what bounds it, which MMA each product uses and
+its precision contract) on CUDA tensors, and computes with its plain twin
+``flash_attention_torch`` on CPU tensors. It replaces
 ``repro/kernels/flash_attn/kernel.py::flash_attention_pallas``.
 
 Both take (BH, T, d) q and k and (BH, T, dv) v of one type (f32 or bf16),
 compute in f32 and return q's type. Both keep the reference's refusal: a
 full (non-causal) attention whose T is not a multiple of the key block
 would need a mask for the padded keys, so it raises ``ValueError``
-instead of padding silently. The kernel is compiled for one 64 x 64 tile;
+instead of padding silently. The kernel is built on one 64 x 64 tile;
 ``block_q`` and ``block_k`` keep the reference's signature and set that
 refusal, and the kernel refuses any other tile.
 """

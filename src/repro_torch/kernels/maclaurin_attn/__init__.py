@@ -2,6 +2,7 @@ from repro_torch.kernels.maclaurin_attn.kernel import (
     KERNEL,
     maclaurin_attention_cuda,
     maclaurin_attention_torch,
+    route,
 )
 from repro_torch.kernels.maclaurin_attn.ops import maclaurin_attention
 from repro_torch.kernels.maclaurin_attn.ref import (
@@ -17,5 +18,6 @@ __all__ = [
     "maclaurin_attention_ref",
     "maclaurin_attention_torch",
     "maclaurin_weights",
+    "route",
     "softmax_attention_ref",
 ]

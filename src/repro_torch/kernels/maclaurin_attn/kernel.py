@@ -1,16 +1,20 @@
-"""Kernel B8: chunked causal Maclaurin attention, w(u) = 1 + u + u^2/2.
+"""Kernel B8: causal Maclaurin attention, w(u) = 1 + u + u^2/2.
 
 ``maclaurin_attention_cuda`` launches ``csrc/maclaurin_attn.cu`` (CUDA C++
-for ``sm_90a``; the source's header note says what bounds it and how the
-(D^2, DV) moment S2 is split over blocks) on CUDA tensors, and computes
-with its plain twin ``maclaurin_attention_torch`` on CPU tensors. It
-replaces ``repro/kernels/maclaurin_attn/kernel.py::maclaurin_attention_pallas``.
+for ``sm_90a``; the source's header note says what bounds it, how its
+quadratic route runs on the tensor-core tile engine of ``attn_tile.cuh``
+and how its moments route splits the (D^2, DV) moment S2 over blocks) on
+CUDA tensors, and computes with its plain twin
+``maclaurin_attention_torch`` on CPU tensors. It replaces
+``repro/kernels/maclaurin_attn/kernel.py::maclaurin_attention_pallas``.
 
 Both take (BH, T, d) inputs, compute in f32 as the reference casts them,
 and return (BH, T, dv) f32. The chunk is ``TileConfig.chunk`` (the
-port's default from ``tuning``), cut to T as the reference does: keys of
-earlier chunks reach a query through the running moments, keys of its own
-chunk exactly.
+port's default from ``tuning``), cut to T as the reference does: in the
+twin and the kernel's moments route, keys of earlier chunks reach a query
+through the running moments, keys of its own chunk exactly. ``route``
+picks the kernel's route: the one a cost model fitted on the card finds
+faster.
 """
 
 from __future__ import annotations
@@ -24,14 +28,70 @@ from repro_torch.kernels.common import TileConfig, tiles, tuning
 from repro_torch.kernels.maclaurin_attn.ref import extend_state, init_state, moment_terms
 
 HEAD_DIMS = (16, 32, 64, 96, 128)  # d the source is compiled for
+ROUTES = ("moments", "quadratic")  # the entry point's route argument, by index
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "maclaurin_attention",
     "maclaurin_attn.cu",
     "maclaurin_attn_f32",
-    [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
+    [_P] * 4 + [_I] * 6 + [ctypes.c_float, _P],
 )
+
+
+# The two routes' times on an H100 (ms), fitted to ``python3 chip_smoke.py
+# --route-sweep`` (both routes forced at d = dv in HEAD_DIMS and five other
+# (d, dv), BH 1-256, T 256-65536, chunk 64) on an H100 80GB HBM3 at 700 W.
+# Quadratic route (attn_tile.cuh, width W = 64, or 128 past 64): a block per
+# (head, W value columns, 64-row query tile) runs one 64 x 64 key-tile step
+# per tile on or below the diagonal; the card clears TILE_STEP_MS[W] a step
+# with every SM busy, and one block BLOCK_STEP_MS[W] a step alone, so the
+# longest block's chain bounds small grids. Moments route (a block per
+# (head, dvt value columns), its chunks in order): a block takes KEY_MS[d] a
+# key with its shared memory full of columns, less in proportion to its
+# columns, and BLOCKS_PER_SM[d] run at once on each SM.
+SMS = 132
+TILE_STEP_MS = {64: 1.9e-5, 128: 5.3e-5}
+BLOCK_STEP_MS = {64: 3.3e-3, 128: 7.3e-3}
+KEY_MS = {16: 5.8e-4, 32: 8.6e-4, 64: 1.0e-3, 96: 8.7e-4, 128: 8.1e-4}
+BLOCKS_PER_SM = {16: 1.3, 32: 1.15, 64: 1.0, 96: 1.0, 128: 1.0}
+MAX_SMEM, MAX_COLS = 232448, 16  # maclaurin_attn.cu's kMaxSmem and kMaxCols
+
+
+def value_columns(d: int, dv: int) -> tuple[int, int]:
+    """(value columns a moments block keeps, the most that fit): the
+    source's ``value_columns``, from the shared memory of ``smem_floats``."""
+
+    def smem_floats(ncols: int) -> int:
+        return ncols * d * d + d * ncols + ncols + 2 * 64 * (d + 1) + 64 * ncols * 2 + 64 * 65
+
+    most = max(c for c in range(1, min(dv, MAX_COLS) + 1) if 4 * smem_floats(c + 1) <= MAX_SMEM)
+    blocks = -(-dv // most)
+    return -(-dv // blocks), most
+
+
+def route_ms(bh: int, t: int, d: int, dv: int) -> dict[str, float]:
+    """Each route's time in ms on the card at (BH, T, d, dv), from the cost
+    model above."""
+    w = 64 if d <= 64 and dv <= 64 else 128
+    n = -(-t // 64)
+    steps = bh * -(-dv // w) * n * (n + 1) / 2
+    quadratic = max(steps * TILE_STEP_MS[w], n * BLOCK_STEP_MS[w])
+    dvt, most = value_columns(d, dv)
+    blocks = bh * -(-dv // dvt)
+    waves = max(1.0, blocks / (SMS * BLOCKS_PER_SM[d]))
+    moments = t * KEY_MS[d] * (dvt + 1) / (most + 1) * waves
+    return {"moments": moments, "quadratic": quadratic}
+
+
+def route(bh: int, t: int, d: int, dv: int) -> str:
+    """The kernel's route at (BH, T, d, dv): the one ``route_ms`` finds
+    faster. The quadratic form's work grows with BH T^2 on a full card, the
+    moments' with T alone while their blocks fit on the SMs, so the moments
+    win only at long T and few blocks, e.g. BH = 64, d = dv = 16 past T =
+    4096; every shape of the repo's models takes the quadratic form."""
+    times = route_ms(bh, t, d, dv)
+    return "quadratic" if times["quadratic"] <= times["moments"] else "moments"
 
 
 def _scale(scale, d: int) -> float:
@@ -72,9 +132,13 @@ def maclaurin_attention_torch(q, k, v, *, scale=None, config: TileConfig | None 
     return torch.cat(outs, dim=1)[:, :t]
 
 
-def maclaurin_attention_cuda(q, k, v, *, scale=None, config: TileConfig | None = None):
+def maclaurin_attention_cuda(
+    q, k, v, *, scale=None, config: TileConfig | None = None, force_route: str | None = None
+):
     """Causal Maclaurin attention. q, k (BH, T, d), v (BH, T, dv), any float
-    type (cast to f32 as the reference does). Returns (BH, T, dv) f32.
+    type (cast to f32 as the reference does). Returns (BH, T, dv) f32. On
+    the card the kernel takes ``route(BH, T, d, dv)``, or
+    ``force_route`` where given (to time or test one route alone).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel or
     raise. Nothing falls back from the card to the plain version.
@@ -92,6 +156,9 @@ def maclaurin_attention_cuda(q, k, v, *, scale=None, config: TileConfig | None =
     f32 = torch.float32
     check_operands(q, {"k": (k, (bh, t, d), f32), "v": (v, (bh, t, dv), f32)})
     chunk = min(config.chunk, t)
+    taken = force_route or route(bh, t, d, dv)
+    if taken not in ROUTES:
+        raise ValueError(f"maclaurin_attention: route {taken!r} not in {ROUTES}")
     out = torch.empty((bh, t, dv), dtype=f32, device=q.device)
     if bh == 0 or t == 0:
         return out
@@ -107,6 +174,7 @@ def maclaurin_attention_cuda(q, k, v, *, scale=None, config: TileConfig | None =
             d,
             dv,
             chunk,
+            ROUTES.index(taken),
             _scale(scale, d),
             stream,
         )

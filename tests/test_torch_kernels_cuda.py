@@ -393,6 +393,8 @@ def _within_bf16_rounding(out, q, k, v, exact, **kw):
         (2, 300, 16, 16),
         (1, 640, 64, 128),
         (36, 256, 64, 64),
+        (2, 100, 40, 72),  # d not a multiple of the bf16 k-step, zero-padded
+        (1, 70, 13, 7),  # rows not whole 16-byte chunks: copied element by element
     ],
 )
 def test_flash_kernel_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv, dtype):
@@ -425,23 +427,74 @@ def test_flash_kernel_full_attention_and_large_logits(cuda):
     assert bool(torch.isfinite(out).all())
 
 
-@pytest.mark.parametrize("chunk", [16, 64, 100, 256])
-@pytest.mark.parametrize(
-    "bh,t,d,dv", [(2, 1, 16, 16), (3, 200, 32, 48), (2, 300, 64, 64), (1, 257, 96, 96), (2, 160, 128, 128), (2, 128, 64, 24)]
-)
-def test_maclaurin_kernel_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv, chunk):
-    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
-    config = TileConfig(chunk=chunk)
+def _maclaurin_exact(q, k, v):
+    """The float64 quadratic-form oracle, a few heads at a time (it holds
+    every head's T x T weights)."""
+    g = max(1, 2**28 // q.shape[1] ** 2)
+    scale = q.shape[-1] ** -0.5
+    parts = [
+        maclaurin_attn.maclaurin_attention_ref(*(x[i : i + g].double() for x in (q, k, v)), scale=scale)
+        for i in range(0, q.shape[0], g)
+    ]
+    return torch.cat(parts)
+
+
+def _check_maclaurin(q, k, v, config, force_route):
+    bh, t, _ = q.shape
+    dv = v.shape[-1]
     before = maclaurin_attn.KERNEL.launches
-    out = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config)
+    out = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config, force_route=force_route)
     assert maclaurin_attn.KERNEL.launches == before + 1
     assert out.dtype == torch.float32 and out.shape == (bh, t, dv)
     twin = maclaurin_attn.maclaurin_attention_torch(q, k, v, config=config)
-    exact = maclaurin_attn.maclaurin_attention_ref(q.double(), k.double(), v.double(), scale=d**-0.5)
     torch.cuda.synchronize()
-    _within_rule(out, twin, exact)
-    again = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config)
+    _within_rule(out, twin, _maclaurin_exact(q, k, v))
+    again = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config, force_route=force_route)
     assert torch.equal(again, out)  # no atomics: the same bits every run
+    return out
+
+
+# B8's moments route (the chunked schedule) at every chunk; dv = 160 spans
+# two column groups of the quadratic route.
+B8_CASES = [
+    (2, 1, 16, 16),
+    (3, 200, 32, 48),
+    (2, 300, 64, 64),
+    (1, 257, 96, 96),
+    (2, 160, 128, 128),
+    (2, 128, 64, 24),
+    (2, 4096, 16, 16),
+    (1, 3000, 32, 20),
+    (1, 200, 64, 160),
+]
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 100, 256])
+@pytest.mark.parametrize("bh,t,d,dv", B8_CASES)
+def test_maclaurin_kernel_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv, chunk):
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
+    _check_maclaurin(q, k, v, TileConfig(chunk=chunk), "moments")
+
+
+@pytest.mark.parametrize("bh,t,d,dv", B8_CASES + [(1, 2100, 96, 40), (3, 700, 128, 72)])
+def test_maclaurin_quadratic_route_matches_plain_and_repeats_bitwise(cuda, bh, t, d, dv):
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
+    _check_maclaurin(q, k, v, TileConfig(chunk=64), "quadratic")
+
+
+@pytest.mark.parametrize(
+    "bh,t,d,dv,want",
+    [(2, 300, 64, 64, "quadratic"), (2, 4096, 16, 16, "quadratic"), (64, 8192, 16, 16, "moments")],
+)
+def test_maclaurin_kernel_takes_its_route(cuda, bh, t, d, dv, want):
+    """Unforced, the kernel takes ``route``'s pick: the same bits as that
+    route forced."""
+    assert maclaurin_attn.route(bh, t, d, dv) == want
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
+    config = TileConfig(chunk=64)
+    out = _check_maclaurin(q, k, v, config, None)
+    forced = maclaurin_attn.maclaurin_attention_cuda(q, k, v, config=config, force_route=want)
+    assert torch.equal(forced, out)
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -461,3 +514,5 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     odd = _attn_inputs(1, 16, 48, 16, seed=0, dev=cuda)
     with pytest.raises(ValueError, match="compiled for"):
         maclaurin_attn.maclaurin_attention_cuda(*odd)
+    with pytest.raises(ValueError, match="route"):
+        maclaurin_attn.maclaurin_attention_cuda(q, k, v, force_route="chunked")
