@@ -75,8 +75,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 # f32-accurate products from the tensor cores: 3xTF32 spends three TF32
 # products (hi*hi + hi*lo + lo*hi) on one, at the 495 TFLOP/s dense TF32
-# rate of NVIDIA's H100 SXM data sheet. The bound of the f32 attention
-# kernels: B9 in f32, and B8 by either route (its moments are products too).
+# rate of NVIDIA's H100 SXM data sheet. The bound of every kernel whose work
+# is f32 products, whatever implements it: B1-B5, B9 in f32, and B8 by
+# either route (its moments are products too). B6/B7's transforms are adds,
+# bound at the fp32 rate.
 PEAK_F32_3XTF32 = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
@@ -203,6 +205,46 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Time of one call when the card, not the host, sets the pace: CUDA
+    events around ``calls`` calls queued behind a kernel that spins for
+    ~50 ms, so that no launch waits on the host. Where a call's kernels
+    take less time than the host takes to launch them, ``time_ms`` reads
+    the host's rate and this the card's (the card's own gaps between
+    kernels included). No profiler: once started, ``torch.profiler`` slows
+    every later launch of the process."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # clock cycles: ~50 ms, while the calls queue up
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host time of one call, up to its return (no synchronize): the rate
+    at which the host can launch it."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -479,20 +521,35 @@ def read_compiled(sass: str, usage: str) -> dict[str, dict]:
     return kernels
 
 
-def compiled_attention(lib: Path, cuobjdump: Path) -> dict:
-    """What nvcc made of the tile engine in a built attention library
-    (``read_compiled``); fails unless each instantiation of the engine runs
-    its products on the tensor cores."""
+# Per library: the name fragment of every function whose products must run
+# on the tensor cores, and of those that must not (B3 stays fp32 SIMT).
+TENSOR_CORE_BODIES = {
+    "flash_attn-": ("attn_fwd", None),
+    "maclaurin_attn-": ("attn_fwd", None),
+    "quadform-": ("quadform_tf32", "quadform_q8_partial"),
+    "rbf_pred-": ("rbf_tf32", None),
+}
+
+
+def compiled_bodies(lib: Path, cuobjdump: Path, mma_in: str, simt: str | None) -> dict:
+    """What nvcc made of a built library's kernel bodies (``read_compiled``)
+    whose names hold ``mma_in`` or ``simt``; fails unless each ``mma_in``
+    instantiation runs its products on the tensor cores and each ``simt``
+    one holds no tensor-core MMA."""
     sass, usage = (
         subprocess.run([str(cuobjdump), flag, str(lib)], capture_output=True, text=True, check=True).stdout
         for flag in ("-sass", "-res-usage")
     )
-    engine = {n: k for n, k in read_compiled(sass, usage).items() if "attn_fwd" in n}
-    check(bool(engine), f"{lib.name}: no tile engine instantiation in the SASS")
-    for name, k in engine.items():
+    found = read_compiled(sass, usage)
+    bodies = {n: k for n, k in found.items() if mma_in in n or (simt and simt in n)}
+    check(any(mma_in in n for n in bodies), f"{lib.name}: no {mma_in} instantiation in the SASS")
+    for name, k in bodies.items():
         mma = sum(c for op, c in k.get("sass", {}).items() if "MMA" in op)
-        check(mma > 0, f"{lib.name}: {name} holds no tensor-core MMA")
-    return engine
+        if mma_in in name:
+            check(mma > 0, f"{lib.name}: {name} holds no tensor-core MMA")
+        else:
+            check(mma == 0, f"{lib.name}: {name} holds a tensor-core MMA")
+    return bodies
 
 
 def route_sweep(dev, out_path: Path) -> None:
@@ -582,9 +639,10 @@ def run(dev) -> list[dict]:
     libs = build.build_all()
     phase("build", seconds=time.perf_counter() - t0, libs=[p.name for p in libs])
     for lib in libs:
-        if lib.name.startswith(("flash_attn-", "maclaurin_attn-")):
-            engine = compiled_attention(lib, Path(build.nvcc()).parent / "cuobjdump")
-            phase("compiled", lib=lib.name, **engine)
+        for prefix, (mma_in, simt) in TENSOR_CORE_BODIES.items():
+            if lib.name.startswith(prefix):
+                cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+                phase("compiled", lib=lib.name, **compiled_bodies(lib, cuobjdump, mma_in, simt))
 
     # ------------------------------------------------------------ main path
     seconds = {}
@@ -717,12 +775,14 @@ def run(dev) -> list[dict]:
         for terms, args, abs_tol in cases:
             s, zsq, v = qf.quadform_heads_cuda(Zq[:n], *args)
             s0, zsq0, v0 = qf.quadform_heads_torch(Zq[:n], *args)
+            again = qf.quadform_heads_cuda(Zq[:n], *args)
             torch.cuda.synchronize()
             err, scale = max_err(s, s0), float(s0.abs().max())
             tol = B1_REL * scale + abs_tol
             zsq_rel = float(((zsq - zsq0).abs() / zsq0.abs().clamp(min=1e-30)).max())
             res = dict(max_abs_err=err, max_abs_ref=scale, tol=tol, zsq_rel_err=zsq_rel)
             res["masks_equal"] = bool((v == v0).all())
+            res["same_bits_again"] = all(torch.equal(x, y) for x, y in zip(again, (s, zsq, v)))
             phase(
                 "kernel_check",
                 kernel="quadform_heads",
@@ -736,34 +796,44 @@ def run(dev) -> list[dict]:
             check(err <= tol, f"{what}: {err} > {tol}")
             check(zsq_rel <= B1_ZSQ_REL, f"{what}: |z|^2 rel {zsq_rel}")
             check(res["masks_equal"], f"{what}: masks differ")
+            check(res["same_bits_again"], f"{what}: bits differ run to run")
             b1[n, terms] = res
 
     Zr = torch.from_numpy(X_te[:256].copy()).to(dev)
     Xd, Ad = svm.X, svm.alpha_y
     bd, gd = svm.b, svm.gamma
-    out = rp.rbf_scores_cuda(Zr, Xd, Ad, gd, bd)
-    out0 = rp.rbf_scores_torch(Zr, Xd, Ad, gd, bd)
     b64 = svm.b.double()
-    out64 = rp.rbf_scores_torch(
-        Zr.double(), svm.X.double(), svm.alpha_y.double(), float(gamma), b64
-    )
-    torch.cuda.synchronize()
-    b2_err, twin_err = max_err(out, out0), max_err(out0, out64)
-    b2_tol = B2_TWIN * twin_err + B2_ABS
-    phase(
-        "kernel_check",
-        kernel="rbf_scores",
-        n=256,
-        m=N_SV,
-        k=K,
-        d=spec.d,
-        max_abs_err=b2_err,
-        max_abs_err_vs_float64=max_err(out, out64),
-        twin_max_abs_err_vs_float64=twin_err,
-        max_abs_ref_minus_b=float((out64 - b64).abs().max()),
-        tol=b2_tol,
-    )
-    check(b2_err <= b2_tol, f"rbf_scores: {b2_err} > {b2_tol}")
+    X64, A64 = svm.X.double(), svm.alpha_y.double()
+    rms = lambda x: float(x.double().pow(2).mean().sqrt())  # noqa: E731
+    for n in (16, 256):  # a request's fallback rows (BN=32), and a full tile (BN=128)
+        Zn = Zr[:n]
+        out = rp.rbf_scores_cuda(Zn, Xd, Ad, gd, bd)
+        again = rp.rbf_scores_cuda(Zn, Xd, Ad, gd, bd)
+        out0 = rp.rbf_scores_torch(Zn, Xd, Ad, gd, bd)
+        out64 = rp.rbf_scores_torch(Zn.double(), X64, A64, float(gamma), b64)
+        torch.cuda.synchronize()
+        err, twin_err = max_err(out, out0), max_err(out0, out64)
+        tol = B2_TWIN * twin_err + B2_ABS
+        same = bool(torch.equal(again, out))
+        phase(
+            "kernel_check",
+            kernel="rbf_scores",
+            n=n,
+            m=N_SV,
+            k=K,
+            d=spec.d,
+            max_abs_err=err,
+            max_abs_err_vs_float64=max_err(out, out64),
+            twin_max_abs_err_vs_float64=twin_err,
+            rms_err_vs_float64=rms(out - out64),
+            twin_rms_err_vs_float64=rms(out0 - out64),
+            max_abs_ref_minus_b=float((out64 - b64).abs().max()),
+            tol=tol,
+            same_bits_again=same,
+        )
+        check(err <= tol, f"rbf_scores n={n}: {err} > {tol}")
+        check(same, f"rbf_scores n={n}: bits differ run to run")
+    b2_err = err  # n = 256
 
     seconds["kernel_check"] = time.perf_counter() - t_phase
 
@@ -771,26 +841,39 @@ def run(dev) -> list[dict]:
     t_phase = time.perf_counter()
     Zt = Zq[:1024]
     q_ms = time_ms(lambda: qf.quadform_heads_cuda(Zt, *heads))
+    q_dev = device_ms(lambda: qf.quadform_heads_cuda(Zt, *heads))
     q_plain = time_ms(lambda: qf.quadform_heads_torch(Zt, *heads))
     q_lib = time_ms(lambda: torch.einsum("ni,kij,nj->nk", Zt, a["M"], Zt))
-    q_bound, q_by = bound(*quadform_work(1024, K, spec.d))
+    q_bound, q_by = bound(*quadform_work(1024, K, spec.d), peak=PEAK_F32_3XTF32)
     Z32 = Zq[:32]
     q32 = time_ms(lambda: qf.quadform_heads_cuda(Z32, *heads))
     q32_plain = time_ms(lambda: qf.quadform_heads_torch(Z32, *heads))
     q32_lib = time_ms(lambda: torch.einsum("ni,kij,nj->nk", Z32, a["M"], Z32))
-    q32_bound, q32_by = bound(*quadform_work(32, K, spec.d))
+    q32_bound, q32_by = bound(*quadform_work(32, K, spec.d), peak=PEAK_F32_3XTF32)
     phase(
         "quadform_heads_n32",
         ms=q32,
+        device_ms=device_ms(lambda: qf.quadform_heads_cuda(Z32, *heads)),
+        host_ms=host_ms(lambda: qf.quadform_heads_cuda(Z32, *heads)),
         plain_ms=q32_plain,
         library_ms=q32_lib,
         bound_ms=q32_bound,
         bound_by=q32_by,
     )
     r_ms = time_ms(lambda: rp.rbf_scores_cuda(Zr, Xd, Ad, gd, bd))
+    r_dev = device_ms(lambda: rp.rbf_scores_cuda(Zr, Xd, Ad, gd, bd))
     r_plain = time_ms(lambda: rp.rbf_scores_torch(Zr, Xd, Ad, gd, bd))
     r_lib = time_ms(lambda: torch.cdist(Zr, Xd))
-    r_bound, r_by = bound(*rbf_work(256, N_SV, K, spec.d))
+    r_bound, r_by = bound(*rbf_work(256, N_SV, K, spec.d), peak=PEAK_F32_3XTF32)
+    Z16 = Zr[:16]  # a request's fallback rows
+    phase(
+        "rbf_scores_n16",
+        ms=time_ms(lambda: rp.rbf_scores_cuda(Z16, Xd, Ad, gd, bd)),
+        device_ms=device_ms(lambda: rp.rbf_scores_cuda(Z16, Xd, Ad, gd, bd)),
+        host_ms=host_ms(lambda: rp.rbf_scores_cuda(Z16, Xd, Ad, gd, bd)),
+        plain_ms=time_ms(lambda: rp.rbf_scores_torch(Z16, Xd, Ad, gd, bd)),
+        library_ms=time_ms(lambda: torch.cdist(Z16, Xd)),
+    )
 
     # End to end after warmup: host clock around submit -> labels on host.
     e2e = {
@@ -823,6 +906,7 @@ def run(dev) -> list[dict]:
             "launches_per_path": per_path["quadform_heads"],
             "max_abs_err": b1[1024, "all"]["max_abs_err"],
             "ms": q_ms,
+            "device_ms": q_dev,
             "plain_ms": q_plain,
             "bound_ms": q_bound,
             "bound_by": q_by,
@@ -837,6 +921,7 @@ def run(dev) -> list[dict]:
             "launches_per_path": per_path["rbf_scores"],
             "max_abs_err": b2_err,
             "ms": r_ms,
+            "device_ms": r_dev,
             "plain_ms": r_plain,
             "bound_ms": r_bound,
             "bound_by": r_by,
@@ -946,7 +1031,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
             ms=time_ms(lambda: qf.quadform_heads_q8_cuda(Zn, *q8_heads)),
             plain_ms=time_ms(lambda: qf.quadform_heads_q8_torch(Zn, *q8_heads)),
             library_ms=time_ms(lambda: torch.einsum("ni,kij,nj->nk", Zn, M_deq, Zn)),
-            bound=bound(*quadform_q8_work(n, K, d)),
+            bound=bound(*quadform_q8_work(n, K, d), peak=PEAK_F32_3XTF32),
         )
     for (f, dt), art in rff_arts.items():
         twin, kernel, args = kernel_args(art)
@@ -961,7 +1046,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
                 ms=time_ms(lambda: kernel(Zn, *args)),
                 plain_ms=time_ms(lambda: twin(Zn, *args)),
                 library_ms=time_ms(lambda: torch.matmul(Zn, W.T)),
-                bound=bound(*rff_work(n, f, K, d, w_bytes)),
+                bound=bound(*rff_work(n, f, K, d, w_bytes), peak=PEAK_F32_3XTF32),
             )
     phase_kernel_times(timings)
     seconds["kernel_time"] = time.perf_counter() - t0
@@ -1526,6 +1611,7 @@ def bf16_rounding_check(q, k, v, out, exact) -> dict:
     would let it pass)."""
     import torch
 
+    from repro_torch.kernels.common import tuning
     from repro_torch.kernels.flash_attn import kernel as fa
 
     twin32 = fa.flash_attention_torch(q.float(), k.float(), v.float()).double()
@@ -1535,7 +1621,7 @@ def bf16_rounding_check(q, k, v, out, exact) -> dict:
         room = BF16_HALF_STEP * twin32.abs() + (1 + BF16_HALF_STEP) * tol32
         return float((room - (x.double() - twin32).abs()).min())
 
-    tile = fa.BLOCK
+    tile = tuning.lookup("flash_attn").block_k  # the kernel's key tile
     rows = min(tile, q.shape[1] - tile)
     late = fa.flash_attention_torch(q[:, tile:], k[:, tile:], v[:, tile:])[:, -rows:]
     control = torch.cat([out[:, :-rows], late], dim=1)

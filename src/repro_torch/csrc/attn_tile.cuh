@@ -1,6 +1,8 @@
 // One attention tile engine for Hopper's tensor cores, shared by kernel B9
 // (flash_attn.cu: the online softmax, bf16 and f32) and the quadratic route
-// of kernel B8 (maclaurin_attn.cu: w(u) = 1 + u + u^2/2, f32).
+// of kernel B8 (maclaurin_attn.cu: w(u) = 1 + u + u^2/2, f32). Kernel B2
+// (rbf_pred.cu) streams its S through the engine's f32 k-step,
+// qk_step_tf32, in a loop of its own.
 //
 // A block owns (b, a group of at most W value columns, one 64-row query
 // tile) and loops over the 64-key tiles on or below the diagonal (all of
@@ -51,7 +53,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace attn_tile {
+
+using ptx::cp_async16;
+using ptx::cp_async_commit;
+using ptx::cp_async_wait;
+using ptx::mma_tf32;
+using ptx::smem_addr;
+using ptx::split_tf32;
 
 constexpr int kRows = 64;              // query rows of a block, keys of a tile
 constexpr int kWarps = 4;              // 16 query rows each
@@ -113,24 +124,7 @@ struct Args {
 
 // ------------------------------------------------------------ PTX wrappers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory; zeros where !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// (cp.async, mma.m16n8k8 tf32 and the TF32 split: ptx.cuh)
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -152,27 +146,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b: A 16 x 8 tf32 (row), B 8 x 8 tf32 (col), f32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = hi + lo to about 22 bits, each term rounded to TF32 as
-// cvt.rna.tf32.f32 rounds a finite x (to nearest, ties away from zero):
-// half a TF32 step added to the magnitude and the 13 bits below it cleared.
-// lo is passed with those bits set: the MMA reads only the TF32 bits of its
-// operands (were it to read more, lo would be off by at most that same half
-// step). Four instructions where two cvt take about eight.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
@@ -273,7 +246,36 @@ __device__ __forceinline__ void qk_bf16(float (&s)[kKeyTiles][4],
     }
 }
 
-// f32, 3xTF32: Q and K fragments read from padded rows and split as used.
+// f32, 3xTF32: one k-step of S = Q K^T for a warp's 16 rows x 64 keys.
+// The A fragment (rows g and g + 8 at qr) and the B fragments (key 8j + g
+// at kr), rows S floats apart, are split as read; the products are issued
+// term by term over independent accumulators, so no MMA waits on the one
+// just issued: hi*lo and lo*hi into small, hi*hi into big. small may be
+// big itself. Kernel B2 (rbf_pred.cu) streams its S through this step too.
+template <int S>
+__device__ __forceinline__ void qk_step_tf32(float (&big)[kKeyTiles][4],
+                                             float (&small)[kKeyTiles][4], const float* qr,
+                                             const float* kr, int kk) {
+  uint32_t ah[4], al[4], bh[kKeyTiles][2], bl[kKeyTiles][2];
+  split_tf32(qr[8 * kk], ah[0], al[0]);               // (g, t)
+  split_tf32(qr[8 * S + 8 * kk], ah[1], al[1]);       // (g + 8, t)
+  split_tf32(qr[8 * kk + 4], ah[2], al[2]);           // (g, t + 4)
+  split_tf32(qr[8 * S + 8 * kk + 4], ah[3], al[3]);   // (g + 8, t + 4)
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) {
+    split_tf32(kr[8 * j * S + 8 * kk], bh[j][0], bl[j][0]);      // key 8j + g, d t
+    split_tf32(kr[8 * j * S + 8 * kk + 4], bh[j][1], bl[j][1]);  // d t + 4
+  }
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) mma_tf32(small[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) mma_tf32(small[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+  for (int j = 0; j < kKeyTiles; ++j) mma_tf32(big[j], ah, bh[j][0], bh[j][1]);
+}
+
+// S = Q K^T over the W / 8 k-steps of padded rows, the small terms in
+// their own accumulator, added to S at the end.
 template <int W>
 __device__ __forceinline__ void qk_tf32(float (&s)[kKeyTiles][4], const float* qs,
                                         const float* ks, int warp, int g, int t) {
@@ -286,25 +288,7 @@ __device__ __forceinline__ void qk_tf32(float (&s)[kKeyTiles][4], const float* q
   const float* qr = qs + (warp * 16 + g) * S + t;
   const float* kr = ks + g * S + t;
 #pragma unroll
-  for (int kk = 0; kk < W / 8; ++kk) {
-    uint32_t ah[4], al[4], bh[kKeyTiles][2], bl[kKeyTiles][2];
-    split_tf32(qr[8 * kk], ah[0], al[0]);               // (g, t)
-    split_tf32(qr[8 * S + 8 * kk], ah[1], al[1]);       // (g + 8, t)
-    split_tf32(qr[8 * kk + 4], ah[2], al[2]);           // (g, t + 4)
-    split_tf32(qr[8 * S + 8 * kk + 4], ah[3], al[3]);   // (g + 8, t + 4)
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      split_tf32(kr[8 * j * S + 8 * kk], bh[j][0], bl[j][0]);      // key 8j + g, d t
-      split_tf32(kr[8 * j * S + 8 * kk + 4], bh[j][1], bl[j][1]);  // d t + 4
-    }
-    // term by term, so no MMA waits on the one just issued
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) mma_tf32(small[j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) mma_tf32(small[j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) mma_tf32(s[j], ah, bh[j][0], bh[j][1]);
-  }
+  for (int kk = 0; kk < W / 8; ++kk) qk_step_tf32<S>(s, small, qr, kr, kk);
 #pragma unroll
   for (int j = 0; j < kKeyTiles; ++j)
 #pragma unroll

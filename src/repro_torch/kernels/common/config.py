@@ -3,10 +3,10 @@
   ==============  ========================================================
   field           meaning
   ==============  ========================================================
-  ``block_n``     Z rows per block: quadform (f32 and int8) is compiled
-                  for 32, 64 and 128, rbf_pred and rff_score (f32 and
-                  int8) for 32 and 64; fwht (f32 and int8) takes any
-                  positive count
+  ``block_n``     Z rows per block: quadform (f32 and int8) and
+                  rbf_pred are compiled for 32, 64 and 128, rff_score
+                  (f32 and int8) for 32 and 64; fwht (f32 and int8)
+                  takes any positive count
   ``splits``      blocks that share the reduction axis (Hessian column
                   tiles for quadform, SV tiles for rbf_pred, feature
                   tiles for rff_score), summed by a second pass in a
@@ -20,8 +20,9 @@
   ``block_q``     flash_attn: query rows per block (the kernel is
                   compiled for 64 only)
   ``block_k``     flash_attn: key rows per tile of the block's loop
-                  (64 only); with ``block_q`` it also sets the
-                  reference's refusal of padded non-causal keys
+                  (64 only). The wrapper's own ``block_q`` and
+                  ``block_k`` arguments are the reference's blocks: they
+                  set its refusal of padded non-causal keys, not the tile
   ==============  ========================================================
 
 The TPU config's ``vmem_limit_mb`` and ``resolve_block_k`` sized a

@@ -12,9 +12,11 @@ from __future__ import annotations
 from repro_torch.kernels.common.config import TileConfig
 
 DEFAULTS: dict[str, TileConfig] = {
+    # B1 and B2: 128 rows a block (eight warps), the most that a block's
+    # shared memory holds in a three-stage ring; small batches clamp down.
     "quadform": TileConfig(block_n=128),
     "quadform_q8": TileConfig(block_n=128),
-    "rbf_pred": TileConfig(block_n=64),
+    "rbf_pred": TileConfig(block_n=128),
     "rff_score": TileConfig(block_n=64),
     "rff_score_q8": TileConfig(block_n=64),
     # Rows per block of B6/B7: eight warps, one row each at d' >= 32, so a
@@ -25,7 +27,8 @@ DEFAULTS: dict[str, TileConfig] = {
     # grows with the chunk) is as small as the kernel's tiling allows. The
     # model's chunked form runs at this chunk too.
     "maclaurin_attn": TileConfig(chunk=64),
-    # B9: the one tile the kernel is compiled for.
+    # B9: the one tile the kernel is compiled for, whatever blocks a call
+    # names (those set the reference's refusal of padded keys only).
     "flash_attn": TileConfig(block_q=64, block_k=64),
 }
 

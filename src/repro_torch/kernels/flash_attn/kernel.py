@@ -11,9 +11,10 @@ Both take (BH, T, d) q and k and (BH, T, dv) v of one type (f32 or bf16),
 compute in f32 and return q's type. Both keep the reference's refusal: a
 full (non-causal) attention whose T is not a multiple of the key block
 would need a mask for the padded keys, so it raises ``ValueError``
-instead of padding silently. The kernel is built on one 64 x 64 tile;
-``block_q`` and ``block_k`` keep the reference's signature and set that
-refusal, and the kernel refuses any other tile.
+instead of padding silently. ``block_q`` and ``block_k`` keep the
+reference's signature and defaults (256 x 256), and so refuse exactly
+where it does; they set that refusal only. The kernel runs its one 64 x
+64 tile whatever blocks are named, and masks keys past T itself.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check_operands, on_card
-from repro_torch.kernels.common import tiles, tuning
+from repro_torch.kernels.common import tiles
 
 NEG_INF = -1e30
-BLOCK = 64  # block_q and block_k of the one tile the source is compiled for
+REF_BLOCK = 256  # the reference's default block_q and block_k
 MAX_D = 128  # widest head (q/k and v) the source takes
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -39,27 +40,25 @@ KERNEL = CudaKernel(
 )
 
 
-def _resolve(q, scale, block_q, block_k, causal):
-    """(scale, block_q, block_k) after defaults, and the reference's refusal
-    of padded keys without a causal mask."""
-    default = tuning.lookup("flash_attn")
-    block_q = default.block_q if block_q is None else int(block_q)
-    block_k = default.block_k if block_k is None else int(block_k)
+def _resolve(q, scale, block_k, causal):
+    """The scale after its default, and the reference's refusal of padded
+    keys without a causal mask, judged with its blocks: ``block_k``
+    (``REF_BLOCK`` unless named) cut to T."""
+    block_k = REF_BLOCK if block_k is None else int(block_k)
     t, d = q.shape[-2], q.shape[-1]
-    scale = 1.0 / float(d) ** 0.5 if scale is None else float(scale)
     bk = min(block_k, t)
     if not causal and tiles.round_up(t, bk) != t:
         raise ValueError(
             f"flash_attention: non-causal attention over T={t} would pad the keys "
             f"to a multiple of block_k={bk}; padding needs an explicit mask"
         )
-    return scale, block_q, block_k
+    return 1.0 / float(d) ** 0.5 if scale is None else float(scale)
 
 
 def flash_attention_torch(q, k, v, *, scale=None, causal=True, block_q=None, block_k=None):
     """Plain twin: the whole (T, T) score matrix in f32, masked to NEG_INF
     above the diagonal, softmax, times v in f32, cast to q's type."""
-    scale, _, _ = _resolve(q, scale, block_q, block_k, causal)
+    scale = _resolve(q, scale, block_k, causal)
     t = q.shape[-2]
     s = scale * (q.to(torch.float32) @ k.to(torch.float32).transpose(-1, -2))
     if causal:
@@ -80,12 +79,7 @@ def flash_attention_cuda(q, k, v, *, scale=None, causal=True, block_q=None, bloc
         return flash_attention_torch(
             q, k, v, scale=scale, causal=causal, block_q=block_q, block_k=block_k
         )
-    scale, block_q, block_k = _resolve(q, scale, block_q, block_k, causal)
-    if (block_q, block_k) != (BLOCK, BLOCK):
-        raise ValueError(
-            f"flash_attention: block_q={block_q}, block_k={block_k}; the kernel is "
-            f"compiled for {BLOCK} x {BLOCK} tiles"
-        )
+    scale = _resolve(q, scale, block_k, causal)
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}; the kernel takes {DTYPES}")
     bh, t, d = q.shape

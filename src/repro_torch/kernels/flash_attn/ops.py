@@ -12,9 +12,10 @@ def flash_attention(
     """Causal fused attention. q,k: (B, H, T, d); v: (B, H, T, dv).
 
     GQA callers repeat kv heads to q heads before the call. ``block_q`` and
-    ``block_k`` default to the port's picks in ``tuning`` (the reference's
-    256 x 256 TPU blocks are no Hopper tile). On CPU tensors the plain twin
-    computes; on CUDA tensors the kernel launches."""
+    ``block_k`` are the reference's (256 x 256 unless named): they set its
+    refusal of padded non-causal keys, and the kernel runs its own 64 x 64
+    tile. On CPU tensors the plain twin computes; on CUDA tensors the
+    kernel launches."""
     b, h, t, _ = q.shape
     dv = v.shape[-1]
 

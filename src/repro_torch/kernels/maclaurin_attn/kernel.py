@@ -14,7 +14,9 @@ port's default from ``tuning``), cut to T as the reference does: in the
 twin and the kernel's moments route, keys of earlier chunks reach a query
 through the running moments, keys of its own chunk exactly. ``route``
 picks the kernel's route: the one a cost model fitted on the card finds
-faster.
+faster. On the card, a d the source is not compiled for is zero-padded
+to the next width it is (``pad_head_dim``), which leaves every q.k, and
+so the function, unchanged.
 """
 
 from __future__ import annotations
@@ -98,6 +100,20 @@ def _scale(scale, d: int) -> float:
     return 1.0 / float(d) ** 0.5 if scale is None else float(scale)
 
 
+def pad_head_dim(q, k):
+    """q and k zero-padded along d to the next width in ``HEAD_DIMS``; a
+    zero column adds nothing to any q.k. The caller keeps the scale of the
+    original d. Raises past the widest."""
+    d = q.shape[-1]
+    width = next((w for w in HEAD_DIMS if w >= d), None)
+    if width is None:
+        raise ValueError(f"maclaurin_attention: d={d}; at most {HEAD_DIMS[-1]}")
+    if width == d:
+        return q, k
+    pad = (0, width - d)
+    return torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad)
+
+
 def maclaurin_attention_torch(q, k, v, *, scale=None, config: TileConfig | None = None):
     """Plain twin: the chunked schedule of the reference kernel, one chunk
     at a time over every (batch*head) at once, with the decode state's
@@ -137,8 +153,9 @@ def maclaurin_attention_cuda(
 ):
     """Causal Maclaurin attention. q, k (BH, T, d), v (BH, T, dv), any float
     type (cast to f32 as the reference does). Returns (BH, T, dv) f32. On
-    the card the kernel takes ``route(BH, T, d, dv)``, or
-    ``force_route`` where given (to time or test one route alone).
+    the card q and k are padded to a compiled width (``pad_head_dim``), and
+    the kernel takes ``route(BH, T, that width, dv)``, or ``force_route``
+    where given (to time or test one route alone).
 
     CPU tensors take the plain twin; CUDA tensors launch the kernel or
     raise. Nothing falls back from the card to the plain version.
@@ -148,10 +165,11 @@ def maclaurin_attention_cuda(
     config = config or tuning.lookup("maclaurin_attn")
     bh, t, d = q.shape
     dv = v.shape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"maclaurin_attention: d={d}; compiled for {HEAD_DIMS}")
     if not 1 <= dv <= 1024:
         raise ValueError(f"maclaurin_attention: dv={dv} out of range")
+    scale = _scale(scale, d)  # of the d asked for, not the padded width
+    q, k = pad_head_dim(q, k)
+    d = q.shape[-1]
     q, k, v = (x.to(torch.float32).contiguous() for x in (q, k, v))
     f32 = torch.float32
     check_operands(q, {"k": (k, (bh, t, d), f32), "v": (v, (bh, t, dv), f32)})
@@ -175,7 +193,7 @@ def maclaurin_attention_cuda(
             dv,
             chunk,
             ROUTES.index(taken),
-            _scale(scale, d),
+            scale,
             stream,
         )
     return out

@@ -20,7 +20,7 @@ from repro_torch.kernels.build import CudaKernel, check_operands, on_card
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 
 BLOCK_M = 64  # SVs per tile, fixed in the source
-BLOCK_N = (32, 64)  # rows per block the source is compiled for
+BLOCK_N = (32, 64, 128)  # rows per block the source is compiled for
 HEADS_PER_BLOCK = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -28,7 +28,7 @@ KERNEL = CudaKernel(
     "rbf_scores",
     "rbf_pred.cu",
     "rbf_scores_f32",
-    [_P] * 5 + [_I] * 6 + [_P] * 4 + [_P],
+    [_P] * 5 + [_I] * 6 + [_P] * 3 + [_P],
 )
 
 
@@ -96,8 +96,7 @@ def rbf_scores_cuda(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None
     # Scratch for the second pass. Freeing it on return is safe: the caching
     # allocator hands it out again only in the order of this stream.
     zsq = torch.empty((n,), dtype=torch.float32, device=Z.device)
-    xsq = torch.empty((m,), dtype=torch.float32, device=Z.device)
-    part = torch.empty((splits, n, k), dtype=torch.float32, device=Z.device)
+    part = torch.empty((n, k, splits), dtype=torch.float32, device=Z.device)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         KERNEL.launch(
@@ -113,7 +112,6 @@ def rbf_scores_cuda(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None
             config.block_n,
             splits,
             zsq.data_ptr(),
-            xsq.data_ptr(),
             part.data_ptr(),
             out.data_ptr(),
             stream,

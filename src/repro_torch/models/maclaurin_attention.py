@@ -25,12 +25,13 @@ from T = 1024 the chunked form ``maclaurin_attention_chunked``. The
 reference writes that chunked form twice — the Pallas kernel, and a
 ``lax.scan`` twin with "the same math" that exists only so it lowers under
 GSPMD. The port has no GSPMD, so ``maclaurin_attention_chunked(q, k, v,
-scale, chunk)`` is kernel B8's dispatch with ``TileConfig(chunk=chunk)``
-(the kernel on CUDA tensors, its plain twin on CPU tensors), keeping the
-reference's refusal of a T that is not a multiple of the chunk; and
-``use_kernel=True`` goes to the same op. Both run at the port's one B8
-chunk, ``tuning``'s default (64, where the reference's scan defaults to
-256): the chunk changes the order of the sums, not the function.
+scale, chunk)`` is kernel B8's dispatch (the kernel on CUDA tensors, its
+plain twin on CPU tensors), keeping the reference's refusal of a T that is
+not a multiple of the chunk: of ``chunk`` where one is named, else of the
+reference's default ``REF_CHUNK`` = 256. A named chunk is also the one B8
+runs at; unnamed, B8 runs at the port's one chunk, ``tuning``'s default
+(64), as ``use_kernel=True`` does: the chunk changes the order of the
+sums, not the function.
 
 ``MacState``, ``init_state`` and ``extend_state`` live beside the
 quadratic oracle in ``kernels/maclaurin_attn/ref.py``, which B8's plain
@@ -49,6 +50,8 @@ from repro_torch.kernels.maclaurin_attn.ref import (  # noqa: F401  (re-exported
     init_state,
     moment_terms,
 )
+
+REF_CHUNK = 256  # the reference's default chunk, which sets its refusal
 
 
 def readout(state: MacState, q: torch.Tensor, scale: float | None = None):
@@ -100,12 +103,14 @@ def maclaurin_attention_chunked(
     the port's default from ``tuning``).
 
     q,k,v: (B, H, T, d) -> (B, H, T, d_v) in v's dtype, computed in f32.
-    Refuses, as the reference does, a T that is not a multiple of chunk.
+    Refuses, as the reference does, a T that is not a multiple of the
+    chunk, which is the reference's ``REF_CHUNK`` where none is named.
     """
     config = tuning.lookup("maclaurin_attn")
     if chunk is not None:
         config = config.with_(chunk=chunk)
+    refused = REF_CHUNK if chunk is None else config.chunk
     T = q.shape[2]
-    if T % config.chunk:
-        raise ValueError(f"T={T} % chunk={config.chunk}")
+    if T % refused:
+        raise ValueError(f"T={T} % chunk={refused}")
     return maclaurin_attention(q, k, v, scale=scale, config=config)

@@ -32,6 +32,7 @@ from repro_torch.kernels.maclaurin_attn import (  # noqa: E402
     maclaurin_weights,
 )
 from repro_torch.kernels.maclaurin_attn import ref  # noqa: E402
+from repro_torch.kernels.maclaurin_attn.kernel import HEAD_DIMS, pad_head_dim  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import maclaurin_attention as mac  # noqa: E402
 
@@ -148,6 +149,24 @@ def test_flash_non_causal_padding_is_refused():
     assert torch.allclose(out, torch.softmax(s, -1) @ v, atol=1e-5)
 
 
+@pytest.mark.parametrize("T", [100, 300])
+def test_flash_default_blocks_refuse_where_the_reference_refuses(T):
+    """Non-causal with default blocks: the reference's 256 x 256 cut to T
+    pads no key at T = 100, so both compute; at T = 300 both refuse."""
+    q, k, v = _qkv((1, 2, T, 16), 16, seed=T)
+    if T % min(256, T):
+        with pytest.raises(AssertionError, match="explicit mask"):
+            j_flash(*_j(q, k, v), causal=False)
+        with pytest.raises(ValueError, match="explicit mask"):
+            flash_attention(*_t(q, k, v), causal=False)
+        return
+    out = flash_attention(*_t(q, k, v), causal=False)
+    _close(out, j_flash(*_j(q, k, v), causal=False))
+    s = np.einsum("bhtd,bhsd->bhts", q, k) / 4.0
+    w = np.exp(s - s.max(-1, keepdims=True))
+    _close(out, np.einsum("bhts,bhsv->bhtv", w / w.sum(-1, keepdims=True), v))
+
+
 def test_flash_keeps_q_dtype():
     q, k, v = (x.to(torch.bfloat16) for x in _t(*_qkv((1, 2, 32, 16), 16, seed=2)))
     out = flash_attention(q, k, v)
@@ -203,6 +222,57 @@ def test_maclaurin_attention_chunked_matches_jax(chunk):
     _close(out, jmac.maclaurin_attention_chunked(*_j(q, k, v), chunk=chunk))
     with pytest.raises(ValueError, match="chunk"):
         mac.maclaurin_attention_chunked(*_t(q[:, :, :100], k[:, :, :100], v[:, :, :100]), chunk=chunk)
+
+
+@pytest.mark.parametrize("T", [1024, 1088, 2048])
+def test_chunked_default_refuses_where_the_reference_refuses(T):
+    """No chunk named: both refuse a T that is not a multiple of the
+    reference's 256 (T = 1088; the reference by assert), and agree where
+    both compute, the port at its own chunk."""
+    q, k, v = _qkv((1, 2, T, 8), 8, seed=T, scale=0.4)
+    if T % 256:
+        with pytest.raises(AssertionError, match="chunk=256"):
+            jmac.maclaurin_attention_chunked(*_j(q, k, v))
+        with pytest.raises(ValueError, match="chunk=256"):
+            mac.maclaurin_attention_chunked(*_t(q, k, v))
+        return
+    out = mac.maclaurin_attention_chunked(*_t(q, k, v))
+    _close(out, jmac.maclaurin_attention_chunked(*_j(q, k, v)))
+
+
+def test_gqa_refuses_where_the_reference_refuses():
+    """The GQA form takes the chunked form from T = 1024, and with it the
+    refusal of T = 1088."""
+    rng = np.random.default_rng(1088)
+    q = (rng.standard_normal((1, 1088, 2, 8)) * 0.4).astype(np.float32)
+    k = (rng.standard_normal((1, 1088, 1, 8)) * 0.4).astype(np.float32)
+    v = rng.standard_normal((1, 1088, 1, 8)).astype(np.float32)
+    with pytest.raises(AssertionError, match="chunk=256"):
+        jmac.maclaurin_attention_gqa(*_j(q, k, v))
+    with pytest.raises(ValueError, match="chunk=256"):
+        mac.maclaurin_attention_gqa(*_t(q, k, v))
+
+
+@pytest.mark.parametrize("d", [80, 19])
+def test_padded_head_dim_leaves_the_function(d):
+    """B8's card path pads q and k along d to a compiled width and keeps the
+    scale of the original d: fed to the twin, the padded inputs give the
+    unpadded twin's answer and the reference's."""
+    q, k, v = _qkv((1, 2, 96, d), d, seed=d, scale=0.3)
+    tq, tk, tv = (x.reshape(2, 96, -1) for x in _t(q, k, v))
+    pq, pk = pad_head_dim(tq, tk)
+    width = min(w for w in HEAD_DIMS if w >= d)
+    assert pq.shape == pk.shape == (2, 96, width)
+    assert torch.equal(pq[..., :d], tq) and not pq[..., d:].any() and not pk[..., d:].any()
+    config = TileConfig(chunk=32)
+    padded = maclaurin_attention_torch(pq, pk, tv, scale=d**-0.5, config=config)
+    plain = maclaurin_attention_torch(tq, tk, tv, config=config)
+    _close(padded, plain.numpy(), 1e-6)
+    reference = j_mac(*_j(q, k, v), config=JTileConfig(chunk=32))
+    _close(padded.reshape(1, 2, 96, d), reference)
+    _close(padded.reshape(1, 2, 96, d), jref.maclaurin_attention_ref(*_j(q, k, v)))
+    with pytest.raises(ValueError, match="at most 128"):
+        pad_head_dim(*(torch.zeros((1, 4, 129)) for _ in range(2)))
 
 
 # ------------------------------------------------------------ models/layers

@@ -24,8 +24,16 @@ def csrc(tmp_path, monkeypatch):
 
 def test_both_attention_sources_include_the_tile_engine(csrc):
     for source in ("flash_attn.cu", "maclaurin_attn.cu"):
-        assert build.includes(source) == [source, "attn_tile.cuh"]
-    assert build.includes("quadform.cu") == ["quadform.cu"]
+        assert build.includes(source) == [source, "attn_tile.cuh", "ptx.cuh"]
+    assert build.includes("quadform.cu") == ["quadform.cu", "ptx.cuh"]
+
+
+def test_b2_includes_the_tile_engine_and_the_fourier_kernels_neither(csrc):
+    """B2 takes the tile engine's f32 k-step and the PTX wrappers through it;
+    the fourier kernels include no csrc header."""
+    assert build.includes("rbf_pred.cu") == ["rbf_pred.cu", "attn_tile.cuh", "ptx.cuh"]
+    for source in ("rff_score.cu", "fastfood.cu"):
+        assert build.includes(source) == [source]
 
 
 def test_an_edited_header_changes_the_library_path(csrc):
@@ -35,8 +43,17 @@ def test_an_edited_header_changes_the_library_path(csrc):
         f.write(b"\n// one more line\n")
     after = {s: build.library_path(s) for s in sources}
     changed = {s for s in sources if before[s] != after[s]}
-    assert changed == {"flash_attn.cu", "maclaurin_attn.cu"}
+    assert changed == {"flash_attn.cu", "maclaurin_attn.cu", "rbf_pred.cu"}
     assert all(after[s].name.startswith(s.removesuffix(".cu") + "-") for s in sources)
+
+
+def test_an_edited_ptx_header_rebuilds_every_tensor_core_kernel(csrc):
+    sources = sorted(p.name for p in csrc.glob("*.cu"))
+    before = {s: build.library_path(s) for s in sources}
+    with open(csrc / "ptx.cuh", "ab") as f:
+        f.write(b"\n// one more line\n")
+    changed = {s for s in sources if before[s] != build.library_path(s)}
+    assert changed == {"flash_attn.cu", "maclaurin_attn.cu", "quadform.cu", "rbf_pred.cu"}
 
 
 def test_nested_includes_are_hashed_and_a_missing_one_is_left_to_nvcc(csrc):
@@ -77,3 +94,41 @@ def test_compiled_reads_registers_spills_and_tensor_core_opcodes():
             "sass": {"HMMA.16816.F32.BF16": 2, "LDSM.16.MT88.4": 1, "LDGSTS.E.BYPASS.128": 1},
         }
     }
+
+
+def _load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def test_compiled_bodies_hold_b1_on_the_tensor_cores_and_b3_off_them(monkeypatch):
+    """chip_smoke.py's ``compiled`` check of the quadform library: the f32
+    body must hold a tensor-core MMA, the int8 body none."""
+    chip_smoke = _load_chip_smoke()
+    f32, q8 = "_ZN12_GLOBAL__N_113quadform_tf32ILi128EEEvPKfS2_S2_iiibPfS3_", "_Z19quadform_q8_partialILi128EEv"
+
+    def listing(q8_op):
+        sass = (
+            f"\t\tFunction : {f32}\n        /*0a30*/   HMMA.1688.F32.TF32 R24, R4, R20, R24 ;\n"
+            f"\t\tFunction : {q8}\n        /*0a30*/   {q8_op} R24, R4, R20, R24 ;\n"
+        )
+        usage = "".join(
+            f" Function {n}:\n  REG:{r} STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:592\n"
+            for n, r in ((f32, 190), (q8, 128))
+        )
+
+        def run(cmd, **kw):
+            out = sass if "-sass" in cmd else usage
+            return type("Done", (), {"stdout": out})()
+
+        monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+
+    listing("FFMA")
+    bodies = chip_smoke.compiled_bodies(Path("quadform-x.so"), Path("cuobjdump"), "quadform_tf32", "quadform_q8_partial")
+    assert bodies[f32]["sass"] == {"HMMA.1688.F32.TF32": 1} and bodies[f32]["registers"] == 190
+    assert bodies[q8]["sass"] == {} and bodies[q8]["registers"] == 128
+    listing("HMMA.1688.F32.TF32")
+    with pytest.raises(chip_smoke.PhaseFailed, match="quadform_q8_partial"):
+        chip_smoke.compiled_bodies(Path("quadform-x.so"), Path("cuobjdump"), "quadform_tf32", "quadform_q8_partial")

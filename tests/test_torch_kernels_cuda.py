@@ -64,6 +64,62 @@ def test_quadform_kernel_matches_plain(cuda, n, k, d, block_n):
     assert torch.equal(again[0], s)  # no atomics: the same bits every run
 
 
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("d", [20, 780])
+@pytest.mark.parametrize("n", [1, 17, 130])
+def test_quadform_kernel_at_ragged_shapes_repeats_bitwise(cuda, n, d, k):
+    """B1's tensor-core body at ragged rows and columns, on a Hessian that is
+    not symmetric: B1's rule (1e-4 of max|twin| + 1e-5), equal masks and
+    the same bits on a second launch."""
+    args = _heads(n, k, d, seed=n * d + k, dev=cuda)
+    rng = np.random.default_rng(n + k)
+    skew = torch.from_numpy((rng.standard_normal((k, d, d)) * 1e-2).astype(np.float32))
+    args[1] = (args[1] + skew.triu(1).to(cuda)).contiguous()
+    before = qf.KERNEL.launches
+    s, zsq, v = qf.quadform_heads_cuda(*args)
+    assert qf.KERNEL.launches == before + 1
+    s0, zsq0, v0 = qf.quadform_heads_torch(*args)
+    torch.cuda.synchronize()
+    assert s.shape == (n, k) and zsq.shape == (n,) and v.shape == (n, k)
+    assert float((s - s0).abs().max()) <= 1e-4 * float(s0.abs().max()) + 1e-5
+    assert float(((zsq - zsq0).abs() / zsq0.clamp(min=1e-30)).max()) <= 1e-5
+    assert torch.equal(v, v0)
+    again = qf.quadform_heads_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, (s, zsq, v)))
+
+
+def _rbf_tol(Z, X, A, gamma, b):
+    """(twin scores on Z, B2's rule): 4x the f32 twin's distance from
+    float64 on the same outputs, + 1e-6 (the sums over SVs cancel, so no
+    tolerance relative to the output holds)."""
+    out0 = rp.rbf_scores_torch(Z, X, A, gamma, b)
+    out64 = rp.rbf_scores_torch(Z.double(), X.double(), A.double(), gamma, b.double())
+    return out0, 4.0 * float((out0.double() - out64).abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("k", [1, 10, 17])
+@pytest.mark.parametrize("m", [1, 100, 16384])
+@pytest.mark.parametrize("n", [1, 37, 256])
+def test_rbf_kernel_at_ragged_shapes_repeats_bitwise(cuda, n, m, k):
+    """B2's tensor-core body at the mnist width: ragged rows, SV tiles and
+    head groups (17 heads take two), held by B2's rule, the same bits on a
+    second launch."""
+    d = 780
+    rng = np.random.default_rng(n + m + k)
+    Z, X = (torch.from_numpy(rng.random(s).astype(np.float32)).to(cuda) for s in ((n, d), (m, d)))
+    A = rng.standard_normal((k, m))
+    A = torch.from_numpy((A - A.mean(1, keepdims=True)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal(k).astype(np.float32)).to(cuda)
+    before = rp.KERNEL.launches
+    out = rp.rbf_scores_cuda(Z, X, A, 2.0 / d, b)
+    assert rp.KERNEL.launches == before + 1
+    out0, tol = _rbf_tol(Z, X, A, 2.0 / d, b)
+    torch.cuda.synchronize()
+    assert out.shape == (n, k)
+    assert float((out - out0).abs().max()) <= tol
+    assert torch.equal(rp.rbf_scores_cuda(Z, X, A, 2.0 / d, b), out)
+
+
 @pytest.mark.parametrize("splits", [None, 1, 5])
 @pytest.mark.parametrize(
     "n,m,k,d",
@@ -83,9 +139,21 @@ def test_rbf_kernel_matches_plain(cuda, n, m, k, d, splits):
     out0 = rp.rbf_scores_torch(Z, X, A, 2.0 / d, b)
     torch.cuda.synchronize()
     assert float((out - out0).abs().max()) <= 1e-4 * float(out0.abs().max()) + 1e-6
+    # The 1-D alpha_y path is head 0 of the 2-D one, bit for bit (each head's
+    # sums run on their own), with its scalar bias added last; and it is no
+    # farther from float64 than its fp32 twin, + one f32 step of the largest
+    # output. (At (200, 4096) the twin's own distance from float64 exceeds
+    # assert_close's 1e-5 + 1.3e-6|x| on an H100, so that yardstick held only
+    # a kernel that rounds as the twin rounds, not one nearer to float64.)
     one = rp.rbf_scores_cuda(Z, X, A[0].contiguous(), 2.0 / d, 0.5)
     assert one.shape == (n,)
-    torch.testing.assert_close(one, rp.rbf_scores_torch(Z, X, A[0], 2.0 / d, 0.5))
+    head0 = rp.rbf_scores_cuda(Z, X, A, 2.0 / d, torch.zeros_like(b))[:, 0]
+    assert torch.equal(one, head0 + 0.5)
+    one0 = rp.rbf_scores_torch(Z, X, A[0], 2.0 / d, 0.5)
+    one64 = rp.rbf_scores_torch(Z.double(), X.double(), A[0].double(), 2.0 / d, 0.5)
+    step = float(np.spacing(np.float32(one64.abs().max().item())))
+    dist = [float((x.double() - one64).abs().max()) for x in (one, one0)]
+    assert dist[0] <= dist[1] + step
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -420,8 +488,18 @@ def test_flash_kernel_full_attention_and_large_logits(cuda):
     exact = torch.softmax(s, -1) @ v.double()
     twin = flash_attn.flash_attention_torch(q, k, v, causal=False)
     _within_rule(out, twin, exact)
+    # T = 100 at the reference's default blocks (256, cut to T) pads no key,
+    # so the kernel computes, as it does with a named block_k of 100
+    q, k, v = (x[:, :100].contiguous() for x in (q, k, v))
+    s = (q.double() @ k.double().transpose(1, 2)) / 8.0
+    exact = torch.softmax(s, -1) @ v.double()
+    twin = flash_attn.flash_attention_torch(q, k, v, causal=False)
+    out = flash_attn.flash_attention_cuda(q, k, v, causal=False)
+    _within_rule(out, twin, exact)
+    named = flash_attn.flash_attention_cuda(q, k, v, causal=False, block_q=32, block_k=100)
+    assert torch.equal(named, out)  # the blocks set the refusal only
     with pytest.raises(ValueError, match="explicit mask"):
-        flash_attn.flash_attention_cuda(q[:, :100], k[:, :100], v[:, :100], causal=False)
+        flash_attn.flash_attention_cuda(q, k, v, causal=False, block_k=64)
     big = [x * 30 for x in _attn_inputs(1, 64, 16, 16, seed=0, dev=cuda)]
     out = flash_attn.flash_attention_cuda(*big[:2], big[2] / 30)
     assert bool(torch.isfinite(out).all())
@@ -482,6 +560,15 @@ def test_maclaurin_quadratic_route_matches_plain_and_repeats_bitwise(cuda, bh, t
     _check_maclaurin(q, k, v, TileConfig(chunk=64), "quadratic")
 
 
+@pytest.mark.parametrize("route", ["moments", "quadratic"])
+@pytest.mark.parametrize("bh,t,d,dv", [(2, 300, 80, 80), (3, 200, 19, 24)])
+def test_maclaurin_kernel_pads_head_dims_it_is_not_compiled_for(cuda, bh, t, d, dv, route):
+    """d = 80 runs at 96 and d = 19 at 32, zero-padded, at the scale of the
+    original d: the twin's answer by B8's rule, by either route."""
+    q, k, v = _attn_inputs(bh, t, d, dv, seed=t + d, dev=cuda, scale=0.3)
+    _check_maclaurin(q, k, v, TileConfig(chunk=64), route)
+
+
 @pytest.mark.parametrize(
     "bh,t,d,dv,want",
     [(2, 300, 64, 64, "quadratic"), (2, 4096, 16, 16, "quadratic"), (64, 8192, 16, 16, "moments")],
@@ -499,9 +586,10 @@ def test_maclaurin_kernel_takes_its_route(cuda, bh, t, d, dv, want):
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v = _attn_inputs(2, 64, 64, 64, seed=0, dev=cuda)
+    out = flash_attn.flash_attention_cuda(q, k, v)
     for blocks in (dict(block_q=128), dict(block_q=16, block_k=16), dict(block_k=32)):
-        with pytest.raises(ValueError, match="compiled for 64 x 64"):
-            flash_attn.flash_attention_cuda(q, k, v, **blocks)
+        # any named blocks run the one 64 x 64 tile: the same bits
+        assert torch.equal(flash_attn.flash_attention_cuda(q, k, v, **blocks), out)
     with pytest.raises(TypeError):
         flash_attn.flash_attention_cuda(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
@@ -511,8 +599,7 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
     wide = _attn_inputs(1, 16, 160, 16, seed=0, dev=cuda)
     with pytest.raises(ValueError, match="128"):
         flash_attn.flash_attention_cuda(*wide)
-    odd = _attn_inputs(1, 16, 48, 16, seed=0, dev=cuda)
-    with pytest.raises(ValueError, match="compiled for"):
-        maclaurin_attn.maclaurin_attention_cuda(*odd)
+    with pytest.raises(ValueError, match="at most 128"):
+        maclaurin_attn.maclaurin_attention_cuda(*wide)
     with pytest.raises(ValueError, match="route"):
         maclaurin_attn.maclaurin_attention_cuda(q, k, v, force_route="chunked")
