@@ -451,7 +451,7 @@ def phase_kernel_times(timings: dict) -> None:
     """One ``kernel_time`` line per (kernel, n, F) entry of ``timings``."""
     for (name, n, f), t in timings.items():
         bound_ms, bound_by = t["bound"]
-        times = {k: t[k] for k in ("ms", "plain_ms", "library_ms")}
+        times = {k: v for k, v in t.items() if k.endswith("_ms") or k == "ms"}
         phase(
             "kernel_time",
             kernel=name,
@@ -522,20 +522,25 @@ def read_compiled(sass: str, usage: str) -> dict[str, dict]:
 
 
 # Per library: the name fragment of every function whose products must run
-# on the tensor cores, and of those that must not (B3 stays fp32 SIMT).
+# on the tensor cores, of those that must not (B3 stays fp32 SIMT), and
+# whether the tensor-core bodies must have no stack or local memory (B4/B5).
 TENSOR_CORE_BODIES = {
-    "flash_attn-": ("attn_fwd", None),
-    "maclaurin_attn-": ("attn_fwd", None),
-    "quadform-": ("quadform_tf32", "quadform_q8_partial"),
-    "rbf_pred-": ("rbf_tf32", None),
+    "flash_attn-": ("attn_fwd", None, False),
+    "maclaurin_attn-": ("attn_fwd", None, False),
+    "quadform-": ("quadform_tf32", "quadform_q8_partial", False),
+    "rbf_pred-": ("rbf_tf32", None, False),
+    "rff_score-": ("rff_tf32", None, True),
 }
 
 
-def compiled_bodies(lib: Path, cuobjdump: Path, mma_in: str, simt: str | None) -> dict:
+def compiled_bodies(
+    lib: Path, cuobjdump: Path, mma_in: str, simt: str | None, spill_free: bool = False
+) -> dict:
     """What nvcc made of a built library's kernel bodies (``read_compiled``)
     whose names hold ``mma_in`` or ``simt``; fails unless each ``mma_in``
-    instantiation runs its products on the tensor cores and each ``simt``
-    one holds no tensor-core MMA."""
+    instantiation runs its products on the tensor cores (with ``spill_free``,
+    with no stack or local bytes) and each ``simt`` one holds no tensor-core
+    MMA."""
     sass, usage = (
         subprocess.run([str(cuobjdump), flag, str(lib)], capture_output=True, text=True, check=True).stdout
         for flag in ("-sass", "-res-usage")
@@ -547,6 +552,9 @@ def compiled_bodies(lib: Path, cuobjdump: Path, mma_in: str, simt: str | None) -
         mma = sum(c for op, c in k.get("sass", {}).items() if "MMA" in op)
         if mma_in in name:
             check(mma > 0, f"{lib.name}: {name} holds no tensor-core MMA")
+            if spill_free:
+                spill = k.get("stack_bytes", 0) + k.get("local_bytes", 0)
+                check(spill == 0, f"{lib.name}: {name} has {spill} stack/local bytes")
         else:
             check(mma == 0, f"{lib.name}: {name} holds a tensor-core MMA")
     return bodies
@@ -639,10 +647,11 @@ def run(dev) -> list[dict]:
     libs = build.build_all()
     phase("build", seconds=time.perf_counter() - t0, libs=[p.name for p in libs])
     for lib in libs:
-        for prefix, (mma_in, simt) in TENSOR_CORE_BODIES.items():
+        for prefix, (mma_in, simt, spill_free) in TENSOR_CORE_BODIES.items():
             if lib.name.startswith(prefix):
                 cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-                phase("compiled", lib=lib.name, **compiled_bodies(lib, cuobjdump, mma_in, simt))
+                bodies = compiled_bodies(lib, cuobjdump, mma_in, simt, spill_free)
+                phase("compiled", lib=lib.name, **bodies)
 
     # ------------------------------------------------------------ main path
     seconds = {}
@@ -1004,7 +1013,12 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
     for (f, dt), art in rff_arts.items():
         twin, kernel, args = kernel_args(art)
         name = kernel.__name__.removesuffix("_cuda")
+        W = art.arrays["W"].to(torch.float32)
+        if dt == "int8":
+            W = W * art.arrays["W_scale"][:, None]
         for n in KERNEL_ROWS:
+            # the largest cos argument, less its phase
+            proj = float((Zf[:n] @ W.T).abs().max())
             b45[name, n, f] = check_fourier_kernel(
                 "kernel_check_rff",
                 kernel,
@@ -1018,6 +1032,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
                 k=K,
                 d=d,
                 f=f,
+                max_abs_proj=proj,
             )
     seconds["kernel_check_rff"] = time.perf_counter() - t0
 
@@ -1044,6 +1059,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
             Zn = Zf[:n]
             timings[name, n, f] = dict(
                 ms=time_ms(lambda: kernel(Zn, *args)),
+                device_ms=device_ms(lambda: kernel(Zn, *args)),
                 plain_ms=time_ms(lambda: twin(Zn, *args)),
                 library_ms=time_ms(lambda: torch.matmul(Zn, W.T)),
                 bound=bound(*rff_work(n, f, K, d, w_bytes), peak=PEAK_F32_3XTF32),
@@ -1188,6 +1204,7 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
             "launches": launches[name],
             "max_abs_err": err,
             "ms": t["ms"],
+            **({"device_ms": t["device_ms"]} if "device_ms" in t else {}),
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1],

@@ -3,10 +3,9 @@
   ==============  ========================================================
   field           meaning
   ==============  ========================================================
-  ``block_n``     Z rows per block: quadform (f32 and int8) and
-                  rbf_pred are compiled for 32, 64 and 128, rff_score
-                  (f32 and int8) for 32 and 64; fwht (f32 and int8)
-                  takes any positive count
+  ``block_n``     Z rows per block: quadform, rbf_pred and rff_score
+                  (f32 and int8 alike) are compiled for 32, 64 and 128;
+                  fwht (f32 and int8) takes any positive count
   ``splits``      blocks that share the reduction axis (Hessian column
                   tiles for quadform, SV tiles for rbf_pred, feature
                   tiles for rff_score), summed by a second pass in a
@@ -36,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.kernels.common.tiles import ROW_QUANTUM, round_up
+from repro_torch.kernels.common.tiles import ROW_QUANTUM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +61,10 @@ class TileConfig:
         return dataclasses.replace(self, **updates)
 
     def clamp_block_n(self, n: int) -> "TileConfig":
-        """Shrink block_n to the batch so small buckets run small tiles."""
-        target = min(self.block_n, max(ROW_QUANTUM, round_up(n, ROW_QUANTUM)))
+        """Shrink block_n to the batch so small buckets run small tiles: to
+        the next power of two that holds n (at least ROW_QUANTUM), so a
+        power-of-two block_n only ever shrinks to a block the kernels are
+        compiled for (65 rows run a 128-row block, not 96)."""
+        pow2 = 1 << max(0, int(n) - 1).bit_length()
+        target = min(self.block_n, max(ROW_QUANTUM, pow2))
         return self if target == self.block_n else self.with_(block_n=target)

@@ -17,8 +17,10 @@ DEFAULTS: dict[str, TileConfig] = {
     "quadform": TileConfig(block_n=128),
     "quadform_q8": TileConfig(block_n=128),
     "rbf_pred": TileConfig(block_n=128),
-    "rff_score": TileConfig(block_n=64),
-    "rff_score_q8": TileConfig(block_n=64),
+    # B4 and B5: 128 rows a block, so the W tiles are read 8 times at n=1024
+    # (a block's warps split each stage's k-steps in two).
+    "rff_score": TileConfig(block_n=128),
+    "rff_score_q8": TileConfig(block_n=128),
     # Rows per block of B6/B7: eight warps, one row each at d' >= 32, so a
     # 32-row request still spreads over four blocks a stack.
     "fwht": TileConfig(block_n=8),

@@ -2,8 +2,9 @@
 or int8 (B5) projection and readout weights.
 
 ``rff_score_cuda`` and ``rff_score_q8_cuda`` launch the two
-instantiations of ``csrc/rff_score.cu`` (CUDA C++ for ``sm_90a``; the
-source's header note says what bounds it and how it is tiled) on CUDA
+instantiations of ``csrc/rff_score.cu`` (CUDA C++ for ``sm_90a``, the
+projection on TF32 tensor cores; the source's header note says what
+bounds it and how it is tiled) on CUDA
 tensors, and compute with their plain twins ``rff_score_torch`` /
 ``rff_score_q8_torch`` on CPU tensors. They replace
 ``repro/kernels/rff_score/kernel.py::rff_score_pallas`` and
@@ -21,8 +22,8 @@ from repro_torch.kernels.build import CudaKernel, check_operands, on_card
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 
 BLOCK_F = 64  # features per tile, fixed in the source
-BLOCK_N = (32, 64)  # rows per block the source is compiled for
-HEADS_PER_BLOCK = 16
+BLOCK_N = (32, 64, 128)  # rows per block the source is compiled for
+HEADS_PER_BLOCK = 48  # heads read out of one cos tile; more take further blocks
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -126,8 +127,9 @@ def _launch(kernel: CudaKernel, config: TileConfig, Z, weights, f: int, bias):
     blocks = tiles.grid_blocks(n, config.block_n) * tiles.grid_blocks(
         k, HEADS_PER_BLOCK
     )
+    # One block fills an SM (its ring takes most of the shared memory).
     splits = config.splits or tiles.split_count(
-        f_tiles, blocks, 2 * sm_count(Z.device.index or 0)
+        f_tiles, blocks, sm_count(Z.device.index or 0)
     )
     splits = min(splits, f_tiles)
     # Scratch for the second pass. Freeing it on return is safe: the caching

@@ -30,10 +30,11 @@ def test_both_attention_sources_include_the_tile_engine(csrc):
 
 def test_b2_includes_the_tile_engine_and_the_fourier_kernels_neither(csrc):
     """B2 takes the tile engine's f32 k-step and the PTX wrappers through it;
-    the fourier kernels include no csrc header."""
+    of the fourier kernels, B4/B5 take the PTX wrappers alone and B6/B7 no
+    csrc header."""
     assert build.includes("rbf_pred.cu") == ["rbf_pred.cu", "attn_tile.cuh", "ptx.cuh"]
-    for source in ("rff_score.cu", "fastfood.cu"):
-        assert build.includes(source) == [source]
+    assert build.includes("rff_score.cu") == ["rff_score.cu", "ptx.cuh"]
+    assert build.includes("fastfood.cu") == ["fastfood.cu"]
 
 
 def test_an_edited_header_changes_the_library_path(csrc):
@@ -53,7 +54,13 @@ def test_an_edited_ptx_header_rebuilds_every_tensor_core_kernel(csrc):
     with open(csrc / "ptx.cuh", "ab") as f:
         f.write(b"\n// one more line\n")
     changed = {s for s in sources if before[s] != build.library_path(s)}
-    assert changed == {"flash_attn.cu", "maclaurin_attn.cu", "quadform.cu", "rbf_pred.cu"}
+    assert changed == {
+        "flash_attn.cu",
+        "maclaurin_attn.cu",
+        "quadform.cu",
+        "rbf_pred.cu",
+        "rff_score.cu",
+    }
 
 
 def test_nested_includes_are_hashed_and_a_missing_one_is_left_to_nvcc(csrc):
@@ -132,3 +139,44 @@ def test_compiled_bodies_hold_b1_on_the_tensor_cores_and_b3_off_them(monkeypatch
     listing("HMMA.1688.F32.TF32")
     with pytest.raises(chip_smoke.PhaseFailed, match="quadform_q8_partial"):
         chip_smoke.compiled_bodies(Path("quadform-x.so"), Path("cuobjdump"), "quadform_tf32", "quadform_q8_partial")
+
+
+def test_compiled_bodies_hold_b4_b5_on_the_tensor_cores_without_spills(monkeypatch):
+    """chip_smoke.py's ``compiled`` check of the rff_score library: each
+    instantiation must hold a tensor-core MMA and no stack or local bytes."""
+    chip_smoke = _load_chip_smoke()
+    mma_in, simt, spill_free = chip_smoke.TENSOR_CORE_BODIES["rff_score-"]
+    f32 = "_ZN12_GLOBAL__N_18rff_tf32IfLi128EEEvPKf"
+    q8 = "_ZN12_GLOBAL__N_18rff_tf32IaLi128EEEvPKf"
+
+    def listing(q8_op, q8_stack):
+        sass = (
+            f"\t\tFunction : {f32}\n  /*0a30*/ HMMA.1688.F32.TF32 R24, R4, R20, R24 ;\n"
+            f"\t\tFunction : {q8}\n  /*0a30*/ {q8_op} R24, R4, R20, R24 ;\n"
+        )
+        usage = "".join(
+            f" Function {n}:\n  REG:{r} STACK:{st} SHARED:0 LOCAL:0 CONSTANT[0]:608\n"
+            for n, r, st in ((f32, 235, 0), (q8, 231, q8_stack))
+        )
+
+        def run(cmd, **kw):
+            out = sass if "-sass" in cmd else usage
+            return type("Done", (), {"stdout": out})()
+
+        monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+
+    def check():
+        return chip_smoke.compiled_bodies(
+            Path("rff_score-x.so"), Path("cuobjdump"), mma_in, simt, spill_free
+        )
+
+    listing("HMMA.1688.F32.TF32", 0)
+    bodies = check()
+    assert bodies[q8]["sass"] == {"HMMA.1688.F32.TF32": 1}
+    assert bodies[q8]["stack_bytes"] == 0
+    listing("HMMA.1688.F32.TF32", 72)
+    with pytest.raises(chip_smoke.PhaseFailed, match="72 stack/local bytes"):
+        check()
+    listing("FFMA", 0)
+    with pytest.raises(chip_smoke.PhaseFailed, match="holds no tensor-core MMA"):
+        check()

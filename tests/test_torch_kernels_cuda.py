@@ -216,10 +216,11 @@ def test_quadform_q8_kernel_matches_plain(cuda, n, k, d, block_n):
     assert torch.equal(again[0], s)
 
 
-def _rff(n, d, f, k, seed, dev, q8):
+def _rff(n, d, f, k, seed, dev, q8, spread=1.0):
+    """B4's or B5's operands; ``spread`` scales W, and so the cos arguments."""
     rng = np.random.default_rng(seed)
     Z = rng.random((n, d)).astype(np.float32)
-    W = rng.normal(0.0, np.sqrt(2.0 / d), size=(f, d)).astype(np.float32)
+    W = rng.normal(0.0, spread * np.sqrt(2.0 / d), size=(f, d)).astype(np.float32)
     phase = rng.uniform(0.0, 2.0 * np.pi, size=f).astype(np.float32)
     wt = (rng.standard_normal((k, f)) * 2.0 / f).astype(np.float32)
     bias = rng.standard_normal(k).astype(np.float32)
@@ -244,7 +245,15 @@ def _rff_tol(args, q8):
 @pytest.mark.parametrize("splits", [None, 1, 3])
 @pytest.mark.parametrize(
     "n,d,f,k",
-    [(1, 3, 10, 1), (7, 22, 100, 3), (65, 40, 1000, 17), (300, 780, 1024, 10)],
+    [
+        (1, 3, 10, 1),
+        (7, 22, 100, 3),
+        (65, 40, 1000, 17),
+        (300, 780, 1024, 10),
+        (1024, 780, 4096, 10),  # the main path's shape
+        (100, 64, 500, 33),  # 33 heads, all read out of one block's cos tiles
+        (517, 780, 1000, 10),  # n a multiple of no block, F of no tile
+    ],
 )
 def test_rff_kernels_match_plain_and_repeat_bitwise(cuda, n, d, f, k, splits, q8):
     args = _rff(n, d, f, k, seed=n + f, dev=cuda, q8=q8)
@@ -259,6 +268,49 @@ def test_rff_kernels_match_plain_and_repeat_bitwise(cuda, n, d, f, k, splits, q8
     assert float((out - out0).abs().max()) <= tol
     again = fn(*args, config=TileConfig(splits=splits))
     assert torch.equal(again, out)  # no atomics: the same bits every run
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("block_n", [32, 64, 128])
+def test_rff_kernels_hold_the_twins_when_the_cos_arguments_span_tens_of_radians(
+    cuda, block_n, q8
+):
+    """As fourier's W ~ N(0, 2 gamma) puts them on real rows: the projection
+    and the cos's reduction are held at every compiled block."""
+    args = _rff(300, 780, 1024, 10, seed=5, dev=cuda, q8=q8, spread=12.0)
+    W = args[1].float() * args[2][:, None] if q8 else args[1]
+    assert float((args[0] @ W.T).abs().max()) > 20.0
+    fn = rk.rff_score_q8_cuda if q8 else rk.rff_score_cuda
+    out = fn(*args, config=TileConfig(block_n=block_n))
+    out0, tol = _rff_tol(args, q8)
+    torch.cuda.synchronize()
+    assert float((out - out0).abs().max()) <= tol
+    assert torch.equal(fn(*args, config=TileConfig(block_n=block_n)), out)
+
+
+def test_rff_cos_is_within_two_ulp_over_the_float_range(cuda):
+    """The kernels' own cos (no stack: cosf's large-argument reduction redone
+    in registers) against float64, through B5 at d = 1: Z = 1, W = 1 with
+    row scales x, an identity readout, so out[k] = cos(x_k) exactly."""
+    xs = np.concatenate(
+        [
+            np.linspace(-60.0, 60.0, 1001),
+            10.0 ** np.linspace(-6.0, 38.0, 600),
+            -(10.0 ** np.linspace(-3.0, 30.0, 300)),
+            [105614.99, 105615.0, 105615.01, 3.4028235e38],
+        ]
+    ).astype(np.float32)
+    f = xs.size
+    Z = torch.ones((1, 1), device=cuda)
+    W_q = torch.ones((f, 1), dtype=torch.int8, device=cuda)
+    eye = torch.eye(f, dtype=torch.int8, device=cuda)
+    zero, one = torch.zeros(f, device=cuda), torch.ones(f, device=cuda)
+    x = torch.from_numpy(xs).to(cuda)
+    out = rk.rff_score_q8_cuda(Z, W_q, x, zero, eye, one, zero)
+    got = out[0].double().cpu().numpy()
+    ref = np.cos(xs.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert float((np.abs(got - ref) / ulp).max()) <= 2.0
 
 
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -276,7 +328,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         rk.rff_score_cuda(r[0], r[1], r[2], r[3].T.contiguous().T, r[4])
     with pytest.raises(ValueError, match="block_n"):
         wide = _rff(200, 16, 70, 2, seed=1, dev=cuda, q8=False)
-        rk.rff_score_cuda(*wide, config=TileConfig(block_n=128))
+        rk.rff_score_cuda(*wide, config=TileConfig(block_n=96))
     r8 = _rff(8, 16, 70, 2, seed=0, dev=cuda, q8=True)
     with pytest.raises(TypeError, match="int8"):
         rk.rff_score_q8_cuda(r8[0], r8[1].float(), *r8[2:])

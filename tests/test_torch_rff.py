@@ -108,3 +108,51 @@ def test_float64_inputs_stay_float64():
     d64 = [t.double() for t in (Z, w_scale, phase, wt_scale, bias)]
     out = rk.rff_score_q8_torch(d64[0], W_q, d64[1], d64[2], wt_q, d64[3], d64[4])
     assert out.dtype == torch.float64
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_twins_match_pallas_when_the_cos_arguments_span_tens_of_radians(q8):
+    """Fourier's W ~ N(0, 2 gamma) on real rows puts the cos arguments tens
+    of radians from 0, where a cos that reduces its argument badly drifts;
+    the card's kernels are held to these twins."""
+    n, d, f, k = 37, 40, 300, 3
+    Z, W, phase, weights, bias = _inputs(n, d, f, k, seed=11)
+    W = (W * np.sqrt(4.5 / 0.3)).astype(np.float32)  # gamma 4.5
+    assert np.abs(Z @ W.T).max() > 20.0
+    arrays = (Z, W, phase, weights, bias)
+    if q8:
+        arrays = _q8(*arrays)
+    j_args = [jnp.asarray(a) for a in arrays]
+    pallas = rff_score_q8_pallas if q8 else rff_score_pallas
+    xla = rff_score_q8_xla if q8 else rff_score_xla
+    j_p = np.asarray(pallas(*j_args, config=JTileConfig(), interpret=True))
+    j_x = np.asarray(xla(*j_args))
+    t_args = [torch.from_numpy(a) for a in arrays]
+    twin = rk.rff_score_q8_torch if q8 else rk.rff_score_torch
+    wrapper = rk.rff_score_q8_cuda if q8 else rk.rff_score_cuda
+    for fn in (twin, wrapper):
+        out = fn(*t_args).numpy()
+        for ref in (j_p, j_x):
+            np.testing.assert_allclose(out, ref, rtol=RTOL, atol=ATOL)
+
+
+def test_every_clamped_block_is_one_the_kernels_are_compiled_for():
+    """A wrapper shrinks its block to the batch; with 128-row defaults a
+    batch of 65-96 rows once asked for a 96-row block, which no kernel is
+    compiled for, and the card refused it."""
+    from repro_torch.kernels.common import tuning
+    from repro_torch.kernels.quadform import kernel as qf
+    from repro_torch.kernels.rbf_pred import kernel as rp
+
+    compiled = {
+        "quadform": qf.BLOCK_N,
+        "quadform_q8": qf.BLOCK_N,
+        "rbf_pred": rp.BLOCK_N,
+        "rff_score": rk.BLOCK_N,
+        "rff_score_q8": rk.BLOCK_N,
+    }
+    for name, blocks in compiled.items():
+        cfg = tuning.lookup(name)
+        for n in range(1, 300):
+            assert cfg.clamp_block_n(n).block_n in blocks, (name, n)
+    assert tuning.lookup("rff_score").clamp_block_n(65).block_n == 128
