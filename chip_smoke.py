@@ -103,8 +103,11 @@ FEATURES = (1024, 4096)  # fourier's default basis, and a wider one
 BUDGET = dict(max_err=0.05, metric="mean_abs", relative=True)
 CELL_ROWS = (1, 1024)  # requests served through each (family, dtype) artifact
 CELL_SCALED = (1, 16)  # rows of each pushed out of the envelope
-# B3 is held as B1 is. B4/B5: the readout sums cancel as B2's do, so B2's
-# rule: at most B45_TWIN times the f32 twin's distance from float64, + B45_ABS.
+# B3 is held to its twin as B1 is; its and the twin's distances from the
+# twin in float64 on the same int8 codes are printed beside it (the card
+# tests hold B3 to B2's rule there). B4/B5: the readout sums cancel as B2's
+# do, so B2's rule: at most B45_TWIN times the f32 twin's distance from
+# float64, + B45_ABS.
 B45_TWIN, B45_ABS = 4.0, 1e-6
 
 # Third path: K Gaussian classes at d=780 with means 3 N(0, I) apart (the
@@ -354,9 +357,7 @@ def maclaurin_work(bh: int, t: int, d: int, dv: int, chunk: int) -> tuple[float,
 def kernel_args(art):
     """(plain twin, kernel wrapper, operands after Z) of the kernel that
     serves ``art``, for every family, projection and dtype."""
-    import torch
-
-    from repro_torch.core.families import quantize
+    from repro_torch.core.families import maclaurin
     from repro_torch.kernels.fwht import kernel as ff
     from repro_torch.kernels.quadform import kernel as qf
     from repro_torch.kernels.rff_score import kernel as rk
@@ -368,10 +369,7 @@ def kernel_args(art):
         if not q8:
             args = (a["M"], a["v"]) + rest
             return qf.quadform_heads_torch, qf.quadform_heads_cuda, args
-        group = int(art.meta["group_size"])
-        col = quantize.expand_group_scales(a["M_scale"], art.d, group)
-        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
-        args = (a["M"], col, v) + rest
+        args = (a["M"], *maclaurin.q8_operands(art)) + rest
         return qf.quadform_heads_q8_torch, qf.quadform_heads_q8_cuda, args
     if art.meta["projection"] == "fastfood":
         ops = (a["ff_b"], a["ff_g"], a["ff_perm"], a["ff_scale"])
@@ -435,6 +433,10 @@ def exact64(model, dev):
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
+
+
+def rms(x) -> float:
+    return float(x.double().pow(2).mean().sqrt())
 
 
 def median_request_ms(engine, Z, repeats: int = 10) -> float:
@@ -522,12 +524,13 @@ def read_compiled(sass: str, usage: str) -> dict[str, dict]:
 
 
 # Per library: the name fragment of every function whose products must run
-# on the tensor cores, of those that must not (B3 stays fp32 SIMT), and
-# whether the tensor-core bodies must have no stack or local memory (B4/B5).
+# on the tensor cores, of those that must not (none is left since B3 joined
+# B1's template), and whether the tensor-core bodies must have no stack or
+# local memory (B1/B3, B4/B5).
 TENSOR_CORE_BODIES = {
     "flash_attn-": ("attn_fwd", None, False),
     "maclaurin_attn-": ("attn_fwd", None, False),
-    "quadform-": ("quadform_tf32", "quadform_q8_partial", False),
+    "quadform-": ("quadform_tf32", None, True),
     "rbf_pred-": ("rbf_tf32", None, False),
     "rff_score-": ("rff_tf32", None, True),
 }
@@ -813,7 +816,6 @@ def run(dev) -> list[dict]:
     bd, gd = svm.b, svm.gamma
     b64 = svm.b.double()
     X64, A64 = svm.X.double(), svm.alpha_y.double()
-    rms = lambda x: float(x.double().pow(2).mean().sqrt())  # noqa: E731
     for n in (16, 256):  # a request's fallback rows (BN=32), and a full tile (BN=128)
         Zn = Zr[:n]
         out = rp.rbf_scores_cuda(Zn, Xd, Ad, gd, bd)
@@ -976,12 +978,18 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
         for terms, args, abs_tol in cases:
             s, zsq, v = qf.quadform_heads_q8_cuda(Zq[:n], *args)
             s0, zsq0, v0 = qf.quadform_heads_q8_torch(Zq[:n], *args)
+            d64 = [x if x.dtype == torch.int8 else x.double() for x in args]
+            s64 = qf.quadform_heads_q8_torch(Zq[:n].double(), *d64)[0]  # the same codes
             again = qf.quadform_heads_q8_cuda(Zq[:n], *args)[0]
             torch.cuda.synchronize()
             err, scale = max_err(s, s0), float(s0.abs().max())
             tol = B1_REL * scale + abs_tol
             zsq_rel = float(((zsq - zsq0).abs() / zsq0.abs().clamp(min=1e-30)).max())
             res = dict(max_abs_err=err, max_abs_ref=scale, tol=tol, zsq_rel_err=zsq_rel)
+            res["max_abs_err_vs_float64"] = max_err(s, s64)
+            res["twin_max_abs_err_vs_float64"] = max_err(s0, s64)
+            res["rms_err_vs_float64"] = rms(s.double() - s64)
+            res["twin_rms_err_vs_float64"] = rms(s0.double() - s64)
             res["masks_equal"] = bool((v == v0).all())
             res["same_bits_again"] = bool(torch.equal(again, s))
             phase(
@@ -1044,6 +1052,8 @@ def second_path(dev, svm, mac, X_te, Zq, exact, msq: float, gamma: float):
         Zn = Zq[:n]
         timings["quadform_heads_q8", n, None] = dict(
             ms=time_ms(lambda: qf.quadform_heads_q8_cuda(Zn, *q8_heads)),
+            device_ms=device_ms(lambda: qf.quadform_heads_q8_cuda(Zn, *q8_heads)),
+            host_ms=host_ms(lambda: qf.quadform_heads_q8_cuda(Zn, *q8_heads)),
             plain_ms=time_ms(lambda: qf.quadform_heads_q8_torch(Zn, *q8_heads)),
             library_ms=time_ms(lambda: torch.einsum("ni,kij,nj->nk", Zn, M_deq, Zn)),
             bound=bound(*quadform_q8_work(n, K, d), peak=PEAK_F32_3XTF32),

@@ -40,11 +40,14 @@ class CompiledArtifact:
 
     ``meta`` always carries ``format_version``, ``d`` (feature dim),
     ``num_heads`` (K) and ``multiclass``; families add their own keys.
+    ``derived`` holds what a family derives from the stored arrays to serve
+    them, once per artifact (never saved, not in the digest).
     """
 
     family: str
     arrays: dict[str, torch.Tensor]
     meta: dict
+    derived: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
 
     @property
     def d(self) -> int:

@@ -175,10 +175,7 @@ def score(artifact: CompiledArtifact, Z, *, config: TileConfig | None = None):
     """
     a = artifact.arrays
     if artifact.dtype == quantize.INT8_DTYPE:
-        col_scale = quantize.expand_group_scales(
-            a["M_scale"], artifact.d, int(artifact.meta["group_size"])
-        )  # (K, d)
-        v = a["v"].to(torch.float32) * a["v_scale"][:, None]
+        col_scale, v = q8_operands(artifact)
         scores, _, valid = backend.quadform_heads_q8(
             Z, a["M"], col_scale, v, a["c"], a["b"], a["gamma"], a["msq"], config=config
         )
@@ -187,6 +184,25 @@ def score(artifact: CompiledArtifact, Z, *, config: TileConfig | None = None):
             Z, a["M"], a["v"], a["c"], a["b"], a["gamma"], a["msq"], config=config
         )
     return scores, valid.all(-1)
+
+
+def q8_operands(artifact: CompiledArtifact) -> tuple[torch.Tensor, torch.Tensor]:
+    """(col_scale (K, d), v (K, d)), f32 on the artifact's device: an int8
+    artifact's per-group ``M_scale`` expanded to one scale per column, and
+    ``v`` dequantized. Derived on the first call for an artifact, kept in
+    ``artifact.derived`` and reused while its stored arrays are the same
+    tensors, so a request launches no expansion around kernel B3."""
+    a = artifact.arrays
+    stored = (a["M_scale"], a["v"], a["v_scale"])
+    hit = artifact.derived.get("q8_operands")
+    if hit is not None and all(x is y for x, y in zip(hit[0], stored)):
+        return hit[1]
+    col_scale = quantize.expand_group_scales(
+        a["M_scale"], artifact.d, int(artifact.meta["group_size"])
+    )
+    v = a["v"].to(torch.float32) * a["v_scale"][:, None]
+    artifact.derived["q8_operands"] = (stored, (col_scale, v))
+    return col_scale, v
 
 
 def tile_lookup(artifact: CompiledArtifact, bucket: int) -> tuple[str, str]:

@@ -1,9 +1,10 @@
 // PTX wrappers shared by the f32 tensor-core kernels: cp.async copies into
-// shared memory, mma.m16n8k8 on TF32 operands, and the split of an f32 value
-// into the two TF32 terms of 3xTF32 (hi*hi + hi*lo + lo*hi). The attention
-// tile engine (attn_tile.cuh, kernels B8 and B9), the quadratic form
-// (quadform.cu, B1) and the exact RBF expansion (rbf_pred.cu, B2) take them
-// from here.
+// shared memory, mma.m16n8k8 on TF32 operands, the split of an f32 value
+// into the two TF32 terms of 3xTF32 (hi*hi + hi*lo + lo*hi), and the upcast
+// of int8 bytes to the floats a TF32 MMA reads. The attention tile engine
+// (attn_tile.cuh, kernels B8 and B9), the quadratic form (quadform.cu, B1
+// and B3), the exact RBF expansion (rbf_pred.cu, B2) and the random-Fourier
+// scoring (rff_score.cu, B4 and B5) take them from here.
 
 #pragma once
 
@@ -58,6 +59,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
+// Four signed bytes of ``w`` as floats, exactly: each byte, offset by 128,
+// in the low mantissa bits of 2^23, less 2^23 + 128. An int8 value has at
+// most 8 significant bits, so the float is exact in TF32 too: split_tf32
+// gives it back as hi with a lo of no TF32 bits.
+__device__ __forceinline__ float s8_at(uint32_t x, int sel) {  // x = w ^ 0x80808080
+  return __uint_as_float(__byte_perm(x, 0x4bu, sel)) - 8388736.0f;
+}
+
 // Rows r0 .. r0 + R - 1 and columns c0 .. c0 + 63 of a row-major f32 matrix
 // with ``ld`` columns into a shared tile of row stride S, by a block of
 // kThreads threads: zeros past row ``rows`` and column ``cols``. With vec,
@@ -82,6 +91,31 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src, int r0, 
       const int r = e / 64, c = e % 64;
       const bool ok = r0 + r < rows && c0 + c < cols;
       cp_async4(dst + r * S + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  }
+}
+
+// The same for an int8 matrix, into a shared tile of row stride S bytes.
+// With vec, 4 bytes a copy (cols a multiple of 4, the base 4-byte aligned);
+// without, plain byte loads and stores, which the block's next barrier
+// makes visible.
+template <int R, int S, int kThreads>
+__device__ __forceinline__ void copy_tile_s8(unsigned char* dst, const int8_t* src, int r0,
+                                             int rows, int c0, int cols, int ld, bool vec) {
+  static_assert(R * 16 % kThreads == 0 && S % 4 == 0, "whole chunks a thread, aligned rows");
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < R * 16 / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / 16, c = 4 * (e % 16);
+      const bool ok = r0 + r < rows && c0 + c < cols;
+      cp_async4(dst + r * S + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * 64; e += kThreads) {
+      const int r = e / 64, c = e % 64;
+      const bool ok = r0 + r < rows && c0 + c < cols;
+      dst[r * S + c] = ok ? (unsigned char)src[(size_t)(r0 + r) * ld + c0 + c] : 0;
     }
   }
 }

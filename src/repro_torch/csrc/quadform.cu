@@ -51,46 +51,81 @@
 //
 //   s[n,k] = exp(-gamma_k |z|^2) (c_k + v_k.z + sum_j (Z M_k)[n,j] scale_k[j] z[n,j]) + b_k
 //
-// It keeps B1's earlier fp32 SIMT body: the (BN, 64) tile of Z M_k in registers
-// (BN/16 x 4 a thread) from 16-deep shared tiles double-buffered through
-// registers, the Hessian loaded as int8 (four bytes a thread in one 32-bit
-// load where d is a multiple of 4, one byte at a time on a ragged edge) and
-// upcast as it is staged, so no f32 copy of M exists; the column scale
-// multiplies each column of the tile before the row-dot with z, and
-// cannot move past the row sum. Its Hessian is 4x fewer bytes (6.1 MB at
-// d=780, K=10). It shares the second pass with B1.
+// Its Hessian is 4x fewer bytes (6.1 MB at d=780, K=10) and its products
+// 2 n K d^2 flops as B1's. It is the int8 instantiation of B1's template:
+//
+// - The ring holds M_k's tile as the int8 bytes (4-byte cp.async where d
+//   is a multiple of 4, plain byte loads on a ragged d), 5 KB a stage where
+//   B1's f32 tile takes 18 KB, so the ring runs as deep as shared memory
+//   allows (5, 9 and 15 stages at 128, 64 and 32 rows). No f32 or
+//   transposed copy of M exists.
+// - An int8 value is exact in TF32, so M needs no split: each product is
+//   Z_lo M + Z_hi M (small terms first), two MMAs where B1 spends three,
+//   into one stage accumulator that is added to the running tile in f32.
+// - M_k is row-major with the contraction down its rows, so the B fragment
+//   of column n of n8 tile j would gather bytes 8 apart. The tile's columns
+//   are permuted instead: tile j, column n is column 8n + j, and a lane's
+//   bytes of one contraction row for all eight tiles are 8 contiguous bytes,
+//   one 8-byte shared load upcast by a byte permute and a subtraction
+//   (ptx::s8_at). The k order inside a k-step is permuted alike for A and B
+//   (k = t and t + 4 are contraction columns 2t and 2t + 1), so an A
+//   fragment is two 8-byte loads; rows are padded so that the lanes of a
+//   half-warp hit distinct banks. Only the fold sees the column permutation.
+// - The fold takes z from the stage in hand, and the tile's column scales
+//   and v_k, which came with that stage: zm = acc * scale_k[c] first, then
+//   g[n] += (zm + v_k[c]) z[n,c], the scale before the row-dot with z, as
+//   the reference has it.
+// - The second pass is B1's.
+//
+// On an H100 80GB HBM3 at 700 W, n=1024: B3 0.25 ms, B1 0.30 (chip_smoke.py),
+// 3.3x and 4.0x their 3xTF32 bound. B3 at 128 rows a block takes the same
+// time at 4 to 13 splits of the column tiles, 64 rows 1.3x and 32 rows 1.9x
+// as long (scripts/quadform_q8_sweep.py): the time follows the k-steps a
+// stage gives a warp (4, 2, 1), not the tail of the grid.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ptx.cuh"
 
 namespace {
 
-// --------------------------------------------------- B1: 3xTF32 on mma.sync
+// ------------------------------------------ B1 (f32) and B3 (int8): mma.sync
 
 constexpr int kCols = 64;            // Hessian columns of a tile, and depth of a stage
 constexpr int kWarps = 8;            // a block's warps, whatever its rows
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpRows = 32;        // rows of a warp's tile: two m16 fragments
 constexpr int kNT = kCols / 8;       // n8 tiles of a warp's 32 x 64 tile
-constexpr int kZStride = kCols + 4;  // A fragment rows 4 banks apart
-constexpr int kMStride = kCols + 8;  // B fragment rows (the contraction) 8 banks apart
+constexpr int kZStride = kCols + 4;  // B1: A fragment rows 4 banks apart
+constexpr int kMStride = kCols + 8;  // B1: B fragment rows (the contraction) 8 banks apart
+constexpr int kZStrideQ8 = kCols + 8;    // B3: 8-byte A fragment reads 8 banks apart
+constexpr int kMStrideQ8 = kCols + 16;   // B3: int8 rows in bytes, 8-byte reads 8 banks apart
+constexpr int kSmemBytes = 232448;       // a block's shared memory on an H100
 
 // A block of BN rows: BN / 32 warps down the rows, and kGroups warps
 // across the 8 k-steps of a stage, each on its own run of them, so small
 // batches still keep the SM's four tensor cores busy. The ring is as deep
 // as shared memory allows: the fewer the rows, the more stages in flight.
-template <int BN>
+// A stage (in floats): the Z tile, the M_k tile (B3: its bytes), and B3's
+// column scales and v_k for the tile (64 each).
+template <typename T, int BN>
 struct Tiling {
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   static constexpr int kRowWarps = BN / kWarpRows;
   static constexpr int kGroups = kWarps / kRowWarps;
   static constexpr int kSteps = kCols / 8 / kGroups;  // k-steps of a warp a stage
-  static constexpr int kStages = BN == 128 ? 3 : BN == 64 ? 4 : 6;
-  static constexpr int kZ = BN * kZStride;
-  static constexpr int kStage = kZ + kCols * kMStride;
+  static constexpr int kZS = kInt8 ? kZStrideQ8 : kZStride;
+  static constexpr int kZ = BN * kZS;
+  static constexpr int kM = kInt8 ? kCols * kMStrideQ8 / 4 : kCols * kMStride;
+  static constexpr int kStage = kZ + kM + (kInt8 ? 2 * kCols : 0);
+  static constexpr int kStages =
+      kInt8 ? kSmemBytes / (kStage * 4) : BN == 128 ? 3 : BN == 64 ? 4 : 6;
   static constexpr size_t kBytes = (size_t)kStages * kStage * sizeof(float);
-  static_assert(kRowWarps * kGroups == kWarps && kBytes <= 232448, "tiling");
+  static_assert(kRowWarps * kGroups == kWarps && kBytes <= kSmemBytes, "tiling");
+  static_assert(kZ % 4 == 0 && kM % 4 == 0, "16-byte aligned tiles");
 };
 
 // acc += Z_s M_s over kSteps k-steps of a stage from kk0, for a warp's 32
@@ -148,12 +183,71 @@ __device__ __forceinline__ void stage_product(float (&acc)[2][kNT][4], const flo
       for (int e = 0; e < 4; ++e) acc[i][j][e] += st[i][j][e];
 }
 
-template <int BN>
+// B3's: Z_lo M + Z_hi M off the int8 tile. Column n of n8 tile j is the
+// tile's column 8n + j, and k = t, t + 4 of a k-step are its contraction
+// columns 2t, 2t + 1, so lane (g, t) reads its A values as pairs and its B
+// bytes of all eight tiles as 8 bytes of each of two rows.
+template <int kSteps>
+__device__ __forceinline__ void stage_product_q8(float (&acc)[2][kNT][4], const float* zs,
+                                                 const unsigned char* ms, int row, int kk0,
+                                                 int g, int t) {
+  float st[2][kNT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[i][j][e] = 0.f;
+  const float* zr = zs + (row + g) * kZStrideQ8 + 8 * kk0 + 2 * t;
+  const unsigned char* mr = ms + (8 * kk0 + 2 * t) * kMStrideQ8 + 8 * g;
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    uint32_t ah[2][4], al[2][4], b[kNT][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float* z = zr + 16 * i * kZStrideQ8 + 8 * kk;
+      const float2 top = *reinterpret_cast<const float2*>(z);
+      const float2 bot = *reinterpret_cast<const float2*>(z + 8 * kZStrideQ8);
+      ptx::split_tf32(top.x, ah[i][0], al[i][0]);  // (g, k = t: column 2t)
+      ptx::split_tf32(bot.x, ah[i][1], al[i][1]);  // (g + 8, 2t)
+      ptx::split_tf32(top.y, ah[i][2], al[i][2]);  // (g, k = t + 4: column 2t + 1)
+      ptx::split_tf32(bot.y, ah[i][3], al[i][3]);  // (g + 8, 2t + 1)
+    }
+    const unsigned char* m = mr + 8 * kk * kMStrideQ8;
+    const uint2 lo = *reinterpret_cast<const uint2*>(m);               // M[2t][8g .. 8g + 7]
+    const uint2 hi = *reinterpret_cast<const uint2*>(m + kMStrideQ8);  // M[2t + 1][.]
+    const uint32_t x[4] = {lo.x ^ 0x80808080u, lo.y ^ 0x80808080u, hi.x ^ 0x80808080u,
+                           hi.y ^ 0x80808080u};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {  // byte j: the tile's column 8g + j
+      b[j][0] = __float_as_uint(ptx::s8_at(x[j / 4], 0x4550 + j % 4));
+      b[j][1] = __float_as_uint(ptx::s8_at(x[2 + j / 4], 0x4550 + j % 4));
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) ptx::mma_tf32(st[i][j], al[i], b[j][0], b[j][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) ptx::mma_tf32(st[i][j], ah[i], b[j][0], b[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += st[i][j][e];
+}
+
+template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
-    quadform_tf32(const float* __restrict__ Z, const float* __restrict__ M,
-                  const float* __restrict__ V, int n, int d, int tiles_per_split, bool vec,
-                  float* __restrict__ g_part, float* __restrict__ zsq_part) {
-  using L = Tiling<BN>;
+    quadform_tf32(const float* __restrict__ Z, const T* __restrict__ M,
+                  const float* __restrict__ col_scale, const float* __restrict__ V, int n,
+                  int d, int tiles_per_split, bool vec, float* __restrict__ g_part,
+                  float* __restrict__ zsq_part) {
+  using L = Tiling<T, BN>;
+  constexpr bool kInt8 = L::kInt8;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(16) float smem[];
   const auto zs = [&](int st) { return smem + st * L::kStage; };
@@ -170,7 +264,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int jt_begin = split * tiles_per_split;
   const int jt_end = min(tiles, jt_begin + tiles_per_split);
   const int stages = max(0, jt_end - jt_begin) * tiles;
-  const float* Mk = M + (size_t)k * d * d;
+  const T* Mk = M + (size_t)k * d * d;
   const float* vk = V + (size_t)k * d;
 
   // Stage s: column tile jt, contraction tile it, the tile's own last.
@@ -178,9 +272,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int jt = jt_begin + s / tiles;
     const int it = (jt + 1 + s % tiles) % tiles;
     const int st = s % kStages;
-    ptx::copy_tile<BN, kZStride, kThreads>(zs(st), Z, row0, n, it * kCols, d, d, vec);
-    ptx::copy_tile<kCols, kMStride, kThreads>(ms(st), Mk, it * kCols, d, jt * kCols, d, d,
-                                              vec);
+    ptx::copy_tile<BN, L::kZS, kThreads>(zs(st), Z, row0, n, it * kCols, d, d, vec);
+    if constexpr (kInt8) {
+      ptx::copy_tile_s8<kCols, kMStrideQ8, kThreads>(reinterpret_cast<unsigned char*>(ms(st)),
+                                                     Mk, it * kCols, d, jt * kCols, d, d, vec);
+      if (it == jt && threadIdx.x < 2 * kCols) {  // the tile's scales, then v_k
+        const int c = jt * kCols + threadIdx.x % kCols;
+        const float* src = threadIdx.x < kCols ? col_scale + (size_t)k * d : vk;
+        const bool ok = c < d;
+        ptx::cp_async4(ms(st) + L::kM + threadIdx.x, ok ? src + c : src, ok);
+      }
+    } else {
+      ptx::copy_tile<kCols, kMStride, kThreads>(ms(st), Mk, it * kCols, d, jt * kCols, d, d,
+                                                vec);
+    }
   };
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -203,27 +308,55 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (s + kStages - 1 < stages) issue(s + kStages - 1);
     ptx::cp_async_commit();
     const int st = s % kStages;
-    stage_product<L::kSteps>(acc, zs(st), ms(st), row, group * L::kSteps, g, t);
+    if constexpr (kInt8) {
+      stage_product_q8<L::kSteps>(acc, zs(st), reinterpret_cast<const unsigned char*>(ms(st)),
+                                  row, group * L::kSteps, g, t);
+    } else {
+      stage_product<L::kSteps>(acc, zs(st), ms(st), row, group * L::kSteps, g, t);
+    }
     if (s % tiles != tiles - 1) continue;
     // The column tile is complete (over this warp's k-steps) and the stage
     // in hand holds z at its columns: fold it into the row sums, (Z M_k)[n,j]
     // (+ v_k[j] in group 0) times z[n,j]. The fold is linear, so the
     // groups' sums add up to the whole.
-    const int j0 = (jt_begin + s / tiles) * kCols;
-    const float* zr = zs(st) + (row + g) * kZStride + 2 * t;
+    if constexpr (kInt8) {
+      // acc[i][j][2h + u] is row 16i + 8h + g, column 8 (2t + u) + j; the
+      // column's scale first, then v_k, as _heads_kernel_q8.
+      const float* zr = zs(st) + (row + g) * kZStrideQ8 + 16 * t;
+      const float* sv = ms(st) + L::kM + 16 * t;  // scales, then v_k at + kCols
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
+        for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 2 * i + (e >> 1), c = 8 * j + 2 * t + (e & 1);
-          const float z = zr[8 * r * kZStride + 8 * j + (e & 1)];
-          const float v = group == 0 && j0 + c < d ? vk[j0 + c] : 0.f;
-          gsum[r] = fmaf(acc[i][j][e] + v, z, gsum[r]);
-          sq[r] = fmaf(z, z, sq[r]);
-          acc[i][j][e] = 0.f;
-        }
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int j = 0; j < kNT; ++j) {
+              const int r = 2 * i + h, c = 8 * u + j;
+              const float z = zr[8 * r * kZStrideQ8 + c];
+              const float zm = __fmul_rn(acc[i][j][2 * h + u], sv[c]);
+              const float v = group == 0 ? sv[kCols + c] : 0.f;
+              gsum[r] = fmaf(zm + v, z, gsum[r]);
+              sq[r] = fmaf(z, z, sq[r]);
+              acc[i][j][2 * h + u] = 0.f;
+            }
+    } else {
+      const int j0 = (jt_begin + s / tiles) * kCols;
+      const float* zr = zs(st) + (row + g) * kZStride + 2 * t;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 2 * i + (e >> 1), c = 8 * j + 2 * t + (e & 1);
+            const float z = zr[8 * r * kZStride + 8 * j + (e & 1)];
+            const float v = group == 0 && j0 + c < d ? vk[j0 + c] : 0.f;
+            gsum[r] = fmaf(acc[i][j][e] + v, z, gsum[r]);
+            sq[r] = fmaf(z, z, sq[r]);
+            acc[i][j][e] = 0.f;
+          }
+    }
   }
   ptx::cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the groups' row sums now
@@ -253,170 +386,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ------------------------------------------------- B3: int8 Hessian, SIMT
-
-constexpr int kQ8Threads = 256;
-constexpr int kLanesX = 16;  // threads along the column axis of a tile
-constexpr int kLanesY = 16;  // threads along the row axis
-constexpr int kBlockJ = 64;  // Hessian columns per tile
-constexpr int kBlockI = 16;  // contraction depth per shared-memory stage
-constexpr int kTN = kBlockJ / kLanesX;
-
-__device__ __forceinline__ float lane16_sum(float x) {
-  // Butterfly over the 16 lanes that share a row (xor stays inside each
-  // half-warp); the same tree every run.
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  // N consecutive floats from 8- or 16-byte aligned shared memory.
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(p)[q];
-      out[4 * q] = v.x, out[4 * q + 1] = v.y, out[4 * q + 2] = v.z, out[4 * q + 3] = v.w;
-    }
-  } else {
-    static_assert(N == 2, "rows per thread must be 2 or a multiple of 4");
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x, out[1] = v.y;
-  }
-}
-
-// At most 128 registers a thread (kQ8Threads, 2), so two blocks share an
-// SM and hide each other's global loads; the arithmetic, and so every bit
-// of the result, is the same as without the cap.
-template <int BN>
-__global__ void __launch_bounds__(kQ8Threads, 2)
-    quadform_q8_partial(const float* __restrict__ Z, const int8_t* __restrict__ M,
-                        const float* __restrict__ col_scale, const float* __restrict__ V,
-                        int n, int d, int tiles_per_split, bool vec4,
-                        float* __restrict__ g_part, float* __restrict__ zsq_part) {
-  constexpr int TM = BN / kLanesY;                         // rows per thread
-  constexpr int kZLoads = BN * kBlockI / kQ8Threads;       // Z floats per thread per stage
-  constexpr int kMLoads = kBlockI * kBlockJ / kQ8Threads;  // M values per thread per stage
-  static_assert(kMLoads == 4, "a thread loads one 4-byte run a stage");
-  constexpr int kZStrideQ8 = BN + 4;  // keeps each row 16-byte aligned, spreads banks
-  // Two stages: the next stage's global loads are in flight in registers
-  // while the current one is multiplied out of shared memory.
-  __shared__ __align__(16) float zs[2][kBlockI][kZStrideQ8];  // Z tile, transposed
-  __shared__ __align__(16) float ms[2][kBlockI][kBlockJ];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kLanesX;
-  const int ty = tid / kLanesX;
-  const int row0 = blockIdx.x * BN;
-  const int k = blockIdx.y;
-  const int K = gridDim.y;
-  const int split = blockIdx.z;
-  const int j_tiles = (d + kBlockJ - 1) / kBlockJ;
-  const int jt_begin = split * tiles_per_split;
-  const int jt_end = min(j_tiles, jt_begin + tiles_per_split);
-  const int8_t* Mk = M + (size_t)k * d * d;
-  const float* vk = V + (size_t)k * d;
-  // Thread tid stages row tid / 16, columns 4 (tid % 16) .. + 3.
-  const int mi = tid / (kBlockJ / 4), mj = 4 * (tid % (kBlockJ / 4));
-
-  float zr[kZLoads], mr[kMLoads];
-  auto fetch = [&](int i0, int j0) {  // global -> registers, edges as zeros
-#pragma unroll
-    for (int q = 0; q < kZLoads; ++q) {
-      const int e = tid + q * kQ8Threads;
-      const int row = row0 + e / kBlockI, col = i0 + e % kBlockI;
-      zr[q] = (row < n && col < d) ? Z[(size_t)row * d + col] : 0.f;
-    }
-    const int i = i0 + mi, j = j0 + mj;
-    const int8_t* p = Mk + (size_t)i * d + j;
-    if (vec4 && i < d && j + 3 < d) {
-      const char4 v = *reinterpret_cast<const char4*>(p);
-      mr[0] = v.x, mr[1] = v.y, mr[2] = v.z, mr[3] = v.w;
-    } else {
-#pragma unroll
-      for (int q = 0; q < kMLoads; ++q) mr[q] = (i < d && j + q < d) ? (float)p[q] : 0.f;
-    }
-  };
-  auto stash = [&](int buf) {  // registers -> shared stage ``buf``
-#pragma unroll
-    for (int q = 0; q < kZLoads; ++q) {
-      const int e = tid + q * kQ8Threads;
-      zs[buf][e % kBlockI][e / kBlockI] = zr[q];
-    }
-    *reinterpret_cast<float4*>(&ms[buf][mi][mj]) = make_float4(mr[0], mr[1], mr[2], mr[3]);
-  };
-
-  float g[TM], sq[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) g[r] = sq[r] = 0.f;
-
-  for (int jt = jt_begin; jt < jt_end; ++jt) {
-    const int j0 = jt * kBlockJ;
-    float acc[TM][kTN];
-#pragma unroll
-    for (int r = 0; r < TM; ++r)
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) acc[r][c] = 0.f;
-
-    fetch(0, j0);
-    stash(0);
-    __syncthreads();
-    int buf = 0;
-    for (int i0 = 0; i0 < d; i0 += kBlockI) {
-      const bool more = i0 + kBlockI < d;
-      if (more) fetch(i0 + kBlockI, j0);
-#pragma unroll
-      for (int ii = 0; ii < kBlockI; ++ii) {
-        float a[TM], b[kTN];
-        load_vec(&zs[buf][ii][ty * TM], a);
-        load_vec(&ms[buf][ii][tx * kTN], b);
-#pragma unroll
-        for (int r = 0; r < TM; ++r)
-#pragma unroll
-          for (int c = 0; c < kTN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
-      if (more) stash(buf ^ 1);
-      __syncthreads();  // stage buf^1 is complete; buf is refilled only after this
-      buf ^= 1;
-    }
-
-    // Fold the (BN, 64) tile of Z @ M_k into the row sums at once; the
-    // column scales multiply the tile first.
-    float scale[kTN];
-#pragma unroll
-    for (int c = 0; c < kTN; ++c) {
-      const int col = j0 + tx * kTN + c;
-      scale[c] = col < d ? col_scale[(size_t)k * d + col] : 1.f;
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = row0 + ty * TM + r;
-      if (row >= n) continue;
-#pragma unroll
-      for (int c = 0; c < kTN; ++c) {
-        const int col = j0 + tx * kTN + c;
-        if (col >= d) continue;
-        const float z = Z[(size_t)row * d + col];
-        const float zm = acc[r][c] * scale[c];
-        g[r] = fmaf(zm + vk[col], z, g[r]);  // quad + lin
-        sq[r] = fmaf(z, z, sq[r]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const float gs = lane16_sum(g[r]);
-    const float ss = lane16_sum(sq[r]);
-    const int row = row0 + ty * TM + r;
-    if (tx == 0 && row < n) {
-      g_part[((size_t)split * K + k) * n + row] = gs;
-      if (k == 0) zsq_part[(size_t)split * n + row] = ss;  // head-0 blocks only
-    }
-  }
-}
-
 // ------------------------------------------------------ both: second pass
 
 __global__ void quadform_finalize(const float* __restrict__ g_part,
@@ -442,34 +411,22 @@ __global__ void quadform_finalize(const float* __restrict__ g_part,
   if (k == 0) zsq[row] = s;
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
-template <int BN>
-cudaError_t launch_f32(const float* Z, const float* M, const float* V, int n, int d, int K,
-                       int splits, float* g_part, float* zsq_part, cudaStream_t stream) {
+template <typename T, int BN>
+cudaError_t launch_partial(const float* Z, const T* M, const float* col_scale, const float* V,
+                           int n, int d, int K, int splits, float* g_part, float* zsq_part,
+                           cudaStream_t stream) {
   const int tiles = (d + kCols - 1) / kCols;
   const int per_split = (tiles + splits - 1) / splits;
-  const bool vec = d % 4 == 0 && aligned16(Z) && aligned16(M);
-  constexpr size_t bytes = Tiling<BN>::kBytes;
+  const bool vec = d % 4 == 0 && aligned(Z, 16) && aligned(M, Tiling<T, BN>::kInt8 ? 4 : 16);
+  constexpr size_t bytes = Tiling<T, BN>::kBytes;
   static bool opted[ptx::kMaxDevices] = {};
-  const cudaError_t err = ptx::allow_smem(quadform_tf32<BN>, (int)bytes, opted);
+  const cudaError_t err = ptx::allow_smem(quadform_tf32<T, BN>, (int)bytes, opted);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BN - 1) / BN, K, splits);
-  quadform_tf32<BN><<<grid, kThreads, bytes, stream>>>(Z, M, V, n, d, per_split, vec, g_part,
-                                                       zsq_part);
-  return cudaGetLastError();
-}
-
-template <int BN>
-cudaError_t launch_q8(const float* Z, const int8_t* M, const float* col_scale, const float* V,
-                      int n, int d, int K, int splits, float* g_part, float* zsq_part,
-                      cudaStream_t stream) {
-  const int j_tiles = (d + kBlockJ - 1) / kBlockJ;
-  const int per_split = (j_tiles + splits - 1) / splits;
-  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(M) % 4 == 0;
-  const dim3 grid((n + BN - 1) / BN, K, splits);
-  quadform_q8_partial<BN><<<grid, kQ8Threads, 0, stream>>>(Z, M, col_scale, V, n, d,
-                                                           per_split, vec4, g_part, zsq_part);
+  quadform_tf32<T, BN><<<grid, kThreads, bytes, stream>>>(Z, M, col_scale, V, n, d, per_split,
+                                                          vec, g_part, zsq_part);
   return cudaGetLastError();
 }
 
@@ -480,6 +437,27 @@ int finalize(const float* g_part, const float* zsq_part, int splits, int n, int 
   quadform_finalize<<<(total + 255) / 256, 256, 0, stream>>>(
       g_part, zsq_part, splits, n, K, c, b, gamma, msq, scores, zsq, valid);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(const float* Z, const T* M, const float* col_scale, const float* V, const float* c,
+        const float* b, const float* gamma, const float* msq, int n, int d, int K, int block_n,
+        int splits, float* g_part, float* zsq_part, float* scores, float* zsq, uint8_t* valid,
+        cudaStream_t stream) {
+  if (n <= 0 || d <= 0 || K <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (block_n == 128) {
+    err = launch_partial<T, 128>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
+  } else if (block_n == 64) {
+    err = launch_partial<T, 64>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
+  } else if (block_n == 32) {
+    err = launch_partial<T, 32>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return finalize(g_part, zsq_part, splits, n, K, c, b, gamma, msq, scores, zsq, valid,
+                  stream);
 }
 
 }  // namespace
@@ -496,20 +474,8 @@ int quadform_heads_f32(const float* Z, const float* M, const float* V, const flo
                        int d, int K, int block_n, int splits, float* g_part,
                        float* zsq_part, float* scores, float* zsq, uint8_t* valid,
                        cudaStream_t stream) {
-  if (n <= 0 || d <= 0 || K <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (block_n == 128) {
-    err = launch_f32<128>(Z, M, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else if (block_n == 64) {
-    err = launch_f32<64>(Z, M, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else if (block_n == 32) {
-    err = launch_f32<32>(Z, M, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return finalize(g_part, zsq_part, splits, n, K, c, b, gamma, msq, scores, zsq, valid,
-                  stream);
+  return run<float>(Z, M, nullptr, V, c, b, gamma, msq, n, d, K, block_n, splits, g_part,
+                    zsq_part, scores, zsq, valid, stream);
 }
 
 // B3. As B1, with M (K, d, d) int8 and col_scale (K, d) f32.
@@ -518,20 +484,8 @@ int quadform_heads_q8(const float* Z, const int8_t* M, const float* col_scale,
                       const float* msq, int n, int d, int K, int block_n, int splits,
                       float* g_part, float* zsq_part, float* scores, float* zsq,
                       uint8_t* valid, cudaStream_t stream) {
-  if (n <= 0 || d <= 0 || K <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (block_n == 128) {
-    err = launch_q8<128>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else if (block_n == 64) {
-    err = launch_q8<64>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else if (block_n == 32) {
-    err = launch_q8<32>(Z, M, col_scale, V, n, d, K, splits, g_part, zsq_part, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return finalize(g_part, zsq_part, splits, n, K, c, b, gamma, msq, scores, zsq, valid,
-                  stream);
+  return run<int8_t>(Z, M, col_scale, V, c, b, gamma, msq, n, d, K, block_n, splits, g_part,
+                     zsq_part, scores, zsq, valid, stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,8 @@ from repro_torch.kernels.common.config import TileConfig
 DEFAULTS: dict[str, TileConfig] = {
     # B1 and B2: 128 rows a block (eight warps), the most that a block's
     # shared memory holds in a three-stage ring; small batches clamp down.
+    # B3 likewise: 128 rows ran fastest at n=1024 in
+    # scripts/quadform_q8_sweep.py (64 and 32 rows 1.3x and 1.9x slower).
     "quadform": TileConfig(block_n=128),
     "quadform_q8": TileConfig(block_n=128),
     "rbf_pred": TileConfig(block_n=128),

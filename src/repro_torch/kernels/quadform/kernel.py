@@ -139,6 +139,9 @@ def _launch(kernel: CudaKernel, config: TileConfig, Z, hessian, rest):
     if n == 0:
         return scores, z_sq, valid
     j_tiles = tiles.grid_blocks(d, BLOCK_J)
+    # About two blocks an SM (one fills it, one queues). For B3 this count
+    # is among the fastest of scripts/quadform_q8_sweep.py's at n = 32 and
+    # 1024 (PERF.md).
     splits = config.splits or tiles.split_count(
         j_tiles,
         tiles.grid_blocks(n, config.block_n) * k,

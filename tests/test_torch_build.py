@@ -110,20 +110,24 @@ def _load_chip_smoke():
     return chip_smoke
 
 
-def test_compiled_bodies_hold_b1_on_the_tensor_cores_and_b3_off_them(monkeypatch):
+def test_compiled_bodies_hold_b1_and_b3_on_the_tensor_cores_without_spills(monkeypatch):
     """chip_smoke.py's ``compiled`` check of the quadform library: the f32
-    body must hold a tensor-core MMA, the int8 body none."""
+    (B1) and the int8 (B3) instantiation of one template must each hold a
+    tensor-core MMA and no stack or local bytes."""
     chip_smoke = _load_chip_smoke()
-    f32, q8 = "_ZN12_GLOBAL__N_113quadform_tf32ILi128EEEvPKfS2_S2_iiibPfS3_", "_Z19quadform_q8_partialILi128EEv"
+    mma_in, simt, spill_free = chip_smoke.TENSOR_CORE_BODIES["quadform-"]
+    assert (mma_in, simt, spill_free) == ("quadform_tf32", None, True)
+    f32 = "_ZN12_GLOBAL__N_113quadform_tf32IfLi128EEEvPKfPKT_S2_S2_iiibPfS6_"
+    q8 = "_ZN12_GLOBAL__N_113quadform_tf32IaLi128EEEvPKfPKT_S2_S2_iiibPfS6_"
 
-    def listing(q8_op):
+    def listing(q8_op, q8_stack=0):
         sass = (
             f"\t\tFunction : {f32}\n        /*0a30*/   HMMA.1688.F32.TF32 R24, R4, R20, R24 ;\n"
             f"\t\tFunction : {q8}\n        /*0a30*/   {q8_op} R24, R4, R20, R24 ;\n"
         )
         usage = "".join(
-            f" Function {n}:\n  REG:{r} STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:592\n"
-            for n, r in ((f32, 190), (q8, 128))
+            f" Function {n}:\n  REG:{r} STACK:{st} SHARED:0 LOCAL:0 CONSTANT[0]:592\n"
+            for n, r, st in ((f32, 225, 0), (q8, 190, q8_stack))
         )
 
         def run(cmd, **kw):
@@ -132,13 +136,17 @@ def test_compiled_bodies_hold_b1_on_the_tensor_cores_and_b3_off_them(monkeypatch
 
         monkeypatch.setattr(chip_smoke.subprocess, "run", run)
 
-    listing("FFMA")
-    bodies = chip_smoke.compiled_bodies(Path("quadform-x.so"), Path("cuobjdump"), "quadform_tf32", "quadform_q8_partial")
-    assert bodies[f32]["sass"] == {"HMMA.1688.F32.TF32": 1} and bodies[f32]["registers"] == 190
-    assert bodies[q8]["sass"] == {} and bodies[q8]["registers"] == 128
+    lib, cuobjdump = Path("quadform-x.so"), Path("cuobjdump")
     listing("HMMA.1688.F32.TF32")
-    with pytest.raises(chip_smoke.PhaseFailed, match="quadform_q8_partial"):
-        chip_smoke.compiled_bodies(Path("quadform-x.so"), Path("cuobjdump"), "quadform_tf32", "quadform_q8_partial")
+    bodies = chip_smoke.compiled_bodies(lib, cuobjdump, mma_in, simt, spill_free)
+    assert bodies[f32]["sass"] == {"HMMA.1688.F32.TF32": 1} and bodies[f32]["registers"] == 225
+    assert bodies[q8]["sass"] == {"HMMA.1688.F32.TF32": 1} and bodies[q8]["registers"] == 190
+    listing("FFMA")
+    with pytest.raises(chip_smoke.PhaseFailed, match=f"{q8} holds no tensor-core MMA"):
+        chip_smoke.compiled_bodies(lib, cuobjdump, mma_in, simt, spill_free)
+    listing("HMMA.1688.F32.TF32", q8_stack=16)
+    with pytest.raises(chip_smoke.PhaseFailed, match=f"{q8} has 16 stack/local bytes"):
+        chip_smoke.compiled_bodies(lib, cuobjdump, mma_in, simt, spill_free)
 
 
 def test_compiled_bodies_hold_b4_b5_on_the_tensor_cores_without_spills(monkeypatch):

@@ -189,17 +189,23 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(ex_gpu.values, ex_cpu.values, rtol=1e-4, atol=1e-4)
 
 
-def _q8_heads(n, k, d, seed, dev):
-    """B3's operands: B1's, with the Hessian quantized per column group."""
+def _q8_heads(n, k, d, seed, dev, symmetric=True):
+    """B3's operands: B1's, with the Hessian quantized per column group
+    (with ``symmetric`` False, after adding a strictly upper triangle)."""
     Z, M, V, c, b, gamma, msq = _heads(n, k, d, seed, dev)
-    M_q, scale = families.quantize.quantize_col_groups(M)
+    if not symmetric:
+        rng = np.random.default_rng(n + k)
+        skew = torch.from_numpy((rng.standard_normal((k, d, d)) * 1e-2).astype(np.float32))
+        M = M + skew.triu(1).to(dev)
+    M_q, scale = families.quantize.quantize_col_groups(M.cpu().numpy())
     col_scale = families.quantize.expand_group_scales(torch.from_numpy(scale), d)
     return Z, torch.from_numpy(M_q).to(dev), col_scale.to(dev), V, c, b, gamma, msq
 
 
 @pytest.mark.parametrize("block_n", [32, 64, 128])
 @pytest.mark.parametrize(
-    "n,k,d", [(1, 1, 3), (5, 3, 22), (100, 1, 123), (64, 2, 64), (257, 10, 780)]
+    "n,k,d",
+    [(1, 1, 3), (5, 3, 22), (100, 1, 123), (64, 2, 64), (257, 10, 780), (1024, 10, 780)],
 )
 def test_quadform_q8_kernel_matches_plain(cuda, n, k, d, block_n):
     """d = 64, 780: four-byte Hessian loads; 3, 22, 123: the byte path."""
@@ -214,6 +220,42 @@ def test_quadform_q8_kernel_matches_plain(cuda, n, k, d, block_n):
     assert torch.equal(v, v0)
     again = qf.quadform_heads_q8_cuda(*args, config=TileConfig(block_n=block_n))
     assert torch.equal(again[0], s)
+
+
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("d", [20, 780])
+@pytest.mark.parametrize("n", [1, 17, 130])
+def test_quadform_q8_kernel_at_ragged_shapes_repeats_bitwise(cuda, n, d, k):
+    """B3's tensor-core body at ragged rows and columns, on a Hessian that is
+    not symmetric: B1's rule (1e-4 of max|twin| + 1e-5), equal masks and
+    the same bits on a second launch."""
+    args = _q8_heads(n, k, d, seed=n * d + k, dev=cuda, symmetric=False)
+    before = qf.KERNEL_Q8.launches
+    s, zsq, v = qf.quadform_heads_q8_cuda(*args)
+    assert qf.KERNEL_Q8.launches == before + 1
+    s0, zsq0, v0 = qf.quadform_heads_q8_torch(*args)
+    torch.cuda.synchronize()
+    assert s.shape == (n, k) and zsq.shape == (n,) and v.shape == (n, k)
+    assert float((s - s0).abs().max()) <= 1e-4 * float(s0.abs().max()) + 1e-5
+    assert float(((zsq - zsq0).abs() / zsq0.clamp(min=1e-30)).max()) <= 1e-5
+    assert torch.equal(v, v0)
+    again = qf.quadform_heads_q8_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, (s, zsq, v)))
+
+
+@pytest.mark.parametrize("block_n", [32, 64, 128])
+@pytest.mark.parametrize("n,k,d", [(1, 1, 3), (130, 10, 780), (1024, 10, 780)])
+def test_quadform_q8_kernel_is_as_near_float64_as_its_twin(cuda, n, k, d, block_n):
+    """B2's rule on B3's scores: at most 4x the f32 twin's distance from the
+    twin in float64 on the same int8 codes, + 1e-6."""
+    args = _q8_heads(n, k, d, seed=3 * n + d, dev=cuda, symmetric=False)
+    s = qf.quadform_heads_q8_cuda(*args, config=TileConfig(block_n=block_n))[0]
+    s0 = qf.quadform_heads_q8_torch(*args)[0]
+    d64 = [a if a.dtype == torch.int8 else a.double() for a in args]
+    s64 = qf.quadform_heads_q8_torch(*d64)[0]
+    torch.cuda.synchronize()
+    twin = float((s0.double() - s64).abs().max())
+    assert float((s.double() - s64).abs().max()) <= 4.0 * twin + 1e-6
 
 
 def _rff(n, d, f, k, seed, dev, q8, spread=1.0):
