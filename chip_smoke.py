@@ -76,9 +76,10 @@ PEAK_BF16_FLOPS = 989e12
 # f32-accurate products from the tensor cores: 3xTF32 spends three TF32
 # products (hi*hi + hi*lo + lo*hi) on one, at the 495 TFLOP/s dense TF32
 # rate of NVIDIA's H100 SXM data sheet. The bound of every kernel whose work
-# is f32 products, whatever implements it: B1-B5, B9 in f32, and B8 by
-# either route (its moments are products too). B6/B7's transforms are adds,
-# bound at the fp32 rate.
+# is f32 products, whatever implements it: B1-B5, B9 in f32, B8 by either
+# route (its moments are products too) and B6/B7's readout. B6/B7's
+# transforms, diagonals and cos are adds and multiplies of their own, bound
+# at the fp32 rate.
 PEAK_F32_3XTF32 = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 
@@ -299,22 +300,34 @@ def rff_work(n: int, f: int, k: int, d: int, w_bytes: int) -> tuple[float, float
 
 def fastfood_work(
     n: int, f: int, k: int, d: int, w_bytes: int
-) -> tuple[float, float]:
-    """(flops, bytes) of kernels B6 (``w_bytes`` 4) and B7 (1): per row and
-    stack two transforms of d' log2 d' adds, the three diagonals, the
-    phase add and the cos (the gather is a move, not an operation); then
-    the readout and the bias (B7: the stack and head scales too). Bytes:
-    Z, the O(F) operators (perm and phase 4 bytes in B6, 2 in B7), the
-    readout, the scales and the output."""
+) -> tuple[float, float, float]:
+    """(fp32 flops, f32-product flops, bytes) of kernels B6 (``w_bytes`` 4)
+    and B7 (1). fp32: per row and stack two transforms of d' log2 d' adds,
+    the three diagonals, the phase add and the cos (the gather is a move,
+    not an operation), the bias (B7: the stack and head scales too).
+    Products: the readout's 2 n F K, bound at the 3xTF32 rate. Bytes: Z, the
+    O(F) operators (perm and phase 4 bytes in B6, 2 in B7), the readout, the
+    scales and the output."""
     dd = 1 << max(1, (d - 1).bit_length())
     per_elem = 2.0 * (dd.bit_length() - 1) + 3.0 + 2.0
-    flops = n * f * per_elem + 2.0 * n * f * k + 1.0 * n * k
+    flops = n * f * per_elem + 1.0 * n * k
+    products = 2.0 * n * f * k
     small = 4 if w_bytes == 4 else 2
     nbytes = 4.0 * (n * d + k + n * k) + f * (3 * w_bytes + 2 * small) + w_bytes * k * f
     if w_bytes == 1:
         flops += 1.0 * n * f + 1.0 * n * k
         nbytes += 4.0 * (f // dd + k)
-    return flops, nbytes
+    return flops, products, nbytes
+
+
+def fastfood_bound(n: int, f: int, k: int, d: int, w_bytes: int) -> tuple[float, str]:
+    """B6/B7's least time in ms: their fp32 work at the fp32 rate plus their
+    readout's products at the 3xTF32 rate, or their bytes, whichever is
+    longer."""
+    flops, products, nbytes = fastfood_work(n, f, k, d, w_bytes)
+    t_ops = (flops / PEAK_FP32_FLOPS + products / PEAK_F32_3XTF32) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def flash_work(bh: int, t: int, d: int, dv: int, nbytes_per: int) -> tuple[float, float]:
@@ -526,8 +539,9 @@ def read_compiled(sass: str, usage: str) -> dict[str, dict]:
 # Per library: the name fragment of every function whose products must run
 # on the tensor cores, of those that must not (none is left since B3 joined
 # B1's template), and whether the tensor-core bodies must have no stack or
-# local memory (B1/B3, B4/B5).
+# local memory (B1/B3, B4/B5, B6/B7: every d' instantiation).
 TENSOR_CORE_BODIES = {
+    "fastfood-": ("fastfood_tile", None, True),
     "flash_attn-": ("attn_fwd", None, False),
     "maclaurin_attn-": ("attn_fwd", None, False),
     "quadform-": ("quadform_tf32", None, True),
@@ -1424,8 +1438,7 @@ def third_path(dev):
     for (f, dt), art in ff_arts.items():
         twin, kernel, args = kernel_args(art)
         name = kernel.__name__.removesuffix("_cuda")
-        rows_checked = KERNEL_ROWS if f == FF_FEATURES[0] else (max(KERNEL_ROWS),)
-        for n in rows_checked:
+        for n in KERNEL_ROWS:
             checks[name, n, f] = check_fourier_kernel(
                 "kernel_check_fastfood",
                 kernel,
@@ -1448,13 +1461,15 @@ def third_path(dev):
             S = S * a["ff_stack_scale"][:, None]
         W_eq = ffref.fastfood_project(eye, B, G, a["ff_perm"], S).T.contiguous()
         w_bytes = 1 if dt == "int8" else 4
-        for n in rows_checked:
+        for n in KERNEL_ROWS:
             Zn = Zf[:n]
             timings[name, n, f] = dict(
                 ms=time_ms(lambda: kernel(Zn, *args)),
+                device_ms=device_ms(lambda: kernel(Zn, *args)),
+                host_ms=host_ms(lambda: kernel(Zn, *args)),
                 plain_ms=time_ms(lambda: twin(Zn, *args)),
                 library_ms=time_ms(lambda: torch.matmul(Zn, W_eq.T)),
-                bound=bound(*fastfood_work(n, f, K, d, w_bytes)),
+                bound=fastfood_bound(n, f, K, d, w_bytes),
             )
     phase_kernel_times(timings)
     seconds["kernel_checks"] = time.perf_counter() - t0
@@ -1473,6 +1488,7 @@ def third_path(dev):
                 "launches": launches[name],
                 "max_abs_err": checks[name, n_t, f_t]["max_abs_err"],
                 "ms": t["ms"],
+                "device_ms": t["device_ms"],
                 "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1],

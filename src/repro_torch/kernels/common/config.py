@@ -5,7 +5,8 @@
   ==============  ========================================================
   ``block_n``     Z rows per block: quadform, rbf_pred and rff_score
                   (f32 and int8 alike) are compiled for 32, 64 and 128;
-                  fwht (f32 and int8) takes any positive count
+                  fwht (f32 and int8) takes whole 16-row tiles up to
+                  it, as many as spread the rows best over the card
   ``splits``      blocks that share the reduction axis (Hessian column
                   tiles for quadform, SV tiles for rbf_pred, feature
                   tiles for rff_score), summed by a second pass in a

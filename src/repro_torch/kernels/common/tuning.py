@@ -23,10 +23,13 @@ DEFAULTS: dict[str, TileConfig] = {
     # (a block's warps split each stage's k-steps in two).
     "rff_score": TileConfig(block_n=128),
     "rff_score_q8": TileConfig(block_n=128),
-    # Rows per block of B6/B7: eight warps, one row each at d' >= 32, so a
-    # 32-row request still spreads over four blocks a stack.
-    "fwht": TileConfig(block_n=8),
-    "fwht_q8": TileConfig(block_n=8),
+    # B6/B7: the most rows a block may own (whole 16-row cos tiles); the
+    # wrapper (fwht.kernel.block_rows) takes fewer where that spreads the
+    # rows over more SMs. 32 gives the fastest tile of
+    # scripts/fastfood_sweep.py at n=32 and 1024, F=1024 and 4096 (16, 16,
+    # 16, 32 rows; NVIDIA H100 80GB HBM3, 700.00 W).
+    "fwht": TileConfig(block_n=32),
+    "fwht_q8": TileConfig(block_n=32),
     # B8: one 64-row sub-tile a chunk, so the exact intra-chunk term (which
     # grows with the chunk) is as small as the kernel's tiling allows. The
     # model's chunked form runs at this chunk too.

@@ -3,14 +3,19 @@ scores, off f32 (B6) or int8 (B7) operators.
 
 ``fastfood_score_cuda`` and ``fastfood_score_q8_cuda`` launch the two
 instantiations of ``csrc/fastfood.cu`` (CUDA C++ for ``sm_90a``; the
-source's header note says what bounds it and how the butterflies map onto
-a warp) on CUDA tensors, and compute with their plain twins
-``fastfood_score_torch`` / ``fastfood_score_q8_torch`` on CPU tensors.
-They replace ``repro/kernels/fwht/kernel.py::fastfood_score_pallas`` and
+source's header note says what bounds it and how a block's tile of rows
+runs its transforms and reads out on the tensor cores) on CUDA tensors,
+and compute with their plain twins ``fastfood_score_torch`` /
+``fastfood_score_q8_torch`` on CPU tensors. They replace
+``repro/kernels/fwht/kernel.py::fastfood_score_pallas`` and
 ``fastfood_score_q8_pallas``.
 
 The int8 kernel reads the int8 artifact's arrays as they are stored:
 int16 ``perm`` and f16 ``phase`` reach the kernel without a copy.
+
+A block owns ``block_rows`` rows of one stack (whole 16-row cos tiles) and
+up to 16 heads. With one stack a block writes the scores itself; with more
+a second pass adds the stacks' partial sums. Both give the same bits.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from repro_torch.kernels.common import TileConfig, tuning
 from repro_torch.kernels.fwht.ref import fastfood_score_q8_ref, fastfood_score_ref
 
 MAX_DD = 2048  # widest d' the source is compiled for (registers a lane)
+TILE_ROWS = 16  # rows of the kernels' cos tile (one m16 fragment)
+TILE_HEADS = 16  # heads a block reads out (two n8 fragments)
+SMS = 132  # an H100's SMs; the kernels run one block an SM at d' = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
@@ -128,10 +136,39 @@ def fastfood_score_q8_cuda(
     return _launch(KERNEL_Q8, config, Z, args, b_q.shape, (wt_scale,), bias)
 
 
+def block_rows(block_n: int, n: int, stacks: int, k: int) -> int:
+    """Rows a block of B6/B7 owns for ``n`` rows, ``stacks`` stacks and
+    ``k`` heads: the multiple of 16 up to ``block_n`` (rounded up to one)
+    that gives an SM the fewest rows to walk, at one block an SM (waves of
+    SMS blocks times rows a block); of equals the largest, which converts
+    the operators and copies the readout slice the fewest times. At n=1024,
+    K=10: 16 rows with one stack of 1024 (64 blocks, one a 16-row tile),
+    32 with four (128 blocks)."""
+    groups = -(-k // TILE_HEADS)
+    best, best_cost = TILE_ROWS, None
+    for bn in range(TILE_ROWS, max(TILE_ROWS, block_n) + TILE_ROWS - 1, TILE_ROWS):
+        blocks = -(-n // bn) * stacks * groups
+        cost = -(-blocks // SMS) * bn
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = bn, cost
+    return best
+
+
 def _launch(kernel: CudaKernel, config: TileConfig, Z, operators, shape, scales, bias):
-    """Allocate the output and scratch and launch ``kernel``: Z, then
-    ``operators`` and ``scales`` (its pointer arguments in the C entry
-    point's order), the bias, the sizes, the scratch and the output."""
+    """Launch ``kernel`` with the tile ``config`` asks for at this shape:
+    Z, then ``operators`` and ``scales`` (its pointer arguments in the C
+    entry point's order), the bias."""
+    n = Z.shape[0]
+    stacks = shape[0]
+    bn = block_rows(config.block_n, n, stacks, bias.shape[0])
+    return launch_tile(kernel, Z, operators, shape, scales, bias, bn, stacks == 1)
+
+
+def launch_tile(kernel: CudaKernel, Z, operators, shape, scales, bias, block_n, one):
+    """Allocate the output (and, for two launches, the scratch) and launch
+    ``kernel`` with ``block_n`` rows a block (a multiple of 16), in one
+    launch (``one``; one stack only) or two: the sizes, then the scratch
+    (null for one launch) and the output."""
     n, d = Z.shape
     stacks, dd = shape
     k = bias.shape[0]
@@ -141,7 +178,9 @@ def _launch(kernel: CudaKernel, config: TileConfig, Z, operators, shape, scales,
     # One partial sum per (stack, row, head) for the second pass. Freeing
     # it on return is safe: the caching allocator hands it out again only
     # in the order of this stream.
-    part = torch.empty((stacks, n, k), dtype=torch.float32, device=Z.device)
+    part = None
+    if not one:
+        part = torch.empty((stacks, n, k), dtype=torch.float32, device=Z.device)
     with torch.cuda.device(Z.device):
         stream = torch.cuda.current_stream(Z.device).cuda_stream
         kernel.launch(
@@ -153,8 +192,8 @@ def _launch(kernel: CudaKernel, config: TileConfig, Z, operators, shape, scales,
             dd,
             stacks,
             k,
-            config.block_n,
-            part.data_ptr(),
+            block_n,
+            None if part is None else part.data_ptr(),
             out.data_ptr(),
             stream,
         )

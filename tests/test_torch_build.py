@@ -30,11 +30,11 @@ def test_both_attention_sources_include_the_tile_engine(csrc):
 
 def test_b2_includes_the_tile_engine_and_the_fourier_kernels_neither(csrc):
     """B2 takes the tile engine's f32 k-step and the PTX wrappers through it;
-    of the fourier kernels, B4/B5 take the PTX wrappers alone and B6/B7 no
-    csrc header."""
+    the fourier kernels, B4/B5 and B6/B7, take the shared cos and the PTX
+    wrappers."""
     assert build.includes("rbf_pred.cu") == ["rbf_pred.cu", "attn_tile.cuh", "ptx.cuh"]
-    assert build.includes("rff_score.cu") == ["rff_score.cu", "ptx.cuh"]
-    assert build.includes("fastfood.cu") == ["fastfood.cu"]
+    for source in ("rff_score.cu", "fastfood.cu"):
+        assert build.includes(source) == [source, "cos.cuh", "ptx.cuh"]
 
 
 def test_an_edited_header_changes_the_library_path(csrc):
@@ -55,12 +55,22 @@ def test_an_edited_ptx_header_rebuilds_every_tensor_core_kernel(csrc):
         f.write(b"\n// one more line\n")
     changed = {s for s in sources if before[s] != build.library_path(s)}
     assert changed == {
+        "fastfood.cu",
         "flash_attn.cu",
         "maclaurin_attn.cu",
         "quadform.cu",
         "rbf_pred.cu",
         "rff_score.cu",
     }
+
+
+def test_an_edited_cos_header_rebuilds_both_fourier_sources(csrc):
+    sources = sorted(p.name for p in csrc.glob("*.cu"))
+    before = {s: build.library_path(s) for s in sources}
+    with open(csrc / "cos.cuh", "ab") as f:
+        f.write(b"\n// one more line\n")
+    changed = {s for s in sources if before[s] != build.library_path(s)}
+    assert changed == {"fastfood.cu", "rff_score.cu"}
 
 
 def test_nested_includes_are_hashed_and_a_missing_one_is_left_to_nvcc(csrc):
@@ -184,6 +194,49 @@ def test_compiled_bodies_hold_b4_b5_on_the_tensor_cores_without_spills(monkeypat
     assert bodies[q8]["stack_bytes"] == 0
     listing("HMMA.1688.F32.TF32", 72)
     with pytest.raises(chip_smoke.PhaseFailed, match="72 stack/local bytes"):
+        check()
+    listing("FFMA", 0)
+    with pytest.raises(chip_smoke.PhaseFailed, match="holds no tensor-core MMA"):
+        check()
+
+
+def test_compiled_bodies_hold_b6_b7_on_the_tensor_cores_without_spills(monkeypatch):
+    """chip_smoke.py's ``compiled`` check of the fastfood library: every d'
+    instantiation of both kernels must hold a tensor-core MMA (the readout)
+    and no stack or local bytes; the second pass, an add, is not checked."""
+    chip_smoke = _load_chip_smoke()
+    mma_in, simt, spill_free = chip_smoke.TENSOR_CORE_BODIES["fastfood-"]
+    assert (mma_in, simt, spill_free) == ("fastfood_tile", None, True)
+    f32 = "_ZN12_GLOBAL__N_113fastfood_tileILb0ELi1024EEEvPKf"
+    q8 = "_ZN12_GLOBAL__N_113fastfood_tileILb1ELi1024EEEvPKf"
+    second = "_ZN12_GLOBAL__N_117fastfood_finalizeEPKfiiiS1_S1_Pf"
+
+    def listing(q8_op, q8_stack):
+        sass = (
+            f"\t\tFunction : {f32}\n  /*0a30*/ HMMA.1688.F32.TF32 R24, R4, R20, R24 ;\n"
+            f"\t\tFunction : {q8}\n  /*0a30*/ {q8_op} R24, R4, R20, R24 ;\n"
+            f"\t\tFunction : {second}\n  /*0a30*/ FADD R1, R2, R3 ;\n"
+        )
+        usage = "".join(
+            f" Function {n}:\n  REG:{r} STACK:{st} SHARED:0 LOCAL:0 CONSTANT[0]:608\n"
+            for n, r, st in ((f32, 128, 0), (q8, 128, q8_stack), (second, 32, 0))
+        )
+
+        def run(cmd, **kw):
+            out = sass if "-sass" in cmd else usage
+            return type("Done", (), {"stdout": out})()
+
+        monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+
+    def check():
+        return chip_smoke.compiled_bodies(
+            Path("fastfood-x.so"), Path("cuobjdump"), mma_in, simt, spill_free
+        )
+
+    listing("HMMA.1688.F32.TF32", 0)
+    assert set(check()) == {f32, q8}
+    listing("HMMA.1688.F32.TF32", 248)
+    with pytest.raises(chip_smoke.PhaseFailed, match="248 stack/local bytes"):
         check()
     listing("FFMA", 0)
     with pytest.raises(chip_smoke.PhaseFailed, match="holds no tensor-core MMA"):
