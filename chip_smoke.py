@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives four paths: three at the
+source, all started together) and drives five paths: four at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
@@ -27,7 +27,17 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
    of a 1024-token prompt through an f32 and a bf16 KV cache, an int8 KV
    cache and the ``MacState``, held against the matching forward (B9 or
    B8 at f32) or the next wider cache; then 32 greedy tokens from the
-   bf16, int8 and ``MacState`` caches.
+   bf16, int8 and ``MacState`` caches;
+5. the serving runtime (``repro_torch.serve.runtime``), after a check
+   that ``SVMEngine.submit`` returns before the work queued ahead of it
+   ends: path 1's maclaurin f32 and int8 artifacts published as two
+   tenants of one ``Runtime`` and served to 8 client threads in
+   coalesced steps (each request held against its artifact's direct
+   submit, beside the same clients on direct submits), an overload burst
+   shed with retry hints, three engine faults opening the breaker (the
+   degraded requests through B2) and a probe closing it, a drift that
+   ``DriftGuard`` heals (``compile_model`` on the live traffic, a canary,
+   an alias flip), and last a ``torch.profiler`` trace of one step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after. Each kernel is held against its plain PyTorch twin at
@@ -179,6 +189,29 @@ CONS_B, CONS_T, GEN_STEPS = 2, 1024, 32  # f32 decode batch, prompt, generation
 # Decode against the forward: the reference's own tolerance
 # (tests/test_models.py:72-74), elementwise |delta| <= atol + rtol |ref|.
 CONS_RTOL = CONS_ATOL = 2e-2
+
+# Fifth path: the serving runtime. Deferred sync: a DEFER_ROWS-row submit
+# behind ~DEFER_QUEUED_MS of B2 must return to the host before that work
+# ends; DEFER_SUBMITS submits back to back cycle every staging buffer.
+DEFER_ROWS, DEFER_QUEUED_MS, DEFER_REPEATS, DEFER_SUBMITS = 1024, 20.0, 5, 9
+RT_OPTS = dict(min_bucket=32, max_batch=1024)
+RT_WAIT_US = 500.0  # a lone request waits at most this long for company
+RT_CLIENTS, RT_REQUESTS, RT_MAX_ROWS = 8, 40, 8  # clients x requests of 1-8 rows
+RT_TOL = 2e-4  # coalesced against direct: rtol, and atol x max|score|
+RT_QUEUE_ROWS = 256  # the admission bound
+RT_BURST = (4, 40, 8)  # overload: threads x requests x rows, past the bound
+RT_SLOW_STEP_S = 0.02  # the service time the fault injector pins in the burst
+RT_BREAKER = dict(fail_threshold=3, reset_after_s=0.3)
+# Drift: path 1's model scores b alone beyond its envelope (1/(16 gamma^2 msq)
+# is ~2000x its rows' |z|^2 at the paper's gamma), so no family can heal a
+# drift there. The drift act serves its own model at the same width: path
+# 3's 10 Gaussian classes, DRIFT_N_SV SVs with each head's alpha the class
+# indicator less its mean, gamma at DRIFT_GAMMA_SHARE of gamma_max (the
+# envelope just covers the SVs); rows scaled by DRIFT_SCALE leave it. The
+# heal's budget and basis are examples/svm_runtime.py's.
+DRIFT_N_SV, DRIFT_GAMMA_SHARE, DRIFT_SCALE, DRIFT_ROWS = 16384, 0.8, 1.5, 512
+DRIFT_BUDGET = dict(max_err=0.2, metric="mean_abs", relative=True)
+DRIFT_FEATURES, DRIFT_THRESHOLD, DRIFT_AGREEMENT = 4096, 0.25, 0.9
 
 
 class PhaseFailed(RuntimeError):
@@ -612,6 +645,16 @@ def route_sweep(dev, out_path: Path) -> None:
     torch.cuda.empty_cache()
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    ).stdout.strip()
+
+
 def main() -> int:
     import torch
 
@@ -625,12 +668,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--route-sweep"]:
         route_sweep(torch.device("cuda"), Path(sys.argv[2]))
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True,
-        text=True,
-        check=True,
-    ).stdout.strip()
+    if sys.argv[1:2] == ["--submit-deferral"]:
+        from repro_torch.core import families
+        from repro_torch.kernels import build
+        from repro_torch.serve import SVMEngine
+
+        dev = torch.device("cuda")
+        print(card_line(), flush=True)
+        build.build_all(["quadform.cu", "rbf_pred.cu"])
+        svm, X_te, _, _ = smoke_model(dev)
+        engine = SVMEngine(families.maclaurin.compile(svm), svm, device=dev)
+        phase("submit_deferral", **submit_deferral(dev, engine, svm, X_te))
+        return 0
+    card = card_line()
     kernels = run(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -643,14 +693,504 @@ def main() -> int:
     return 0
 
 
+def smoke_model(dev, n_sv: int = N_SV):
+    """The random mnist-width model of paths 1, 2 and 5: (svm, test rows,
+    dataset spec, the generator its ``alpha_y`` was drawn from)."""
+    from repro_torch import convert
+    from repro_torch.data.synthetic import make_dataset
+
+    X_tr, _, X_te, _, spec = make_dataset("mnist", scale=0.3, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    X = X_tr[:n_sv]
+    alpha_y = rng.standard_normal((K, n_sv))
+    alpha_y = (alpha_y - alpha_y.mean(1, keepdims=True)).astype(np.float32)
+    gamma = np.float32(spec.paper_gamma)
+    sv_sq = (X.astype(np.float64) ** 2).sum(1)
+    b = -(alpha_y.astype(np.float64) @ np.exp(-float(gamma) * sv_sq))
+    svm = convert.svm_from_numpy(X, alpha_y, b.astype(np.float32), gamma, device=dev)
+    return svm, X_te, spec, rng
+
+
+def submit_deferral(dev, engine, svm, X_te) -> dict:
+    """Deferred sync, held on the card: the host return of
+    ``engine.submit`` for DEFER_ROWS rows queued behind ~DEFER_QUEUED_MS
+    of kernel B2 (n=256 against the model's SVs), beside that queued work's
+    device time and, as the control, the host return of a blocking copy
+    of the same rows from pageable memory behind the same work. Then
+    DEFER_SUBMITS submits of different rows back to back behind queued
+    work, each result held bit for bit against the same rows submitted
+    with nothing queued (a staging buffer reused while its copy is pending
+    would corrupt one). Median of DEFER_REPEATS for each time."""
+    import torch
+
+    from repro_torch.kernels.rbf_pred import kernel as rp
+
+    Zr = torch.from_numpy(X_te[:256].copy()).to(dev)
+    X, A, g, bias = svm.X, svm.alpha_y, svm.gamma, svm.b
+    one = time_ms(lambda: rp.rbf_scores_cuda(Zr, X, A, g, bias), iters=5)
+    calls = max(1, round(DEFER_QUEUED_MS / one))
+    Zs = np.ascontiguousarray(X_te[:DEFER_ROWS])
+    engine.submit(Zs).labels  # warm: the bucket's config, staging buffers
+
+    def behind_queued(fn):
+        """(host ms of fn(), device ms of the work queued before it)."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        mid = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            rp.rbf_scores_cuda(Zr, X, A, g, bias)
+        mid.record()
+        t0 = time.perf_counter()
+        out = fn()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return host, start.elapsed_time(mid), out
+
+    submit, queued, pageable = [], [], []
+    for _ in range(DEFER_REPEATS):
+        h, q, r = behind_queued(lambda: engine.submit(Zs))
+        r.labels
+        submit.append(h)
+        queued.append(q)
+        pageable.append(behind_queued(lambda: torch.from_numpy(Zs).to(dev))[0])
+    sets = [X_te[i : i + DEFER_ROWS].copy() for i in range(DEFER_SUBMITS)]
+    want = [engine.submit(Zi).values for Zi in sets]
+    got = behind_queued(lambda: [engine.submit(Zi) for Zi in sets])[2]
+    equal = all(np.array_equal(r.values, w) for r, w in zip(got, want))
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    return dict(
+        rows=DEFER_ROWS,
+        queued_b2_launches=calls,
+        submit_host_ms=med(submit),
+        device_ms=med(queued),
+        pageable_copy_host_ms=med(pageable),
+        submits_behind_queue=DEFER_SUBMITS,
+        results_equal_unqueued=equal,
+    )
+
+
+def run_threads(target, args) -> None:
+    """``target(*a)`` on one thread per entry of ``args``; fails the phase
+    if any raised or is still running after 300 s."""
+    import threading
+
+    errors = []
+
+    def body(*a):
+        try:
+            target(*a)
+        except BaseException as e:  # surfaced after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=a) for a in args]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+    if errors:
+        raise errors[0]
+
+
+def read(result) -> tuple:
+    """(values, valid, labels) of an engine or runtime result, on the host."""
+    return result.values, result.valid, result.labels
+
+
+def nearest_rank(xs, q: float) -> float:
+    """The q-th percentile of the sorted ``xs``, nearest rank (as the
+    runtime's telemetry takes it)."""
+    return xs[min(len(xs) - 1, max(0, int(np.ceil(q / 100 * len(xs))) - 1))]
+
+
+def drift_model(dev):
+    """The drift act's model and rows (see DRIFT_*): (svm, in-distribution
+    rows, the same rows scaled out of the envelope)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core.bounds import gamma_max
+
+    rng = np.random.default_rng(SEED + 3)
+    mus = rng.standard_normal((K, 780)) * 3
+    y = np.arange(DRIFT_N_SV + DRIFT_ROWS) % K
+    X_all = (rng.standard_normal((len(y), 780)) + mus[y]).astype(np.float32)
+    X, Z = X_all[:DRIFT_N_SV], X_all[DRIFT_N_SV:]
+    ay = (y[None, :DRIFT_N_SV] == np.arange(K)[:, None]) - 1.0 / K
+    ay = (ay / (DRIFT_N_SV / K)).astype(np.float32)
+    gamma = DRIFT_GAMMA_SHARE * float(gamma_max(torch.from_numpy(X)))
+    svm = convert.svm_from_numpy(X, ay, np.zeros(K, np.float32), gamma, device=dev)
+    return svm, Z, (Z * DRIFT_SCALE).astype(np.float32)
+
+
+def fifth_path(dev, svm, mac, X_te, requests, exact):
+    """The serving runtime (``repro_torch.serve.runtime``) on the card, in
+    the acts of ``examples/svm_runtime.py``: deferred sync held on the
+    card; publish and coalesce (two tenants, 8 clients, each request held
+    against its artifact's direct ``SVMEngine.submit``); overload; the
+    breaker degrading to B2; drift healed by ``DriftGuard``; a profile.
+
+    ``mac`` is path 1's f32 maclaurin artifact, ``requests`` its
+    (rows, pushed-out mask) list, ``exact`` its float64 reference. Returns
+    every kernel's launches on this path (read after the deferred-sync
+    check, which launches B2 directly) and the path's numbers.
+    """
+    import json as _json
+    import threading
+
+    import torch
+
+    from repro_torch.core.families import Budget, maclaurin
+    from repro_torch.kernels import build
+    from repro_torch.serve import (
+        DriftGuard,
+        FaultInjector,
+        PublishSpec,
+        Runtime,
+        RuntimeOverloaded,
+        SVMEngine,
+    )
+    from repro_torch.serve.runtime import ENGINE_STEP, InjectedFault
+
+    seconds, out = {}, {}
+    t0 = time.perf_counter()
+    arts = {"mnist-f32": mac, "mnist-int8": maclaurin.quantize_quadform_artifact(mac)}
+    direct = {a: SVMEngine(art, svm, device=dev, **RT_OPTS) for a, art in arts.items()}
+    for engine in direct.values():
+        engine.warmup()
+
+    # ----------------------------------------------- deferred sync (F4)
+    defer = submit_deferral(dev, direct["mnist-f32"], svm, X_te)
+    phase("submit_deferral", **defer)
+    check(defer["results_equal_unqueued"], "a submit behind queued work changed")
+    check(
+        defer["submit_host_ms"] < defer["device_ms"],
+        f"submit waited for the work queued ahead of it: {defer}",
+    )
+    out["submit_deferral"] = defer
+    seconds["submit_deferral"] = time.perf_counter() - t0
+
+    build.reset_counts()
+    faults = FaultInjector(seed=SEED, slow_step_s=RT_SLOW_STEP_S)
+    rt = Runtime(
+        engine_opts=dict(device=dev, **RT_OPTS),
+        max_wait_us=RT_WAIT_US,
+        max_queue_rows=RT_QUEUE_ROWS,
+        breaker=dict(RT_BREAKER),
+        fault_injector=faults,
+    )
+    try:
+        # ------------------------------------- act 1: publish and coalesce
+        t0 = time.perf_counter()
+        cpu_arts = {a: art.to("cpu") for a, art in arts.items()}  # engines copy
+        digests = {
+            a: rt.publish(a, art, PublishSpec(exact=svm)) for a, art in cpu_arts.items()
+        }
+        again = rt.publish("mnist-f32", cpu_arts["mnist-f32"], PublishSpec(exact=svm))
+        check(again == digests["mnist-f32"], "publishing the same artifact again")
+        check(len(set(digests.values())) == 2, "the two tenants share a digest")
+        check(digests["mnist-f32"] == mac.digest(), "the registry's digest")
+        for a in arts:
+            rt.warmup(a)
+        engines = {a: rt.registry.get_engine(a)[1] for a in arts}
+        configs = {a: e.stats.compiled_steps for a, e in engines.items()}
+
+        pool = np.concatenate([Z for Z, _ in requests])
+        rng = np.random.default_rng(SEED + 5)
+        work = [
+            [
+                (
+                    ("mnist-f32", "mnist-int8")[int(rng.integers(0, 2))],
+                    rng.choice(len(pool), size=int(rng.integers(1, RT_MAX_ROWS + 1))),
+                )
+                for _ in range(RT_REQUESTS)
+            ]
+            for _ in range(RT_CLIENTS)
+        ]
+        want = [[read(direct[a].submit(pool[i])) for a, i in w] for w in work]
+
+        def clients(fn):
+            """Every client's requests through ``fn(alias, rows)``, one at a
+            time per client: (results, per-request host ms, wall seconds)."""
+            got = [[None] * RT_REQUESTS for _ in range(RT_CLIENTS)]
+            lat, lock = [], threading.Lock()
+
+            def client(c):
+                for k, (a, idx) in enumerate(work[c]):
+                    t = time.perf_counter()
+                    got[c][k] = read(fn(a, pool[idx]))
+                    with lock:
+                        lat.append((time.perf_counter() - t) * 1e3)
+
+            t = time.perf_counter()
+            run_threads(client, [(c,) for c in range(RT_CLIENTS)])
+            return got, sorted(lat), time.perf_counter() - t
+
+        st0 = {a: rt.stats(a) for a in arts}
+        got, lat, wall = clients(lambda a, Z: rt.submit(a, Z).result(timeout=60))
+        _, lat_direct, wall_direct = clients(lambda a, Z: direct[a].submit(Z))
+        st1 = {a: rt.stats(a) for a in arts}
+        rows = sum(len(i) for w in work for _, i in w)
+        worst, far_rows, far_labels = 0.0, [], []
+        for c in range(RT_CLIENTS):
+            for k, (a, idx) in enumerate(work[c]):
+                (v, ok, lab), (v0, ok0, lab0) = got[c][k], want[c][k]
+                scale = max(1.0, float(np.abs(v0).max()))
+                tol = RT_TOL * scale + RT_TOL * np.abs(v0)
+                ratio = float((np.abs(v - v0) / tol).max())
+                worst = max(worst, ratio)
+                check(ratio <= 1.0, f"client {c} request {k}: values, x{ratio} tol")
+                check(bool((lab == lab0).all()), f"client {c} request {k}: labels")
+                check(bool((ok == ok0).all()), f"client {c} request {k}: valid")
+                far_rows.append(pool[idx][~ok])
+                far_labels.append(lab[~ok])
+        far_rows, far_labels = np.concatenate(far_rows), np.concatenate(far_labels)
+        check(len(far_rows) > 0, "no request carried a row out of the envelope")
+        far_agree = float((far_labels == exact(far_rows)[0].argmax(-1)).mean())
+        check(far_agree == 1.0, f"fallback rows' labels against float64: {far_agree}")
+        steps = sum(st1[a]["flushes"] - st0[a]["flushes"] for a in arts)
+        reqs = sum(st1[a]["requests"] - st0[a]["requests"] for a in arts)
+        recompiles = sum(engines[a].stats.compiled_steps - configs[a] for a in arts)
+        act1 = dict(
+            digests={a: d[:16] for a, d in digests.items()},
+            requests=reqs,
+            rows=rows,
+            fallback_rows=int(len(far_rows)),
+            fallback_label_agree=far_agree,
+            engine_steps=steps,
+            coalescing_factor=reqs / max(1, steps),
+            p50_ms=nearest_rank(lat, 50),
+            p99_ms=nearest_rank(lat, 99),
+            rows_per_s=rows / wall,
+            direct_p50_ms=nearest_rank(lat_direct, 50),
+            direct_p99_ms=nearest_rank(lat_direct, 99),
+            direct_rows_per_s=rows / wall_direct,
+            max_err_over_tol=worst,
+            steady_state_recompiles=recompiles,
+        )
+        # where a request's time goes, from the runtime's own spans: time
+        # queued, the flush's host dispatch, dispatch start to the first read
+        tracer = rt.obs.tracer
+        for name in ("request.queue_wait", "engine.step", "flush.sync"):
+            ms = sorted(
+                (sp["t_end"] - sp["t_start"]) * 1e3
+                for d in digests.values()
+                for sp in tracer.spans(d[:12], name)
+            )
+            act1[f"{name}_p50_ms"] = nearest_rank(ms, 50)
+            act1[f"{name}_p99_ms"] = nearest_rank(ms, 99)
+        phase("runtime_coalesce", **act1)
+        check(reqs == RT_CLIENTS * RT_REQUESTS, f"requests admitted: {reqs}")
+        check(recompiles == 0, f"{recompiles} new bucket configs after warm-up")
+        out["coalesce"] = act1
+
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        rt.registry.evict("mnist-int8")
+        del engines["mnist-int8"]
+        torch.cuda.synchronize()
+        freed = held - torch.cuda.memory_allocated()
+        phase(
+            "runtime_evict",
+            memory_allocated_before=held,
+            memory_allocated_after=held - freed,
+            artifact_bytes=arts["mnist-int8"].nbytes(),
+        )
+        check(freed > 0, "evicting an engine released no card memory")
+        seconds["coalesce"] = time.perf_counter() - t0
+
+        # ------------------------------------------------- act 2: overload
+        t0 = time.perf_counter()
+        n_threads, n_req, n_rows = RT_BURST
+        faults.slow_next(ENGINE_STEP, 1000)  # pin each flush's service time
+        shed, admitted, lock = [], [], threading.Lock()
+        burst = [
+            [pool[rng.choice(len(pool), size=n_rows)] for _ in range(n_req)]
+            for _ in range(n_threads)
+        ]
+
+        def bursty(batches):
+            for Z in batches:
+                try:
+                    f = rt.submit("mnist-f32", Z)
+                except RuntimeOverloaded as e:
+                    with lock:
+                        shed.append(e.retry_after_s)
+                else:
+                    with lock:
+                        admitted.append(f)
+
+        st0 = rt.stats("mnist-f32")
+        run_threads(bursty, [(b,) for b in burst])
+        for f in admitted:
+            f.result(timeout=60).labels
+        faults.clear_scripts(ENGINE_STEP)
+        st = rt.stats("mnist-f32")
+        act2 = dict(
+            submitted=n_threads * n_req,
+            admitted=len(admitted),
+            shed=len(shed),
+            telemetry_shed=st["shed_requests"] - st0["shed_requests"],
+            telemetry_admitted=st["requests"] - st0["requests"],
+            retry_after_ms_min=1e3 * min(shed, default=0.0),
+            retry_after_ms_max=1e3 * max(shed, default=0.0),
+            queue_rows=st["queue_rows"],
+            queue_high_water_rows=st["max_queue_rows"],
+        )
+        phase("runtime_overload", **act2)
+        check(len(shed) > 0, "the burst shed nothing")
+        check(min(shed) > 0.0, "a shed without a retry_after")
+        check(len(shed) + len(admitted) == act2["submitted"], "admitted + shed")
+        check(act2["telemetry_shed"] == len(shed), "telemetry's shed count")
+        check(act2["telemetry_admitted"] == len(admitted), "telemetry's admitted")
+        check(st["queue_rows"] == 0, "the queue did not drain")
+        out["overload"] = act2
+        seconds["overload"] = time.perf_counter() - t0
+
+        # -------------------------------------------------- act 3: breaker
+        t0 = time.perf_counter()
+        Zb = pool[rng.choice(len(pool), size=16, replace=False)]
+        faults.fail_next(ENGINE_STEP, RT_BREAKER["fail_threshold"])
+        failures = 0
+        for _ in range(RT_BREAKER["fail_threshold"]):
+            try:
+                rt.predict("mnist-f32", Zb)
+            except InjectedFault:
+                failures += 1
+        opened = rt.stats("mnist-f32")["breaker"]
+        b2 = build.counts()["rbf_scores"]
+        res = rt.submit("mnist-f32", Zb).result(timeout=60)
+        vals, valid, labels = res.values, res.valid, res.labels
+        b2 = build.counts()["rbf_scores"] - b2
+        ref, tol = exact(Zb)
+        top2 = np.sort(ref, -1)[:, -2:]
+        decided = top2[:, 1] - top2[:, 0] > 2 * tol
+        time.sleep(RT_BREAKER["reset_after_s"] + 0.05)
+        rt.predict("mnist-f32", Zb)  # the half-open probe
+        st = rt.stats("mnist-f32")
+        done = (
+            st["served_requests"]
+            + st["failed_requests"]
+            + st["deadline_timeouts"]
+            + st["closed_requests"]
+        )
+        act3 = dict(
+            failures=failures,
+            state_after_faults=opened["state"],
+            trips=opened["trips"],
+            degraded_rows=st["breaker"]["degraded_rows"],
+            degraded_b2_launches=b2,
+            degraded_max_abs_err=float(np.abs(vals - ref).max()),
+            degraded_tol=tol,
+            degraded_label_agree=float((labels == ref.argmax(-1))[decided].mean()),
+            degraded_rows_tied_in_fp32=int((~decided).sum()),
+            state_after_probe=st["breaker"]["state"],
+            probes=st["breaker"]["probes"],
+            admitted=st["requests"],
+            served_failed_expired_closed=done,
+        )
+        phase("runtime_breaker", **act3)
+        check(failures == RT_BREAKER["fail_threshold"], "injected faults")
+        check(opened["state"] == "open", "the breaker did not open")
+        check(b2 > 0, "the degraded request did not launch B2")
+        check(not valid.any(), "a degraded row claims the fast path")
+        check(act3["degraded_max_abs_err"] <= tol, "degraded values against float64")
+        check(act3["degraded_label_agree"] == 1.0, "degraded labels against float64")
+        check(st["breaker"]["state"] == "closed", "the probe did not close the breaker")
+        check(done == st["requests"], f"served + failed + expired + closed: {act3}")
+        out["breaker"] = act3
+        seconds["breaker"] = time.perf_counter() - t0
+
+        # ---------------------------------------------------- act 4: drift
+        t0 = time.perf_counter()
+        dsvm, Z_in, Z_drift = drift_model(dev)
+        rt.publish("ovr", maclaurin.compile(dsvm).to("cpu"), PublishSpec(exact=dsvm))
+        guard = DriftGuard(
+            rt,
+            "ovr",
+            exact=dsvm,
+            budget=Budget(**DRIFT_BUDGET),
+            threshold=DRIFT_THRESHOLD,
+            min_rows=64,
+            min_agreement=DRIFT_AGREEMENT,
+            seed=SEED,
+            compile_opts={"family_opts": {"fourier": {"num_features": DRIFT_FEATURES}}},
+        ).attach()
+        old = rt.registry.resolve("ovr")
+        for i in range(0, len(Z_in), 8):
+            rt.submit("ovr", Z_in[i : i + 8]).result(timeout=60).labels
+        calm = guard.fallback_rate()
+        check(not guard.check()["triggered"], f"in-distribution traffic: {calm}")
+        for i in range(0, len(Z_drift), 8):
+            rt.submit("ovr", Z_drift[i : i + 8]).result(timeout=60).labels
+        drifted = guard.fallback_rate()
+        before = build.counts()
+        t_heal = time.perf_counter()
+        verdict = guard.check()
+        heal_s = time.perf_counter() - t_heal
+        heal_launches = {k: v - before[k] for k, v in build.counts().items()}
+        for i in range(0, len(Z_drift), 8):
+            rt.submit("ovr", Z_drift[i : i + 8]).result(timeout=60).labels
+        healed = guard.fallback_rate()
+        act4 = dict(
+            model=f"{K} Gaussian classes at d=780, n_sv={DRIFT_N_SV}, class-mean alpha",
+            window_in_distribution=calm,
+            window_drifted=drifted,
+            healed=verdict.get("healed"),
+            family=verdict.get("family"),
+            dtype=verdict.get("dtype"),
+            agreement=verdict.get("agreement"),
+            canary_rows=verdict.get("canary_rows"),
+            reason=verdict.get("reason"),
+            heal_s=heal_s,
+            heal_launches=heal_launches,
+            old_digest=old[:16],
+            new_digest=rt.registry.resolve("ovr")[:16],
+            window_after_flip=healed,
+        )
+        phase("runtime_drift", **act4)
+        check(drifted["rate"] > DRIFT_THRESHOLD, f"the drift did not trip: {drifted}")
+        check(bool(verdict.get("healed")), f"the heal failed: {verdict}")
+        check(verdict["agreement"] >= DRIFT_AGREEMENT, "canary agreement")
+        check(rt.registry.resolve("ovr") != old, "the alias did not flip")
+        check(healed["rows"] > 0 and healed["rate"] == 0.0, f"after the flip: {healed}")
+        for name in ("quadform_heads", "quadform_heads_q8", "rbf_scores"):
+            check(heal_launches[name] > 0, f"the heal did not launch {name}")
+        check(heal_launches["rff_score"] + heal_launches["rff_score_q8"] > 0, "B4/B5")
+        out["drift"] = act4
+        seconds["drift"] = time.perf_counter() - t0
+
+        # ------------------------------------------ act 5: profile, last
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "step.json"
+            rt.profile("mnist-f32", pool[:64], trace)
+            events = _json.loads(trace.read_text())["traceEvents"]
+            trace_bytes = trace.stat().st_size
+        names = [e.get("name", "") for e in events]
+        steps = sorted({n for n in names if n.startswith("svm_engine.step/")})
+        b1 = sorted(set(re.findall(r"quadform_tf32<float[^>]*>", " ".join(names))))
+        phase("runtime_profile", bytes=trace_bytes, events=len(events), steps=steps, b1=b1)
+        check(any(n.startswith("svm_engine.step/maclaurin/") for n in steps), "the step")
+        check(len(b1) > 0, "no launch of B1's symbol in the trace")
+        seconds["profile"] = time.perf_counter() - t0
+    finally:
+        rt.close()
+    launches = build.counts()
+    phase("fifth_path_launches", **launches)
+    for name in ("quadform_heads", "quadform_heads_q8", "rbf_scores"):
+        check(launches[name] > 0, f"{name} never launched on the fifth path")
+    phase("fifth_path_seconds", **seconds)
+    return launches, out
+
+
 def run(dev) -> list[dict]:
     """Every phase on ``dev``; returns the ``kernels`` entries."""
     import torch
 
-    from repro_torch import convert
     from repro_torch.core import families
     from repro_torch.core.families import CompiledArtifact
-    from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import build
     from repro_torch.kernels.quadform import kernel as qf
     from repro_torch.kernels.rbf_pred import kernel as rp
@@ -673,16 +1213,8 @@ def run(dev) -> list[dict]:
     # ------------------------------------------------------------ main path
     seconds = {}
     t_phase = time.perf_counter()
-    X_tr, _, X_te, _, spec = make_dataset("mnist", scale=0.3, seed=SEED)
-    rng = np.random.default_rng(SEED)
-    X = X_tr[:N_SV]
-    alpha_y = rng.standard_normal((K, N_SV))
-    alpha_y = (alpha_y - alpha_y.mean(1, keepdims=True)).astype(np.float32)
-    gamma = np.float32(spec.paper_gamma)
-    sv_sq = (X.astype(np.float64) ** 2).sum(1)
-    b = -(alpha_y.astype(np.float64) @ np.exp(-float(gamma) * sv_sq))
-    b = b.astype(np.float32)
-    svm = convert.svm_from_numpy(X, alpha_y, b, gamma, device=dev)
+    svm, X_te, spec, rng = smoke_model(dev)
+    gamma, b = np.float32(spec.paper_gamma), svm.b.cpu().numpy()
 
     t0 = time.perf_counter()
     art = families.maclaurin.compile(svm)
@@ -917,8 +1449,11 @@ def run(dev) -> list[dict]:
     kernels_ff, launches3 = third_path(dev)
     # =================================================== fourth path (B8, B9)
     kernels_lm, launches4 = fourth_path(dev)
+    # ================================ fifth path (the runtime; a profile last)
+    launches5, _ = fifth_path(dev, svm, loaded, X_te, requests, exact)
     per_path = {
-        n: [launches[n], launches2[n], launches3[n], launches4[n]] for n in launches4
+        n: [launches[n], launches2[n], launches3[n], launches4[n], launches5[n]]
+        for n in launches4
     }
 
     kernels = [

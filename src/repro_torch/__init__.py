@@ -1,7 +1,7 @@
 """``repro_torch`` — the PyTorch/CUDA port of ``repro``.
 
 It mirrors ``repro``'s layout module for module, so the counterpart of
-``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Four
+``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Five
 paths run on a CUDA card through nine kernels written by hand for Hopper
 (``csrc/*.cu``, B1-B9):
 
@@ -17,10 +17,14 @@ paths run on a CUDA card through nine kernels written by hand for Hopper
 4. the LM side (``configs``, ``models``, ``serve.decode_step``): prefill
    and decode of the dense decoder family, with flash attention (B9
    ``flash_attention``) and the paper's collapse applied to attention
-   (B8 ``maclaurin_attention``; decode from the O(d^2) ``MacState``).
+   (B8 ``maclaurin_attention``; decode from the O(d^2) ``MacState``);
+5. the multi-tenant serving runtime (``serve.runtime``: registry,
+   coalescing, admission control, the circuit breaker degrading to B2,
+   the drift guard recompiling through ``compile_model``) in front of
+   ``SVMEngine``.
 
 On CPU tensors every kernel wrapper computes with its plain PyTorch twin
-instead. Entry points (``SVMEngine``, ``CompiledArtifact.load``,
+instead. Entry points (``SVMEngine``, ``Runtime``, ``CompiledArtifact.load``,
 ``convert.*``, ``models.transformer.init_params`` and ``init_cache``)
 default to ``torch.device("cuda")`` and raise when no card is present,
 unless the caller passes ``device="cpu"``.

@@ -26,6 +26,8 @@ the tuning registry.
 
 from __future__ import annotations
 
+import contextlib
+
 from repro_torch.kernels.common import TileConfig, tuning
 from repro_torch.kernels.fwht.kernel import (
     fastfood_score_cuda,
@@ -63,7 +65,30 @@ __all__ = [
     "rff_score_q8",
     "rff_score_q8_torch",
     "rff_score_torch",
+    "set_profile_scope",
 ]
+
+# Profiling seam: ``repro_torch.serve.runtime.obs.profile`` installs a
+# ``name -> context manager`` factory (``torch.profiler.record_function``)
+# here, so the dispatch seams below show up as named ranges in a profiler
+# trace. A callback keeps the layering: ``core`` never imports ``serve``.
+# Unset, ``_scope`` is a ``nullcontext``.
+_profile_scope = None
+
+
+def set_profile_scope(factory) -> None:
+    """Install (or clear, with None) a ``name -> context manager`` factory
+    wrapped around the top-level dispatch seams (``family_scores``,
+    ``rbf_scores``)."""
+    global _profile_scope
+    _profile_scope = factory
+
+
+def _scope(name: str):
+    factory = _profile_scope
+    if factory is None:
+        return contextlib.nullcontext()
+    return factory(name)
 
 
 def quadform_heads(Z, M_all, V, c, b, gamma, msq, *, config: TileConfig | None = None):
@@ -226,7 +251,8 @@ def rbf_scores(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None):
             "rbf_pred",
             tuning.shape_key(d=Z.shape[1], m=X.shape[0], n=tuning.bucket(Z.shape[0])),
         )
-    return rbf_scores_cuda(Z, X, alpha_y, gamma, b, config=config)
+    with _scope("repro.backend/rbf_scores"):
+        return rbf_scores_cuda(Z, X, alpha_y, gamma, b, config=config)
 
 
 def family_scores(artifact, Z, *, config: TileConfig | None = None):
@@ -236,4 +262,5 @@ def family_scores(artifact, Z, *, config: TileConfig | None = None):
     """
     from repro_torch.core import families
 
-    return families.score_artifact(artifact, Z, config=config)
+    with _scope(f"repro.backend/family_scores/{artifact.family}"):
+        return families.score_artifact(artifact, Z, config=config)

@@ -20,7 +20,10 @@ Deferred synchronization
   ``submit`` returns an ``EngineResult`` holding device tensors; nothing
   waits for the card until the caller reads ``.values`` / ``.labels`` /
   ``.valid``, and then each result makes one device-to-host copy (scores,
-  validity and labels travel packed in one tensor).
+  validity and labels travel packed in one tensor). On the card a bucket
+  is staged through a ring of pinned host buffers and copied with
+  ``non_blocking=True``: a copy from pageable memory would wait for
+  every step queued before it (``_PinnedStaging``).
 
 Exact fallback
   Rows marked invalid are re-scored with the exact expansion over
@@ -34,6 +37,7 @@ ROADMAP queue A9.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 
@@ -46,6 +50,30 @@ from repro_torch.core.families import CompiledArtifact
 from repro_torch.core.maclaurin import ApproxModel
 from repro_torch.core.rbf import SVMModel
 from repro_torch.kernels.common import TileConfig, tuning
+
+
+# Profiling seam: ``repro_torch.serve.runtime.obs.profile`` installs a
+# ``name -> context manager`` factory (``torch.profiler.record_function``)
+# here, so every engine step is a named range in a profiler trace. The
+# engine never imports ``obs``; unset, a step pays one ``None`` check.
+_profile_annotation = None
+
+
+def set_profile_annotation(factory) -> None:
+    """Install (or clear, with None) a ``name -> context manager`` factory
+    wrapped around every engine step dispatch."""
+    global _profile_annotation
+    _profile_annotation = factory
+
+
+def _annotate(name: str):
+    factory = _profile_annotation
+    if factory is None:
+        return contextlib.nullcontext()
+    return factory(name)
+
+
+STAGING_SLOTS = 4  # pinned host buffers a CUDA engine stages buckets through
 
 
 def bucket_size(n: int, min_bucket: int = 32, max_batch: int = 8192) -> int:
@@ -109,6 +137,14 @@ class EngineStats:
                 "bucket_hits": dict(self.bucket_hits),
             }
 
+    @property
+    def fallback_rate(self) -> float:
+        return self.fallback_instances / max(1, self.instances)
+
+    @property
+    def padding_overhead(self) -> float:
+        return self.padded_instances / max(1, self.instances)
+
 
 class EngineResult:
     """Device-resident scores for one submitted batch; host sync deferred.
@@ -124,6 +160,9 @@ class EngineResult:
         self._event = event  # CUDA event after the last chunk, or None
         self._done = None
         self._sync = threading.Lock()
+        # fires once with the finalized (values, valid, labels): the
+        # runtime's scheduler records latency and per-row validity here
+        self.on_materialize = None
 
     def block_until_ready(self) -> "EngineResult":
         if self._event is not None:
@@ -133,7 +172,9 @@ class EngineResult:
     def _materialize(self):
         with self._sync:
             if self._done is None:
-                self._done = self._engine._finalize(self._Z, self._chunks)
+                self._done = self._engine._finalize(self._Z, self._chunks, self._event)
+                if self.on_materialize is not None:
+                    self.on_materialize(self._done)
         return self._done
 
     def split(self, sizes) -> list["SliceResult"]:
@@ -195,6 +236,49 @@ class SliceResult:
         return self._view(2)
 
 
+class _PinnedStaging:
+    """The pinned host buffers a CUDA engine stages each bucket through.
+
+    A host-to-device copy from pageable memory is synchronous: PyTorch
+    drains the stream before it returns, so ``submit`` would wait for every
+    step queued ahead of it. From pinned memory the copy is queued like a
+    kernel (``non_blocking=True``) and ``submit`` returns at once. A buffer
+    is written again only after the event recorded behind its last copy
+    has passed, so a pending copy never reads the rows of a later batch;
+    with ``STAGING_SLOTS`` buffers the host waits only when it runs that
+    many buckets ahead of the card. A buffer grows to the largest bucket
+    staged through it.
+    """
+
+    def __init__(self, device: torch.device, d: int):
+        self.device = device
+        self.d = d
+        self._slots = [[None, None] for _ in range(STAGING_SLOTS)]  # buffer, event
+        self._next = 0
+        self._lock = threading.Lock()  # the slot stays ours until its copy is queued
+
+    def put(self, rows: np.ndarray, bucket: int) -> torch.Tensor:
+        """``rows`` zero-padded to ``bucket`` rows, on the device."""
+        m = rows.shape[0]
+        with self._lock:
+            slot = self._slots[self._next]
+            self._next = (self._next + 1) % STAGING_SLOTS
+            buf, event = slot
+            if event is not None:
+                event.synchronize()  # its last copy has read the buffer
+            if buf is None or buf.shape[0] < bucket:
+                buf = slot[0] = torch.empty(
+                    (bucket, self.d), dtype=torch.float32, pin_memory=True
+                )
+            host = buf[:bucket].numpy()
+            host[:m] = rows
+            host[m:] = 0.0  # host-side pad
+            out = buf[:bucket].to(self.device, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(torch.cuda.current_stream(self.device))
+        return out
+
+
 class SVMEngine:
     def __init__(
         self,
@@ -239,6 +323,9 @@ class SVMEngine:
         self.bucket_configs: dict[int, TileConfig] = {}
         self.stats = EngineStats()
         self._config_lock = threading.Lock()  # guards bucket_configs
+        self._staging = (
+            _PinnedStaging(self.device, self.d) if self.device.type == "cuda" else None
+        )
 
         if exact is not None:
             ay = exact.alpha_y.to(self.device, torch.float32)
@@ -295,7 +382,7 @@ class SVMEngine:
         scores = self._slow(Zp)
         return self._pack(scores, torch.zeros(Zp.shape[0], device=Zp.device))
 
-    def _run(self, Z, step) -> tuple[np.ndarray, list, object]:
+    def _run(self, Z, step, name: str) -> tuple[np.ndarray, list, object]:
         Z = np.asarray(Z, dtype=np.float32)
         if Z.ndim != 2 or Z.shape[1] != self.d:
             raise ValueError(f"expected (n, {self.d}) batch, got {Z.shape}")
@@ -304,10 +391,14 @@ class SVMEngine:
             rows = Z[start : start + self.max_batch]
             m = rows.shape[0]
             bkt = bucket_size(m, self.min_bucket, self.max_batch)
-            buf = np.zeros((bkt, self.d), dtype=np.float32)
-            buf[:m] = rows  # host-side pad
-            Zp = torch.from_numpy(buf).to(self.device)
-            chunks.append((step(Zp), m))
+            with _annotate(f"{name}/b{bkt}"):
+                if self._staging is not None:
+                    Zp = self._staging.put(rows, bkt)
+                else:
+                    buf = np.zeros((bkt, self.d), dtype=np.float32)
+                    buf[:m] = rows  # host-side pad
+                    Zp = torch.from_numpy(buf).to(self.device)
+                chunks.append((step(Zp), m))
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -316,9 +407,14 @@ class SVMEngine:
 
     def submit(self, Z) -> EngineResult:
         """Enqueue one batch; returns without waiting for the card."""
-        Z, chunks, event = self._run(Z, self._step)
+        Z, chunks, event = self._run(Z, self._step, f"svm_engine.step/{self.family}")
         self.stats.record_batch(Z.shape[0], [(p.shape[0], m) for p, m in chunks])
         return EngineResult(self, Z if self.exact is not None else None, chunks, event)
+
+    @property
+    def exact_available(self) -> bool:
+        """True when an exact model was given (``submit_exact`` works)."""
+        return self.exact is not None
 
     def submit_exact(self, Z) -> EngineResult:
         """Score ``Z`` entirely through the exact path (kernel B2).
@@ -328,7 +424,7 @@ class SVMEngine:
         """
         if self.exact is None:
             raise RuntimeError("submit_exact needs an exact model (none given)")
-        Z, chunks, event = self._run(Z, self._slow_step)
+        Z, chunks, event = self._run(Z, self._slow_step, "svm_engine.step_exact")
         self.stats.record_degraded(Z.shape[0])
         return EngineResult(self, None, chunks, event)
 
@@ -374,10 +470,14 @@ class SVMEngine:
 
     # ----------------------------------------------------------- materialize
 
-    def _finalize(self, Z: np.ndarray | None, chunks):
+    def _finalize(self, Z: np.ndarray | None, chunks, event=None):
         """One device-to-host copy per result: concat chunks, slice the
-        padding, patch bound-violating rows through the exact path."""
+        padding, patch bound-violating rows through the exact path. The
+        reading thread's stream first waits on the result's ``event``, so
+        a result is never read ahead of the stream that wrote it."""
         k = self.num_heads
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
         packed = torch.cat([p[:m] for p, m in chunks]).cpu().numpy()
         scores = np.ascontiguousarray(packed[:, :k])
         valid = packed[:, k] > 0.5

@@ -17,7 +17,13 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.quadform import kernel as qf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.serve import SVMEngine  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    ModelNotFound,
+    PublishSpec,
+    Runtime,
+    SVMEngine,
+)
+from repro_torch.serve.runtime import registry as registry_mod  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -66,6 +72,39 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.svm_from_numpy(np.zeros((2, 2)), np.zeros(2), 0.0, 1.0)
     assert CompiledArtifact.load(path, device="cpu").digest() == art.digest()
+
+
+def test_runtime_needs_a_card_unless_told_cpu(monkeypatch, tmp_path):
+    """With no ``device`` in ``engine_opts`` the runtime serves on the card:
+    publishing or loading raises where there is none, and no engine is
+    built on the CPU instead. Named, the CPU serves."""
+    art, svm = _artifact()
+    path = art.save(str(tmp_path / "a.npz"))
+    built = []
+    real = registry_mod.SVMEngine
+    monkeypatch.setattr(
+        registry_mod, "SVMEngine", lambda *a, **k: built.append(k) or real(*a, **k)
+    )
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with Runtime(engine_opts=dict(min_bucket=8, max_batch=64)) as rt:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rt.publish("m", art, PublishSpec(exact=svm))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rt.registry.add_file(path)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rt.load_directory(str(tmp_path))
+        with Runtime(engine_opts=dict(device="cuda")) as named:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                named.publish("m", art)
+        with pytest.raises(ModelNotFound):  # nothing was registered
+            rt.submit("m", np.zeros((1, 4), np.float32))
+    assert built == []
+    with Runtime(engine_opts=dict(device="cpu", min_bucket=8, max_batch=64)) as rt:
+        rt.publish("m", art, PublishSpec(exact=svm))
+        values, valid = rt.predict("m", np.full((2, 4), 30.0, np.float32))
+        assert values.shape == (2,) and not valid.any()
+        assert rt.registry.get_engine("m")[1].device.type == "cpu"
+    assert [k["device"] for k in built] == ["cpu"]
 
 
 def test_cpu_tensors_never_reach_the_build(monkeypatch):
