@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives five paths: four at the
+source, all started together) and drives six paths: five at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
@@ -37,10 +37,22 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
    shed with retry hints, three engine faults opening the breaker (the
    degraded requests through B2) and a probe closing it, a drift that
    ``DriftGuard`` heals (``compile_model`` on the live traffic, a canary,
-   an alias flip), and last a ``torch.profiler`` trace of one step.
+   an alias flip), and a ``torch.profiler`` trace of one step, taken at
+   the end of the script (the profiler slows every later launch of its
+   process);
+6. the HTTP front door (``repro_torch.serve.server``) over a runtime on
+   the card, in the acts of ``examples/svm_http.py``: path 1's int8
+   artifact POSTed as base64 ``.npz`` bytes and its f32 artifact
+   published in process with the exact model; path 5's clients and
+   requests over real localhost sockets (each answer held against the
+   artifact's direct submit, the cost of the hop against path 5's
+   in-process latency from the same run); typed refusals (401, tenant
+   quota, overload) on a second, tenanted server, with client, telemetry
+   and span counts conserved; and a ``/metrics`` scrape.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after. Each kernel is held against its plain PyTorch twin at
+read just after (path 5 in two windows: its acts, and its profile at the
+end). Each kernel is held against its plain PyTorch twin at
 full width, and timed beside its twin, a library call and the least time
 the card could take.
 
@@ -59,6 +71,7 @@ without a card, or without the repo's ``src/`` beside it.
 
 from __future__ import annotations
 
+import http.client
 import json
 import re
 import subprocess
@@ -202,6 +215,15 @@ RT_QUEUE_ROWS = 256  # the admission bound
 RT_BURST = (4, 40, 8)  # overload: threads x requests x rows, past the bound
 RT_SLOW_STEP_S = 0.02  # the service time the fault injector pins in the burst
 RT_BREAKER = dict(fail_threshold=3, reset_after_s=0.3)
+# Sixth path: the HTTP front door over the runtime, at path 5's settings
+# (RT_OPTS, RT_WAIT_US, RT_QUEUE_ROWS, RT_CLIENTS x RT_REQUESTS of 1 to
+# RT_MAX_ROWS rows, RT_TOL). Refusals: a tenant whose request bucket holds
+# HTTP_ACME_BURST tokens and refills ~never gets HTTP_ACME_REQUESTS; then
+# HTTP_FLOOD (client threads x requests x rows, each thread one keep-alive
+# connection) against RT_SLOW_STEP_S flushes, up to 512 rows in flight
+# against the RT_QUEUE_ROWS bound.
+HTTP_ACME_BURST, HTTP_ACME_REQUESTS = 3, 6
+HTTP_FLOOD = (64, 4, 8)
 # Drift: path 1's model scores b alone beyond its envelope (1/(16 gamma^2 msq)
 # is ~2000x its rows' |z|^2 at the paper's gamma), so no family can heal a
 # drift there. The drift act serves its own model at the same width: path
@@ -829,14 +851,14 @@ def fifth_path(dev, svm, mac, X_te, requests, exact):
     the acts of ``examples/svm_runtime.py``: deferred sync held on the
     card; publish and coalesce (two tenants, 8 clients, each request held
     against its artifact's direct ``SVMEngine.submit``); overload; the
-    breaker degrading to B2; drift healed by ``DriftGuard``; a profile.
+    breaker degrading to B2; drift healed by ``DriftGuard``. Its profile
+    act (``runtime_profile``) runs last in the script.
 
     ``mac`` is path 1's f32 maclaurin artifact, ``requests`` its
     (rows, pushed-out mask) list, ``exact`` its float64 reference. Returns
     every kernel's launches on this path (read after the deferred-sync
     check, which launches B2 directly) and the path's numbers.
     """
-    import json as _json
     import threading
 
     import torch
@@ -1161,20 +1183,6 @@ def fifth_path(dev, svm, mac, X_te, requests, exact):
         out["drift"] = act4
         seconds["drift"] = time.perf_counter() - t0
 
-        # ------------------------------------------ act 5: profile, last
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            trace = Path(tmp) / "step.json"
-            rt.profile("mnist-f32", pool[:64], trace)
-            events = _json.loads(trace.read_text())["traceEvents"]
-            trace_bytes = trace.stat().st_size
-        names = [e.get("name", "") for e in events]
-        steps = sorted({n for n in names if n.startswith("svm_engine.step/")})
-        b1 = sorted(set(re.findall(r"quadform_tf32<float[^>]*>", " ".join(names))))
-        phase("runtime_profile", bytes=trace_bytes, events=len(events), steps=steps, b1=b1)
-        check(any(n.startswith("svm_engine.step/maclaurin/") for n in steps), "the step")
-        check(len(b1) > 0, "no launch of B1's symbol in the trace")
-        seconds["profile"] = time.perf_counter() - t0
     finally:
         rt.close()
     launches = build.counts()
@@ -1183,6 +1191,413 @@ def fifth_path(dev, svm, mac, X_te, requests, exact):
         check(launches[name] > 0, f"{name} never launched on the fifth path")
     phase("fifth_path_seconds", **seconds)
     return launches, out
+
+
+def runtime_profile(dev, svm, mac, requests) -> None:
+    """Path 5's last act, run at the end of the script: ``torch.profiler``
+    slows every later launch of its process, and path 6 times the host.
+    A ``Runtime.profile`` trace of one coalesced step of path 1's f32
+    artifact must hold the step's range and B1's symbol."""
+    from repro_torch.serve import PublishSpec, Runtime
+
+    rows = np.concatenate([Z for Z, _ in requests])[:64]
+    with Runtime(engine_opts=dict(device=dev, **RT_OPTS)) as rt:
+        rt.publish("mnist-f32", mac.to("cpu"), PublishSpec(exact=svm))
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "step.json"
+            rt.profile("mnist-f32", rows, trace)
+            events = json.loads(trace.read_text())["traceEvents"]
+            trace_bytes = trace.stat().st_size
+    names = [e.get("name", "") for e in events]
+    steps = sorted({n for n in names if n.startswith("svm_engine.step/")})
+    b1 = sorted(set(re.findall(r"quadform_tf32<float[^>]*>", " ".join(names))))
+    phase("runtime_profile", bytes=trace_bytes, events=len(events), steps=steps, b1=b1)
+    check(any(n.startswith("svm_engine.step/maclaurin/") for n in steps), "the step")
+    check(len(b1) > 0, "no launch of B1's symbol in the trace")
+
+
+class HttpClient:
+    """One keep-alive connection to a front door: JSON in and out, standard
+    library only (a client knows nothing of the port)."""
+
+    def __init__(self, handle):
+        self.conn = http.client.HTTPConnection(handle.host, handle.port, timeout=60)
+
+    def call(self, method: str, path: str, body=None, key: str | None = None):
+        """(status, lower-cased headers, parsed JSON or raw bytes); ``body``
+        is an object to encode, or bytes already encoded."""
+        headers = {"content-type": "application/json"}
+        if key is not None:
+            headers["x-api-key"] = key
+        if body is not None and not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+        self.conn.request(method, path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        raw = resp.read()
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        if hdrs.get("content-type", "").startswith("application/json"):
+            raw = json.loads(raw)
+        return resp.status, hdrs, raw
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def body_bytes(rows) -> bytes:
+    """A ``:predict`` body: float32 rows as JSON numbers, which carry every
+    float32 value exactly."""
+    return json.dumps({"rows": rows.tolist()}).encode()
+
+
+def sixth_path(dev, svm, mac, requests, exact, in_process_p50_ms: float) -> dict:
+    """The HTTP front door (``repro_torch.serve.server``) over runtimes on the
+    card, in the acts of ``examples/svm_http.py``: publish (int8 over the
+    wire, f32 in process with its exact model), coalesce (path 5's clients
+    and requests over localhost sockets, each answer held against its
+    artifact's direct ``SVMEngine.submit``), refusals on a second, tenanted
+    server, a ``/metrics`` scrape.
+
+    ``mac`` is path 1's f32 maclaurin artifact, ``requests`` its (rows,
+    pushed-out mask) list, ``exact`` its float64 reference,
+    ``in_process_p50_ms`` path 5's coalesced p50 from this run. Returns every
+    kernel's launches on this path.
+    """
+    import base64
+    import hashlib
+    import threading
+
+    from repro_torch.core.families import maclaurin
+    from repro_torch.kernels import build
+    from repro_torch.serve import PublishSpec, Runtime, SVMEngine, create_app, serve
+    from repro_torch.serve.runtime import MetricsRegistry, Observability
+
+    t_path = time.perf_counter()
+    seconds = {}
+    q8 = maclaurin.quantize_quadform_artifact(mac)
+    # the int8 tenant is published over the wire, where no exact model goes
+    direct = {
+        "mnist-f32": SVMEngine(mac, svm, device=dev, **RT_OPTS),
+        "mnist-int8": SVMEngine(q8, None, device=dev, **RT_OPTS),
+    }
+    pool = np.concatenate([Z for Z, _ in requests])
+    pushed = np.concatenate([s for _, s in requests])
+    rng = np.random.default_rng(SEED + 5)  # path 5's plan
+    work = [
+        [
+            (
+                ("mnist-f32", "mnist-int8")[int(rng.integers(0, 2))],
+                rng.choice(len(pool), size=int(rng.integers(1, RT_MAX_ROWS + 1))),
+            )
+            for _ in range(RT_REQUESTS)
+        ]
+        for _ in range(RT_CLIENTS)
+    ]
+    want = [[read(direct[a].submit(pool[i])) for a, i in w] for w in work]
+    bodies = [[body_bytes(pool[i]) for _, i in w] for w in work]
+    del direct
+    seconds["setup"] = time.perf_counter() - t_path
+
+    build.reset_counts()
+    rt = Runtime(
+        engine_opts=dict(device=dev, **RT_OPTS),
+        max_wait_us=RT_WAIT_US,
+        max_queue_rows=RT_QUEUE_ROWS,
+        # its own metrics: path 5's runtime served the same digest, and the
+        # process registry sums every runtime's counters
+        obs=Observability(registry=MetricsRegistry()),
+    )
+    app = create_app(runtime=rt)
+    handle = serve(app)
+    admin = HttpClient(handle)
+    try:
+        # ----------------------------------------------- act 1: publish
+        t0 = time.perf_counter()
+        raw = q8.to_bytes()
+        upload = {
+            "artifact_b64": base64.b64encode(raw).decode(),
+            "spec": {"alias": "mnist-int8"},
+        }
+        t = time.perf_counter()
+        status, _, body = admin.call("POST", "/v1/models", upload)
+        publish_ms = (time.perf_counter() - t) * 1e3
+        check(status == 201, f"POST /v1/models: {status} {body}")
+        digests = {"mnist-int8": body["digest"]}
+        sha = hashlib.sha256(raw).hexdigest()
+        check(body["digest"] == sha == q8.digest(), "the uploaded artifact's digest")
+        f32_spec = PublishSpec(exact=svm)
+        digests["mnist-f32"] = rt.publish("mnist-f32", mac.to("cpu"), f32_spec)
+        check(digests["mnist-f32"] == mac.digest(), "the f32 artifact's digest")
+        for a in digests:
+            rt.warmup(a)
+        engines = {a: rt.registry.get_engine(a)[1] for a in digests}
+        exact_on = {a: e.exact_available for a, e in engines.items()}
+        want_on = {"mnist-int8": False, "mnist-f32": True}
+        check(exact_on == want_on, f"exact models: {exact_on}")
+        configs = {a: e.stats.compiled_steps for a, e in engines.items()}
+        phase(
+            "http_publish",
+            url=handle.url,
+            status=status,
+            artifact_bytes=len(raw),
+            upload_body_bytes=len(json.dumps(upload)),
+            publish_ms=publish_ms,
+            digests={a: d[:16] for a, d in digests.items()},
+            exact_available=exact_on,
+        )
+        seconds["publish"] = time.perf_counter() - t0
+
+        # ---------------------------------------------- act 2: coalesce
+        t0 = time.perf_counter()
+        got = [[None] * RT_REQUESTS for _ in range(RT_CLIENTS)]
+        lat, lock = [], threading.Lock()
+
+        def client(c):
+            conn = HttpClient(handle)
+            try:
+                for k, (a, _) in enumerate(work[c]):
+                    t = time.perf_counter()
+                    path = f"/v1/models/{a}:predict"
+                    got[c][k] = conn.call("POST", path, bodies[c][k])
+                    with lock:
+                        lat.append((time.perf_counter() - t) * 1e3)
+            finally:
+                conn.close()
+
+        st0 = {a: rt.stats(a) for a in digests}
+        t = time.perf_counter()
+        run_threads(client, [(c,) for c in range(RT_CLIENTS)])
+        wall = time.perf_counter() - t
+        st1 = {a: rt.stats(a) for a in digests}
+        lat.sort()
+        statuses = [g[0] for row in got for g in row]
+        non_2xx = [s for s in statuses if not 200 <= s < 300]
+        check(not non_2xx, f"non-2xx answers: {non_2xx[:5]}")
+        worst, f32_far, f32_labels, q8_far = 0.0, [], [], 0
+        for c in range(RT_CLIENTS):
+            for k, (a, idx) in enumerate(work[c]):
+                _, _, body = got[c][k]
+                v0, ok0, lab0 = want[c][k]
+                v = np.asarray(body["scores"], np.float32)
+                ok = np.asarray(body["valid"], bool)
+                lab = np.asarray(body["labels"])
+                scale = max(1.0, float(np.abs(v0).max()))
+                tol = RT_TOL * scale + RT_TOL * np.abs(v0)
+                ratio = float((np.abs(v - v0) / tol).max())
+                worst = max(worst, ratio)
+                what = f"client {c} request {k} ({a})"
+                check(ratio <= 1.0, f"{what}: values, x{ratio} tol")
+                check(bool((lab == lab0).all()), f"{what}: labels")
+                check(bool((ok == ok0).all()), f"{what}: valid")
+                check(bool((ok == ~pushed[idx]).all()), f"{what}: valid != envelope")
+                check(body["digest"] == digests[a], f"{what}: digest")
+                check(body["dtype"] == engines[a].dtype, f"{what}: dtype")
+                if a == "mnist-f32":
+                    f32_far.append(pool[idx][~ok])
+                    f32_labels.append(lab[~ok])
+                else:
+                    q8_far += int((~ok).sum())
+        f32_far, f32_labels = np.concatenate(f32_far), np.concatenate(f32_labels)
+        check(len(f32_far) > 0, "no f32 request carried a row out of the envelope")
+        check(q8_far > 0, "no int8 request carried a row out of the envelope")
+        far_agree = float((f32_labels == exact(f32_far)[0].argmax(-1)).mean())
+        check(far_agree == 1.0, f"fallback rows' labels against float64: {far_agree}")
+        steps = sum(st1[a]["flushes"] - st0[a]["flushes"] for a in digests)
+        reqs = sum(st1[a]["requests"] - st0[a]["requests"] for a in digests)
+        recompiles = sum(engines[a].stats.compiled_steps - configs[a] for a in digests)
+        rows = sum(len(i) for w in work for _, i in w)
+        p50 = nearest_rank(lat, 50)
+        act2 = dict(
+            requests=reqs,
+            rows=rows,
+            non_2xx=len(non_2xx),
+            f32_fallback_rows=int(len(f32_far)),
+            fallback_label_agree=far_agree,
+            int8_rows_outside_unpatched=q8_far,
+            engine_steps=steps,
+            coalescing_factor=reqs / max(1, steps),
+            p50_ms=p50,
+            p99_ms=nearest_rank(lat, 99),
+            rows_per_s=rows / wall,
+            in_process_p50_ms=in_process_p50_ms,
+            http_overhead_p50=p50 / in_process_p50_ms,
+            max_err_over_tol=worst,
+            steady_state_recompiles=recompiles,
+        )
+        # where a request's time goes inside the runtime (path 5's spans)
+        for name in ("request.queue_wait", "engine.step", "flush.sync"):
+            ms = sorted(
+                (sp["t_end"] - sp["t_start"]) * 1e3
+                for d in digests.values()
+                for sp in rt.obs.tracer.spans(d[:12], name)
+            )
+            act2[f"{name}_p50_ms"] = nearest_rank(ms, 50)
+            act2[f"{name}_p99_ms"] = nearest_rank(ms, 99)
+        phase("http_coalesce", **act2)
+        check(reqs == RT_CLIENTS * RT_REQUESTS, f"requests admitted: {reqs}")
+        check(recompiles == 0, f"{recompiles} new bucket configs after warm-up")
+        seconds["coalesce"] = time.perf_counter() - t0
+
+        # ---------------------------------------------- act 3: refusals
+        t0 = time.perf_counter()
+        phase("http_refusals", **refusals(dev, mac, svm, pool))
+        seconds["refusals"] = time.perf_counter() - t0
+
+        # ------------------------------------------------ act 4: metrics
+        t0 = time.perf_counter()
+        status, hdrs, text = admin.call("GET", "/metrics")
+        text = text.decode() if isinstance(text, bytes) else str(text)
+        counted = [
+            float(line.rsplit(" ", 1)[1])
+            for line in text.splitlines()
+            if line.startswith("repro_serve_requests_total")
+        ]
+        act4 = dict(
+            status=status,
+            content_type=hdrs.get("content-type"),
+            lines=len(text.splitlines()),
+            requests_total=sum(counted),
+            requests_sent=RT_CLIENTS * RT_REQUESTS,
+        )
+        phase("http_metrics", **act4)
+        check(status == 200, f"GET /metrics: {status}")
+        check(act4["content_type"].startswith("text/plain"), "the metrics' type")
+        check(sum(counted) == RT_CLIENTS * RT_REQUESTS, "repro_serve_requests_total")
+        seconds["metrics"] = time.perf_counter() - t0
+    finally:
+        admin.close()
+        handle.close()
+        rt.close()
+    launches = build.counts()
+    phase("sixth_path_launches", **launches)
+    for name in ("quadform_heads", "quadform_heads_q8", "rbf_scores"):
+        check(launches[name] > 0, f"{name} never launched on the sixth path")
+    seconds["path6_seconds"] = time.perf_counter() - t_path
+    phase("sixth_path_seconds", **seconds)
+    return launches
+
+
+def refusals(dev, mac, svm, pool) -> dict:
+    """Path 6's typed refusals on a tenanted front door over its own
+    runtime (path 1's f32 artifact, flushes pinned at RT_SLOW_STEP_S for
+    the flood): no key, a tenant past its bucket, a flood past the queue's
+    bound; then the client's tally, the telemetry and the spans, which must
+    agree."""
+    import threading
+
+    from repro_torch.serve import FaultInjector, PublishSpec, Runtime, create_app, serve
+    from repro_torch.serve.runtime import ENGINE_STEP
+    from repro_torch.serve.server import TenantConfig
+
+    faults = FaultInjector(seed=SEED, slow_step_s=RT_SLOW_STEP_S)
+    rt = Runtime(
+        engine_opts=dict(device=dev, **RT_OPTS),
+        max_wait_us=RT_WAIT_US,
+        max_queue_rows=RT_QUEUE_ROWS,
+        fault_injector=faults,
+    )
+    tenants = [
+        TenantConfig("acme", api_key="acme-key", rate_rps=1e-6, burst=HTTP_ACME_BURST),
+        TenantConfig("umbrella", api_key="umbrella-key"),
+    ]
+    app = create_app(runtime=rt, tenants=tenants)
+    handle = serve(app)
+    c = HttpClient(handle)
+    try:
+        digest = rt.publish("mnist-f32", mac.to("cpu"), PublishSpec(exact=svm))
+        rt.warmup("mnist-f32")
+        path = "/v1/models/mnist-f32:predict"
+        one = body_bytes(pool[:1])
+        status, _, body = c.call("POST", path, one)
+        check(status == 401, f"no key: {status}")
+        check(body["error"]["code"] == "unauthenticated", f"no key: {body}")
+        acme = [
+            c.call("POST", path, one, key="acme-key") for _ in range(HTTP_ACME_REQUESTS)
+        ]
+        acme_ok = sum(s == 200 for s, _, _ in acme)
+        acme_shed = [(h, b) for s, h, b in acme if s == 429]
+        check(acme_ok == HTTP_ACME_BURST, f"acme admitted {acme_ok}")
+        check(acme_ok + len(acme_shed) == HTTP_ACME_REQUESTS, "acme: not 200 or 429")
+        acme_retry = [h.get("retry-after", "") for h, _ in acme_shed]
+        codes = {b["error"]["code"] for _, b in acme_shed}
+        check(codes == {"tenant_quota"}, f"acme's codes: {codes}")
+        check(all(r.isdigit() and int(r) >= 1 for r in acme_retry), f"{acme_retry}")
+
+        n_threads, n_req, n_rows = HTTP_FLOOD
+        rng = np.random.default_rng(SEED + 6)
+        flood = [
+            [body_bytes(pool[rng.choice(len(pool), n_rows)]) for _ in range(n_req)]
+            for _ in range(n_threads)
+        ]
+        hits, lock = [], threading.Lock()
+        barrier = threading.Barrier(n_threads)
+
+        def flooder(i):
+            conn = HttpClient(handle)
+            try:
+                barrier.wait(timeout=60)
+                for b in flood[i]:
+                    s, h, out = conn.call("POST", path, b, key="umbrella-key")
+                    code = out.get("error", {}).get("code") if s != 200 else None
+                    with lock:
+                        hits.append((s, code, h.get("retry-after")))
+            finally:
+                conn.close()
+
+        faults.slow_next(ENGINE_STEP, 1000)  # pin each flush's service time
+        run_threads(flooder, [(i,) for i in range(n_threads)])
+        faults.clear_scripts(ENGINE_STEP)
+        flood_ok = sum(s == 200 for s, _, _ in hits)
+        flood_shed = [(code, r) for s, code, r in hits if s == 429]
+        st = rt.stats(digest)
+        cons = rt.obs.tracer.conservation(digest[:12])
+        _, _, tsnap = c.call("GET", "/v1/tenants")
+        acme_row = next(t for t in tsnap["tenants"] if t["name"] == "acme")
+        client_ok = acme_ok + flood_ok
+        client_shed = len(acme_shed) + len(flood_shed)
+        done = (
+            st["served_requests"]
+            + st["failed_requests"]
+            + st["deadline_timeouts"]
+            + st["closed_requests"]
+        )
+        out = dict(
+            unauthenticated=status,
+            acme_admitted=acme_ok,
+            acme_shed=len(acme_shed),
+            acme_retry_after_s=acme_retry[:1],
+            flood_requests=len(hits),
+            flood_served=flood_ok,
+            flood_shed=len(flood_shed),
+            flood_retry_after_s=sorted({r for _, r in flood_shed})[:3],
+            client_ok=client_ok,
+            client_shed=client_shed,
+            telemetry_served=st["served_requests"],
+            telemetry_shed=st["shed_requests"],
+            telemetry_admitted=st["requests"],
+            spans=cons,
+            tenants_acme=dict(admitted=acme_row["admitted"], shed=acme_row["shed"]),
+            queue_rows=st["queue_rows"],
+            queue_high_water_rows=st["max_queue_rows"],
+        )
+        check(len(hits) == n_threads * n_req, "a flood request went unanswered")
+        check(flood_ok + len(flood_shed) == len(hits), f"flood statuses: {out}")
+        check(len(flood_shed) > 0, "the flood shed nothing")
+        check(all(code == "overloaded" for code, _ in flood_shed), "flood code")
+        check(all(r is not None and int(r) >= 1 for _, r in flood_shed), "Retry-After")
+        check(st["served_requests"] == client_ok, f"served: {out}")
+        check(st["shed_requests"] == client_shed, f"shed: {out}")
+        check(done == st["requests"], f"served + failed + expired + closed: {out}")
+        check(cons["unaccounted"] == 0, f"spans: {cons}")
+        check(cons["served"] == client_ok and cons["shed"] == client_shed, f"{cons}")
+        check(cons["submitted"] == client_ok + client_shed, f"submitted: {cons}")
+        check(acme_row["admitted"] == acme_ok, "/v1/tenants: acme admitted")
+        check(acme_row["shed"] == len(acme_shed), "/v1/tenants: acme shed")
+        check(st["queue_rows"] == 0, "the queue did not drain")
+        return out
+    finally:
+        c.close()
+        handle.close()
+        rt.close()
 
 
 def run(dev) -> list[dict]:
@@ -1449,12 +1864,20 @@ def run(dev) -> list[dict]:
     kernels_ff, launches3 = third_path(dev)
     # =================================================== fourth path (B8, B9)
     kernels_lm, launches4 = fourth_path(dev)
-    # ================================ fifth path (the runtime; a profile last)
-    launches5, _ = fifth_path(dev, svm, loaded, X_te, requests, exact)
-    per_path = {
-        n: [launches[n], launches2[n], launches3[n], launches4[n], launches5[n]]
-        for n in launches4
-    }
+    # ======================== fifth path (the runtime; its profile act last)
+    launches5, out5 = fifth_path(dev, svm, loaded, X_te, requests, exact)
+    # ============================ sixth path (the HTTP front door, after 5)
+    p50 = out5["coalesce"]["p50_ms"]
+    launches6 = sixth_path(dev, svm, loaded, requests, exact, p50)
+    # ======================= path 5's profile act, last (it slows the host)
+    t0 = time.perf_counter()
+    build.reset_counts()
+    runtime_profile(dev, svm, loaded, requests)
+    profiled = build.counts()
+    phase("runtime_profile_launches", seconds=time.perf_counter() - t0, **profiled)
+    launches5 = {n: launches5[n] + profiled[n] for n in launches5}
+    paths = (launches, launches2, launches3, launches4, launches5, launches6)
+    per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
         {

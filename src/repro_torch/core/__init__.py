@@ -2,6 +2,7 @@
 
 from repro_torch.core import backend
 from repro_torch.core.bounds import (
+    POLY2_REL_ERR_AT_HALF,
     REL_ERR_AT_HALF,
     bound_holds,
     gamma_max,
@@ -30,6 +31,7 @@ __all__ = [
     "ApproxModel",
     "Budget",
     "CompiledArtifact",
+    "POLY2_REL_ERR_AT_HALF",
     "REL_ERR_AT_HALF",
     "SVMModel",
     "approx_decision_function",

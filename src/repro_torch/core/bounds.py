@@ -5,6 +5,10 @@
   * ``gamma_max``           — pre-training bound: the largest gamma for
     which Eq 3.11 is guaranteed on a given data set.
   * ``bound_holds`` / ``validity_fraction`` — run-time checks of Eq 3.11.
+  * ``poly2_exp`` / ``poly2_rel_error`` — the §3.2 poly2 family's exp
+    approximation and its error (the analogue of Fig 1).
+  * ``exact_bound_holds`` / ``max_abs_exponent`` — Eq 3.9 itself, from the
+    inner products (diagnostics: how conservative Eq 3.11 is).
 
 The guarantee chain:  |x| < 1/2  =>  rel.err(exp approx) < 3.05%   (A.2)
                       |2 gamma x_i^T z| < 1/2  for all i           (3.9)
@@ -22,6 +26,18 @@ REL_ERR_AT_HALF = 0.0305
 # (1 + x/2)^2 = 1 + x + x^2/4 under the same |x| < 1/2 envelope; the sup,
 # at x = -1/2, is |e^{-1/2} - (3/4)^2| / e^{-1/2} = 0.07256...
 POLY2_REL_ERR_AT_HALF = 0.0726
+
+
+def poly2_exp(x: torch.Tensor) -> torch.Tensor:
+    """The poly2 family's implicit exp approximation: (1 + x/2)^2."""
+    q = 1.0 + 0.5 * x
+    return q * q
+
+
+def poly2_rel_error(x: torch.Tensor) -> torch.Tensor:
+    """Absolute relative error of the poly2 exp approximation (its sup on
+    |x| <= 1/2 is POLY2_REL_ERR_AT_HALF)."""
+    return torch.abs((torch.exp(x) - poly2_exp(x)) / torch.exp(x))
 
 
 def maclaurin_exp(x: torch.Tensor) -> torch.Tensor:
@@ -53,3 +69,18 @@ def validity_fraction(max_sv_sq_norm, Z: torch.Tensor, gamma) -> torch.Tensor:
     """Fraction of a test batch adhering to Eq 3.11."""
     z_sq = (Z * Z).sum(-1)
     return bound_holds(max_sv_sq_norm, z_sq, gamma).float().mean()
+
+
+def exact_bound_holds(X_sv: torch.Tensor, z: torch.Tensor, gamma) -> torch.Tensor:
+    """Eq 3.9 directly: |2 gamma x_i^T z| < 1/2 for every SV (one row z)."""
+    u = 2.0 * gamma * (X_sv @ z)
+    return torch.all(torch.abs(u) < 0.5)
+
+
+def max_abs_exponent(X_sv: torch.Tensor, Z: torch.Tensor, gamma) -> torch.Tensor:
+    """max_{i,j} |2 gamma x_i^T z_j|, the quantity Eq 3.11 bounds.
+
+    O(n_sv * n): a diagnostic of how conservative Cauchy-Schwarz is on a
+    data set (the paper's §4.2).
+    """
+    return torch.abs(2.0 * gamma * (Z @ X_sv.T)).max()

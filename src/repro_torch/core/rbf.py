@@ -60,6 +60,24 @@ def decision_function(model: SVMModel, Z: torch.Tensor) -> torch.Tensor:
     return rbf_kernel(Z, model.X, model.gamma) @ model.alpha_y + model.b
 
 
+def decision_function_loops(model: SVMModel, Z: torch.Tensor) -> torch.Tensor:
+    """The paper's LOOPS baseline: one support vector at a time, no GEMM.
+
+    Deliberately naive (n_sv sequential steps), for the Table 2 ordering
+    of LOOPS against BLAS; it has no kernel. Binary models only, as the
+    reference's: ``alpha_y`` is (n_sv,).
+    """
+    if model.alpha_y.ndim != 1:
+        raise ValueError(
+            f"expected alpha_y of shape (n_sv,), got {model.alpha_y.shape}"
+        )
+    acc = torch.zeros(Z.shape[0], dtype=Z.dtype, device=Z.device)
+    for xi, ai in zip(model.X, model.alpha_y):
+        diff = Z - xi[None, :]
+        acc = acc + ai * torch.exp(-model.gamma * (diff * diff).sum(-1))
+    return acc + model.b
+
+
 def predict_labels(model: SVMModel, Z: torch.Tensor) -> torch.Tensor:
     """Binary labels in {-1, +1}."""
     return torch.where(decision_function(model, Z) >= 0, 1, -1)

@@ -3,6 +3,7 @@ from repro_torch.kernels.quadform.kernel import (
     quadform_heads_cuda,
     quadform_heads_torch,
 )
+from repro_torch.kernels.quadform.ops import quadform_predict, quadform_predict_heads
 from repro_torch.kernels.quadform.ref import (
     eq311_valid,
     quadform_heads_ref,
@@ -15,5 +16,7 @@ __all__ = [
     "quadform_heads_cuda",
     "quadform_heads_ref",
     "quadform_heads_torch",
+    "quadform_predict",
+    "quadform_predict_heads",
     "quadform_predict_ref",
 ]

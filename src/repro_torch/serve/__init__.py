@@ -1,19 +1,18 @@
 """``repro_torch.serve`` — the serving surface of the port.
 
-The same names as ``repro.serve.__all__``, less the HTTP front door:
+The same names as ``repro.serve.__all__``:
 
   * ``compile_model`` (re-exported from ``repro_torch.core.families``) —
     train-time: turn an exact ``SVMModel`` into a ``CompiledArtifact``;
   * ``Runtime`` / ``ArtifactRegistry`` / ``SVMEngine`` / ``PublishSpec``
     — the serve-time Python API (``runtime``: coalescing, admission
     control, deadlines, the circuit breaker, the drift guard);
+  * ``create_app`` / ``serve`` (``server``) — the HTTP front door over a
+    ``Runtime``, and a localhost server for it on a background thread;
   * the error taxonomy (``ServingError`` and its subclasses), each with
     the reference's ``code`` and ``http_status``;
   * ``make_prefill_step`` / ``make_serve_step`` — the LM's prefill and
     decode steps (``decode_step``).
-
-``create_app`` and ``serve``, the HTTP server over a ``Runtime``, wait
-for the server slice of ROADMAP queue A8.
 """
 
 from repro_torch.core.families import compile_model
@@ -33,6 +32,7 @@ from repro_torch.serve.runtime import (
     RuntimeOverloaded,
     ServingError,
 )
+from repro_torch.serve.server import create_app, serve
 from repro_torch.serve.svm_engine import (
     EngineResult,
     EngineStats,
@@ -61,6 +61,8 @@ __all__ = [
     "SliceResult",
     "bucket_size",
     "compile_model",
+    "create_app",
     "make_prefill_step",
     "make_serve_step",
+    "serve",
 ]

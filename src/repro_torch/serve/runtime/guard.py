@@ -113,8 +113,8 @@ def _exact_labels(exact, Z: np.ndarray) -> np.ndarray:
     judge, not a served path: no kernel)."""
     ay2, b, _, multiclass = stack_heads(exact)
     Zt = torch.from_numpy(np.asarray(Z, dtype=np.float64)).to(exact.X.device)
-    K = rbf_kernel(Zt, exact.X.double(), float(exact.gamma))    # (n, n_sv)
-    scores = (K @ ay2.double().T + b.double()).cpu().numpy()    # (n, K)
+    K = rbf_kernel(Zt, exact.X.double(), float(exact.gamma))  # (n, n_sv)
+    scores = (K @ ay2.double().T + b.double()).cpu().numpy()  # (n, K)
     if multiclass:
         return np.argmax(scores, axis=1)
     return np.where(scores[:, 0] >= 0, 1, -1)
@@ -193,7 +193,7 @@ class DriftGuard:
         self._attached = False
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
-        self.heals: list[dict] = []            # verdict history, newest last
+        self.heals: list[dict] = []  # verdict history, newest last
 
     # ------------------------------------------------------------- watching
 
@@ -315,7 +315,7 @@ class DriftGuard:
             artifact = compile_model(
                 self.exact, budget, sample=sample, **self.compile_opts
             )
-        except Exception as e:                  # no candidate met the budget
+        except Exception as e:  # no candidate met the budget
             telemetry.record_canary(False)
             _arc("heal.recompile", ok=False, error=str(e))
             return _finish({"healed": False, "old_digest": old_digest,
@@ -359,7 +359,7 @@ class DriftGuard:
 
         # 4. atomic flip; old-digest traffic in flight drains untouched
         rt.set_alias(self.alias, new_digest)
-        telemetry.reset_fallback_window()       # old window is stale evidence
+        telemetry.reset_fallback_window()  # old window is stale evidence
         _arc("heal.flip", old_digest=old_digest[:12],
              new_digest=new_digest[:12], alias=self.alias)
         return _finish(out)
@@ -377,7 +377,7 @@ class DriftGuard:
             while not self._stop.wait(interval_s):
                 try:
                     self.check()
-                except Exception:               # the watchdog must not die
+                except Exception:  # the watchdog must not die
                     pass
 
         self._thread = threading.Thread(

@@ -208,7 +208,7 @@ class Tracer:
                 event = self._events.get_nowait()
             except Empty:
                 return
-            if isinstance(event, list):     # span_many batch
+            if isinstance(event, list):  # span_many batch
                 for item in event:
                     self._apply_locked(item)
             else:

@@ -63,7 +63,7 @@ from repro_torch.serve.runtime.faults import REGISTRY_LOAD, FaultInjector
 from repro_torch.serve.runtime.publish import PublishSpec, resolve_spec
 from repro_torch.serve.svm_engine import SVMEngine
 
-_DIGEST_LEN = 64           # sha256 hex
+_DIGEST_LEN = 64  # sha256 hex
 
 
 @dataclasses.dataclass
@@ -71,17 +71,17 @@ class RegistryEntry:
     """One immutable model identity and its (re)loadable serving state."""
 
     digest: str
-    path: str | None = None                 # reload source for lazy/evicted
+    path: str | None = None  # reload source for lazy/evicted
     artifact: CompiledArtifact | None = None
-    exact: object | None = None             # SVMModel for the exact fallback
-    engine: SVMEngine | None = None         # primary replica (replicas[0])
-    replicas: int = 1                       # engines to build from this digest
+    exact: object | None = None  # SVMModel for the exact fallback
+    engine: SVMEngine | None = None  # primary replica (replicas[0])
+    replicas: int = 1  # engines to build from this digest
     engines: list = dataclasses.field(default_factory=list)
-    warmup: bool | None = None              # per-model warmup_on_load override
-    nbytes: int = 0                         # resident bytes once known
-    tick: int = 0                           # LRU clock stamp
+    warmup: bool | None = None  # per-model warmup_on_load override
+    nbytes: int = 0  # resident bytes once known
+    tick: int = 0  # LRU clock stamp
     evictions: int = 0
-    quarantined: str | None = None          # corruption reason; fail fast
+    quarantined: str | None = None  # corruption reason; fail fast
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
@@ -143,7 +143,7 @@ class ArtifactRegistry:
         self.memory_budget_bytes = memory_budget_bytes
         self.warmup_on_load = warmup_on_load
         self.engine_opts = dict(engine_opts or {})
-        self.faults = fault_injector         # consulted at every path load
+        self.faults = fault_injector  # consulted at every path load
         # obs.Observability (or None): engine loads, evictions and
         # quarantines are recorded as spans under the digest prefix and
         # as model_digest-labelled counters. Runtime injects its bundle
@@ -154,8 +154,8 @@ class ArtifactRegistry:
         self._lock = threading.RLock()
         self._clock = itertools.count(1)
         self._evict_listeners: list = []
-        self.loads = 0                       # engine builds (incl. reloads)
-        self.hits = 0                        # get_engine served from memory
+        self.loads = 0  # engine builds (incl. reloads)
+        self.hits = 0  # get_engine served from memory
         self.eviction_count = 0
         self.quarantine_count = 0
 
@@ -212,7 +212,7 @@ class ArtifactRegistry:
         spec = resolve_spec(spec, caller="ArtifactRegistry.register",
                             alias=alias, exact=exact, path=path,
                             replicas=replicas)
-        local_devices(self.engine_opts)     # no card for the engines: raise
+        local_devices(self.engine_opts)  # no card for the engines: raise
         digest = artifact.digest()
         with self._lock:
             entry = self._entries.get(digest)
@@ -265,7 +265,7 @@ class ArtifactRegistry:
                 "ArtifactRegistry.add_file: pass either spec= or "
                 "alias=/exact=, not both"
             )
-        local_devices(self.engine_opts)     # no card for the engines: raise
+        local_devices(self.engine_opts)  # no card for the engines: raise
         digest = _hash_file(path)
         _validate_npz(path, digest)
         with self._lock:
@@ -389,10 +389,10 @@ class ArtifactRegistry:
             engines = list(entry.engines)
             want = max(1, entry.replicas)
         if len(engines) == want:
-            self.hits += 1                   # approximate under race; fine
+            self.hits += 1  # approximate under race; fine
             return digest, engines
         with entry.lock:
-            with self._lock:                 # re-check under the build lock
+            with self._lock:  # re-check under the build lock
                 engines = list(entry.engines)
                 want = max(1, entry.replicas)
             if len(engines) != want:
@@ -564,15 +564,15 @@ class ArtifactRegistry:
                     break
                 if entry.digest == keep:
                     continue
-                entry.engine = None          # every replica retires together:
-                entry.engines = []           # eviction is all-or-nothing
+                entry.engine = None  # every replica retires together:
+                entry.engines = []  # eviction is all-or-nothing
                 if entry.path is not None:
-                    entry.artifact = None    # reloadable: drop the arrays too
+                    entry.artifact = None  # reloadable: drop the arrays too
                 entry.evictions += 1
                 total -= entry.nbytes
                 evicted.append(entry.digest)
                 self.eviction_count += 1
-        for digest in evicted:               # listeners run outside the lock
+        for digest in evicted:  # listeners run outside the lock
             self._obs_event(
                 "registry.evict", "repro_registry_evictions_total",
                 "Engines evicted under the memory budget.",

@@ -251,7 +251,7 @@ class Runtime:
         """Force-load + warm ``model`` now; returns its compiled variants."""
         _, engine = self.registry.get_engine(model)
         if not self.registry.warmup_on_load:
-            engine.warmup()                 # registry didn't warm at load time
+            engine.warmup()  # registry didn't warm at load time
         return engine.jit_cache_size()
 
     # ------------------------------------------------------------- telemetry
@@ -271,12 +271,12 @@ class Runtime:
             tel = self._telemetry.get(digest)
             batcher = self._batchers.get(digest)
             if batcher is not None:
-                engine = batcher.engine          # the engine traffic actually hits
+                engine = batcher.engine  # the engine traffic actually hits
             else:
                 entry = self.registry._entries.get(digest)
                 engine = entry.engine if entry is not None else None
             if tel is None:
-                tel = ModelTelemetry()            # zeroed snapshot pre-traffic
+                tel = ModelTelemetry()  # zeroed snapshot pre-traffic
             out = tel.snapshot(engine)
             out["digest"] = digest
             if batcher is not None and batcher.breaker is not None:
@@ -320,7 +320,7 @@ class Runtime:
         self.warmup(model)
         with obs_profile.capture(path):
             res = self.submit(model, Z).result()
-            np.asarray(res.values)          # device -> host sync in-session
+            np.asarray(res.values)  # device -> host sync in-session
         return str(path)
 
     # -------------------------------------------------------------- lifetime

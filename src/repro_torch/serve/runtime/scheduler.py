@@ -154,7 +154,7 @@ class CircuitBreaker:
                     self.state = "half_open"
                     return True
                 return False
-            return True                 # closed, or half_open (another probe)
+            return True  # closed, or half_open (another probe)
 
     def record_success(self) -> None:
         with self._lock:
@@ -221,7 +221,7 @@ class _Replica:
         self.rows = 0
         self.failures = 0
         self.last_state = "closed"
-        self.jobs: queue.SimpleQueue | None = None   # set when threaded
+        self.jobs: queue.SimpleQueue | None = None  # set when threaded
         self.thread: threading.Thread | None = None
 
 
@@ -250,8 +250,8 @@ class _Pending:
         self.Z = Z
         self.future = future
         self.t_enqueue = t_enqueue
-        self.deadline = deadline          # absolute perf_counter time, or None
-        self.trace = trace                # obs trace id linking this
+        self.deadline = deadline  # absolute perf_counter time, or None
+        self.trace = trace  # obs trace id linking this
                                           # request's lifecycle spans
 
 
@@ -338,12 +338,12 @@ class MicroBatcher:
         # append under one lock — cheap enough for the hot path.
         self._tracer = tracer
         self._cfg_strs: dict[int, str] = {}
-        self._step_time_s = self.max_wait_s or 1e-4   # EWMA of measured steps
+        self._step_time_s = self.max_wait_s or 1e-4  # EWMA of measured steps
         self._queue: collections.deque[_Pending] = collections.deque()
         self._queued_rows = 0
         self._cond = threading.Condition()
-        self._acct = threading.Lock()     # replica inflight/counter guard
-        self._rr = 0                      # round-robin tiebreak cursor
+        self._acct = threading.Lock()  # replica inflight/counter guard
+        self._rr = 0  # round-robin tiebreak cursor
         self._closed = False
         if len(self.replicas) > 1:
             for r in self.replicas:
@@ -379,7 +379,7 @@ class MicroBatcher:
         if deadline_s is not None and deadline_s <= 0:
             raise ValueError(f"deadline_s must be positive, got {deadline_s}")
         fut: Future = Future()
-        if Z.shape[0] == 0:                       # nothing to coalesce
+        if Z.shape[0] == 0:  # nothing to coalesce
             with self._cond:
                 if self._closed:
                     raise BatcherClosed(f"MicroBatcher({self.name!r}) is closed")
@@ -455,15 +455,15 @@ class MicroBatcher:
             self._closed = True
             self._cond.notify_all()
         self._worker.join(timeout=5.0)
-        self.flush()                               # anything enqueued at the wire
-        for r in self.replicas:                    # drain replica dispatchers:
-            if r.jobs is not None:                 # the sentinel queues BEHIND
-                r.jobs.put(None)                   # any still-pending flushes
+        self.flush()  # anything enqueued at the wire
+        for r in self.replicas:  # drain replica dispatchers:
+            if r.jobs is not None:  # the sentinel queues BEHIND
+                r.jobs.put(None)  # any still-pending flushes
         for r in self.replicas:
             if r.thread is not None:
                 r.thread.join(timeout=5.0)
-        with self._cond:                           # belt and braces: no future
-            leftovers = self._drain_locked()       # survives close unresolved
+        with self._cond:  # belt and braces: no future
+            leftovers = self._drain_locked()  # survives close unresolved
         if leftovers:
             self.telemetry.record_closed(
                 len(leftovers), sum(p.Z.shape[0] for p in leftovers)
@@ -558,7 +558,7 @@ class MicroBatcher:
                             remaining = wake - now
                             if remaining > 0:
                                 self._cond.wait(timeout=remaining)
-                                continue                   # re-evaluate
+                                continue  # re-evaluate
                             batch, deadline_hit = \
                                 self._drain_locked(self._flush_limit()), True
                             tightened = wait_s < self.max_wait_s * TIGHTENED_BELOW
@@ -673,14 +673,14 @@ class MicroBatcher:
 
         replica = self._select_replica()
         for r in self.replicas:
-            self._sync_breaker_telemetry(r)       # open -> half_open probes
-        if replica is None:                       # every breaker refused
+            self._sync_breaker_telemetry(r)  # open -> half_open probes
+        if replica is None:  # every breaker refused
             self._execute_degraded(batch, sizes, rows,
                                    deadline=deadline, tightened=tightened)
             return
         with self._acct:
             replica.inflight_rows += rows
-        if replica.jobs is not None:              # threaded replica dispatch
+        if replica.jobs is not None:  # threaded replica dispatch
             replica.jobs.put((batch, sizes, rows, deadline, tightened))
             return
         self._dispatch(replica, batch, sizes, rows,
@@ -695,8 +695,8 @@ class MicroBatcher:
             try:
                 self._dispatch(replica, batch, sizes, rows,
                                deadline=deadline, tightened=tightened)
-            except BaseException as e:            # _dispatch's own handling
-                for p in batch:                   # failed: nothing may hang
+            except BaseException as e:  # _dispatch's own handling
+                for p in batch:  # failed: nothing may hang
                     if not p.future.done():
                         try:
                             p.future.set_exception(e)
@@ -765,7 +765,7 @@ class MicroBatcher:
 
             result.on_materialize = _on_materialize
             slices = result.split(sizes)
-        except BaseException as e:                 # scatter the failure too
+        except BaseException as e:  # scatter the failure too
             with self._acct:
                 replica.inflight_rows -= rows
                 replica.failures += 1
@@ -773,7 +773,7 @@ class MicroBatcher:
                                         tightened=tightened)
             self.telemetry.record_batch_failure(len(batch), rows)
             self.telemetry.record_replica_failure(replica.index)
-            _emit_queue_waits()          # the wait happened even if the step failed
+            _emit_queue_waits()  # the wait happened even if the step failed
             self._span("flush.failed", trace_id=flush_trace, t_start=t0,
                        attrs={"replica": replica.index, "rows": rows,
                               "error": type(e).__name__})

@@ -71,8 +71,8 @@ import math
 import threading
 
 DEFAULT_WINDOW = 4096
-DEFAULT_VALIDITY_WINDOW = 256          # recent flushes tracked for drift
-HEAL_HISTORY = 32                      # DriftGuard heal verdicts retained
+DEFAULT_VALIDITY_WINDOW = 256  # recent flushes tracked for drift
+HEAL_HISTORY = 32  # DriftGuard heal verdicts retained
 
 BREAKER_STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
 
@@ -110,7 +110,7 @@ class LatencyWindow:
         if not samples:
             return {"n": 0, "p50_ms": None, "p99_ms": None}
         return {
-            "n": total,                       # recorded ever; window may be smaller
+            "n": total,  # recorded ever; window may be smaller
             "p50_ms": round(_nearest_rank(samples, 50) * 1e3, 4),
             "p99_ms": round(_nearest_rank(samples, 99) * 1e3, 4),
         }
@@ -261,8 +261,8 @@ class ModelTelemetry:
         self._requests = 0
         self._rows = 0
         self._flushes = 0
-        self._deadline_flushes = 0        # flushed because max_wait_us expired
-        self._queue_rows = 0              # rows currently pending
+        self._deadline_flushes = 0  # flushed because max_wait_us expired
+        self._queue_rows = 0  # rows currently pending
         self._max_queue_rows = 0
         # -- admission / deadline / failure accounting
         self._shed_requests = 0

@@ -280,16 +280,31 @@ class _PinnedStaging:
 
 
 class SVMEngine:
+    """Serve ``model`` (a ``CompiledArtifact``, or an ``ApproxModel`` taken
+    as a maclaurin artifact) on ``device`` (the card unless the CPU is
+    named).
+
+    ``exact`` enables the per-row fallback and ``submit_exact``;
+    ``allow_fallback=False`` keeps the exact model for ``submit_exact``
+    (the runtime's degraded mode) but returns rows outside the envelope
+    unpatched, with ``valid`` False. ``tile_config`` pins every bucket's
+    ``TileConfig`` (its ``block_n`` clamped to the bucket) instead of the
+    tuning table's. The reference's ``block_m`` has no counterpart: B2's
+    SV tile is fixed in ``csrc/rbf_pred.cu``.
+    """
+
     def __init__(
         self,
         model: CompiledArtifact | ApproxModel,
         exact: SVMModel | None = None,
         *,
+        allow_fallback: bool = True,
         mesh=None,
         head_mesh=None,
         device=None,
         min_bucket: int = 32,
         max_batch: int = 8192,
+        tile_config: TileConfig | None = None,
     ):
         if mesh is not None or head_mesh is not None:
             raise NotImplementedError(
@@ -315,6 +330,8 @@ class SVMEngine:
         self.family = self.artifact.family
         self.dtype = self.artifact.dtype
         self.exact = exact
+        self.allow_fallback = allow_fallback and exact is not None
+        self.tile_config = tile_config
         self.multiclass = self.artifact.multiclass
         self.num_heads = self.artifact.num_heads
         self.d = self.artifact.d
@@ -340,13 +357,19 @@ class SVMEngine:
     # ---------------------------------------------------------- tile tuning
 
     def _resolve_tile_config(self, bucket: int) -> TileConfig:
-        """The TileConfig this shape bucket runs with (resolved once)."""
+        """The TileConfig this shape bucket runs with (resolved once): the
+        pinned ``tile_config`` or the tuning table's entry for the family's
+        kernel and this bucket, ``block_n`` clamped to the bucket."""
         with self._config_lock:
             cached = self.bucket_configs.get(bucket)
             if cached is not None:
                 return cached
-            kernel, key = self._family.tile_lookup(self.artifact, bucket)
-            cfg = tuning.lookup(kernel, key).clamp_block_n(bucket)
+            if self.tile_config is not None:
+                base = self.tile_config
+            else:
+                kernel, key = self._family.tile_lookup(self.artifact, bucket)
+                base = tuning.lookup(kernel, key)
+            cfg = base.clamp_block_n(bucket)
             self.bucket_configs[bucket] = cfg
             self.stats.record_compile()
             return cfg
@@ -409,7 +432,7 @@ class SVMEngine:
         """Enqueue one batch; returns without waiting for the card."""
         Z, chunks, event = self._run(Z, self._step, f"svm_engine.step/{self.family}")
         self.stats.record_batch(Z.shape[0], [(p.shape[0], m) for p, m in chunks])
-        return EngineResult(self, Z if self.exact is not None else None, chunks, event)
+        return EngineResult(self, Z if self.allow_fallback else None, chunks, event)
 
     @property
     def exact_available(self) -> bool:
@@ -483,7 +506,7 @@ class SVMEngine:
         valid = packed[:, k] > 0.5
         labels = packed[:, k + 1].astype(np.int32)
 
-        if Z is not None and not valid.all():
+        if Z is not None and self.allow_fallback and not valid.all():
             idx = np.nonzero(~valid)[0]
             self.stats.record_fallback(len(idx))
             rows = torch.from_numpy(np.ascontiguousarray(Z[idx])).to(self.device)

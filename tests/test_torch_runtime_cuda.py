@@ -225,6 +225,60 @@ def test_eviction_releases_card_memory(cuda, tmp_path):
         rt.predict("m0", Z)  # reloads from its file
 
 
+def test_server_over_a_cuda_runtime_answers_as_direct_submits(cuda):
+    """The HTTP front door over a runtime on the card: an f32 artifact
+    published in process with its exact model (fallback rows through B2)
+    and its int8 twin published over the wire (B3, no exact model), each
+    request's answer equal to its artifact's direct submit."""
+    import base64
+    import http.client
+
+    from repro_torch.serve import create_app, serve
+
+    svm = _model(cuda, seed=3)
+    f32 = maclaurin.compile(svm)
+    q8 = maclaurin.quantize_quadform_artifact(f32)
+    direct = {"f32": SVMEngine(f32, svm, **OPTS), "q8": SVMEngine(q8, None, **OPTS)}
+    requests = _requests(4, 24)
+    build.reset_counts()
+    rt = Runtime(max_wait_us=2_000, engine_opts=OPTS)
+    app = create_app(runtime=rt)
+    handle = serve(app)
+    try:
+        rt.publish("f32", f32.to("cpu"), PublishSpec(exact=svm))
+        conn = http.client.HTTPConnection(handle.host, handle.port, timeout=60)
+
+        def post(path, body):
+            conn.request("POST", path, body=json.dumps(body).encode())
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+
+        payload = base64.b64encode(q8.to_bytes()).decode()
+        spec = {"alias": "q8"}
+        status, body = post("/v1/models", {"artifact_b64": payload, "spec": spec})
+        assert status == 201 and body["digest"] == q8.digest()
+        for alias, engine in direct.items():
+            for Z in requests:
+                status, body = post(f"/v1/models/{alias}:predict", {"rows": Z.tolist()})
+                assert status == 200, body
+                want = engine.submit(Z)
+                got = np.asarray(body["scores"], np.float32)
+                scale = max(1.0, float(np.abs(want.values).max()))
+                np.testing.assert_allclose(
+                    got, want.values, rtol=2e-4, atol=2e-4 * scale
+                )
+                assert body["labels"] == want.labels.tolist()
+                assert body["valid"] == want.valid.tolist()
+                assert body["dtype"] == engine.dtype
+        conn.close()
+    finally:
+        handle.close()
+        rt.close()
+    counts = build.counts()
+    for name in ("quadform_heads", "quadform_heads_q8", "rbf_scores"):
+        assert counts[name] > 0, name
+
+
 def test_profile_holds_the_step_range_and_kernel_b1(cuda, tmp_path):
     """Last in this file: ``torch.profiler`` slows every later launch of
     its process."""
