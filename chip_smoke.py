@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives six paths: five at the
+source, all started together) and drives seven paths: six at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
@@ -48,7 +48,14 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side:
    artifact's direct submit, the cost of the hop against path 5's
    in-process latency from the same run); typed refusals (401, tenant
    quota, overload) on a second, tenanted server, with client, telemetry
-   and span counts conserved; and a ``/metrics`` scrape.
+   and span counts conserved; and a ``/metrics`` scrape;
+7. scale-out (``examples/svm_scaleout.py``'s acts) on meshes of 4 x the
+   one card: path 1's f32 artifact behind a runtime with 1, 2 and 4
+   replicas serving path 5's plan, a fault isolated to one replica of
+   three, head-sharded engines (``head_mesh=``) for the six (family,
+   dtype) artifacts at the mnist width and four at 4096 heads (d=32), and
+   path 1's exact model with its SVs split (``mesh=``), each held against
+   the unsharded engine (kernels B1-B7).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -234,6 +241,18 @@ HTTP_FLOOD = (64, 4, 8)
 DRIFT_N_SV, DRIFT_GAMMA_SHARE, DRIFT_SCALE, DRIFT_ROWS = 16384, 0.8, 1.5, 512
 DRIFT_BUDGET = dict(max_err=0.2, metric="mean_abs", relative=True)
 DRIFT_FEATURES, DRIFT_THRESHOLD, DRIFT_AGREEMENT = 4096, 0.25, 0.9
+# Seventh path: scale-out on the card. Path 1's f32 artifact published
+# with SCALE_REPLICAS replicas on a runtime at path 5's settings, served
+# path 5's plan; a scripted fault on one of 3 replicas; head-sharded and
+# SV-sharded engines on a mesh of SCALE_SHARDS x the one card (a logical
+# split: S launches and a gather against one launch). Extreme multiclass:
+# the reference example's one-vs-rest model (EXTREME = K, d, n_sv, rows).
+SCALE_REPLICAS = (1, 2, 4)
+SCALE_FAULT_REQUESTS = 8
+SCALE_SHARDS = 4
+SCALE_FEATURES = 4096
+EXTREME = (4096, 32, 64, 256)
+EXTREME_FF_FEATURES = 64
 
 
 class PhaseFailed(RuntimeError):
@@ -507,12 +526,14 @@ def rms(x) -> float:
     return float(x.double().pow(2).mean().sqrt())
 
 
-def median_request_ms(engine, Z, repeats: int = 10) -> float:
-    """Median host time of ``engine.submit(Z)`` through labels on the host."""
+def median_request_ms(engine, Z, repeats: int = 10, exact: bool = False) -> float:
+    """Median host time of ``engine.submit(Z)`` (``submit_exact`` with
+    ``exact``) through labels on the host."""
+    submit = engine.submit_exact if exact else engine.submit
     times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
-        engine.submit(Z).labels
+        submit(Z).labels
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times)[len(times) // 2]
 
@@ -826,6 +847,68 @@ def nearest_rank(xs, q: float) -> float:
     return xs[min(len(xs) - 1, max(0, int(np.ceil(q / 100 * len(xs))) - 1))]
 
 
+def runtime_plan(rng, pool_rows: int) -> list[list[tuple]]:
+    """Paths 5-7's traffic: RT_CLIENTS clients of RT_REQUESTS requests, each
+    (alias, indices of 1 to RT_MAX_ROWS rows of a pool of ``pool_rows``),
+    the alias one of path 5's two tenants, drawn from ``rng``."""
+    return [
+        [
+            (
+                ("mnist-f32", "mnist-int8")[int(rng.integers(0, 2))],
+                rng.choice(pool_rows, size=int(rng.integers(1, RT_MAX_ROWS + 1))),
+            )
+            for _ in range(RT_REQUESTS)
+        ]
+        for _ in range(RT_CLIENTS)
+    ]
+
+
+def drive_clients(work, pool, fn):
+    """Every client's requests of ``work`` through ``fn(alias, rows)``, one at
+    a time per client thread: (results, sorted per-request host ms, wall
+    seconds)."""
+    import threading
+
+    got = [[None] * len(w) for w in work]
+    lat, lock = [], threading.Lock()
+
+    def client(c):
+        for k, (a, idx) in enumerate(work[c]):
+            t = time.perf_counter()
+            got[c][k] = read(fn(a, pool[idx]))
+            with lock:
+                lat.append((time.perf_counter() - t) * 1e3)
+
+    t = time.perf_counter()
+    run_threads(client, [(c,) for c in range(len(work))])
+    return got, sorted(lat), time.perf_counter() - t
+
+
+def hold_answers(work, pool, got, want, exact) -> tuple[float, int, float]:
+    """Hold every answer of ``got`` against ``want`` (values within RT_TOL,
+    equal labels and validity) and the rows out of the envelope against
+    float64's labels: (worst |delta| / tolerance, rows out of the envelope,
+    their label agreement)."""
+    worst, far_rows, far_labels = 0.0, [], []
+    for c, w in enumerate(work):
+        for k, (_, idx) in enumerate(w):
+            (v, ok, lab), (v0, ok0, lab0) = got[c][k], want[c][k]
+            scale = max(1.0, float(np.abs(v0).max()))
+            tol = RT_TOL * scale + RT_TOL * np.abs(v0)
+            ratio = float((np.abs(v - v0) / tol).max())
+            worst = max(worst, ratio)
+            check(ratio <= 1.0, f"client {c} request {k}: values, x{ratio} tol")
+            check(bool((lab == lab0).all()), f"client {c} request {k}: labels")
+            check(bool((ok == ok0).all()), f"client {c} request {k}: valid")
+            far_rows.append(pool[idx][~ok])
+            far_labels.append(lab[~ok])
+    far_rows, far_labels = np.concatenate(far_rows), np.concatenate(far_labels)
+    check(len(far_rows) > 0, "no request carried a row out of the envelope")
+    far_agree = float((far_labels == exact(far_rows)[0].argmax(-1)).mean())
+    check(far_agree == 1.0, f"fallback rows' labels against float64: {far_agree}")
+    return worst, len(far_rows), far_agree
+
+
 def drift_model(dev):
     """The drift act's model and rows (see DRIFT_*): (svm, in-distribution
     rows, the same rows scaled out of the envelope)."""
@@ -920,57 +1003,18 @@ def fifth_path(dev, svm, mac, X_te, requests, exact):
 
         pool = np.concatenate([Z for Z, _ in requests])
         rng = np.random.default_rng(SEED + 5)
-        work = [
-            [
-                (
-                    ("mnist-f32", "mnist-int8")[int(rng.integers(0, 2))],
-                    rng.choice(len(pool), size=int(rng.integers(1, RT_MAX_ROWS + 1))),
-                )
-                for _ in range(RT_REQUESTS)
-            ]
-            for _ in range(RT_CLIENTS)
-        ]
+        work = runtime_plan(rng, len(pool))
         want = [[read(direct[a].submit(pool[i])) for a, i in w] for w in work]
 
         def clients(fn):
-            """Every client's requests through ``fn(alias, rows)``, one at a
-            time per client: (results, per-request host ms, wall seconds)."""
-            got = [[None] * RT_REQUESTS for _ in range(RT_CLIENTS)]
-            lat, lock = [], threading.Lock()
-
-            def client(c):
-                for k, (a, idx) in enumerate(work[c]):
-                    t = time.perf_counter()
-                    got[c][k] = read(fn(a, pool[idx]))
-                    with lock:
-                        lat.append((time.perf_counter() - t) * 1e3)
-
-            t = time.perf_counter()
-            run_threads(client, [(c,) for c in range(RT_CLIENTS)])
-            return got, sorted(lat), time.perf_counter() - t
+            return drive_clients(work, pool, fn)
 
         st0 = {a: rt.stats(a) for a in arts}
         got, lat, wall = clients(lambda a, Z: rt.submit(a, Z).result(timeout=60))
         _, lat_direct, wall_direct = clients(lambda a, Z: direct[a].submit(Z))
         st1 = {a: rt.stats(a) for a in arts}
         rows = sum(len(i) for w in work for _, i in w)
-        worst, far_rows, far_labels = 0.0, [], []
-        for c in range(RT_CLIENTS):
-            for k, (a, idx) in enumerate(work[c]):
-                (v, ok, lab), (v0, ok0, lab0) = got[c][k], want[c][k]
-                scale = max(1.0, float(np.abs(v0).max()))
-                tol = RT_TOL * scale + RT_TOL * np.abs(v0)
-                ratio = float((np.abs(v - v0) / tol).max())
-                worst = max(worst, ratio)
-                check(ratio <= 1.0, f"client {c} request {k}: values, x{ratio} tol")
-                check(bool((lab == lab0).all()), f"client {c} request {k}: labels")
-                check(bool((ok == ok0).all()), f"client {c} request {k}: valid")
-                far_rows.append(pool[idx][~ok])
-                far_labels.append(lab[~ok])
-        far_rows, far_labels = np.concatenate(far_rows), np.concatenate(far_labels)
-        check(len(far_rows) > 0, "no request carried a row out of the envelope")
-        far_agree = float((far_labels == exact(far_rows)[0].argmax(-1)).mean())
-        check(far_agree == 1.0, f"fallback rows' labels against float64: {far_agree}")
+        worst, far_rows, far_agree = hold_answers(work, pool, got, want, exact)
         steps = sum(st1[a]["flushes"] - st0[a]["flushes"] for a in arts)
         reqs = sum(st1[a]["requests"] - st0[a]["requests"] for a in arts)
         recompiles = sum(engines[a].stats.compiled_steps - configs[a] for a in arts)
@@ -978,7 +1022,7 @@ def fifth_path(dev, svm, mac, X_te, requests, exact):
             digests={a: d[:16] for a, d in digests.items()},
             requests=reqs,
             rows=rows,
-            fallback_rows=int(len(far_rows)),
+            fallback_rows=far_rows,
             fallback_label_agree=far_agree,
             engine_steps=steps,
             coalescing_factor=reqs / max(1, steps),
@@ -1281,17 +1325,7 @@ def sixth_path(dev, svm, mac, requests, exact, in_process_p50_ms: float) -> dict
     }
     pool = np.concatenate([Z for Z, _ in requests])
     pushed = np.concatenate([s for _, s in requests])
-    rng = np.random.default_rng(SEED + 5)  # path 5's plan
-    work = [
-        [
-            (
-                ("mnist-f32", "mnist-int8")[int(rng.integers(0, 2))],
-                rng.choice(len(pool), size=int(rng.integers(1, RT_MAX_ROWS + 1))),
-            )
-            for _ in range(RT_REQUESTS)
-        ]
-        for _ in range(RT_CLIENTS)
-    ]
+    work = runtime_plan(np.random.default_rng(SEED + 5), len(pool))  # path 5's
     want = [[read(direct[a].submit(pool[i])) for a, i in w] for w in work]
     bodies = [[body_bytes(pool[i]) for _, i in w] for w in work]
     del direct
@@ -1600,6 +1634,355 @@ def refusals(dev, mac, svm, pool) -> dict:
         rt.close()
 
 
+def replica_act(dev, svm, mac, pool, work, want, exact, replicas: int) -> dict:
+    """Path 5's plan through a runtime serving ``mac`` with ``replicas``
+    replicas on the card, held against direct submits (``want``)."""
+    from repro_torch.serve import PublishSpec, Runtime
+    from repro_torch.serve.runtime import MetricsRegistry, Observability
+
+    rt = Runtime(
+        engine_opts=dict(device=dev, **RT_OPTS),
+        max_wait_us=RT_WAIT_US,
+        max_queue_rows=RT_QUEUE_ROWS,
+        obs=Observability(registry=MetricsRegistry()),
+    )
+    try:
+        rt.publish("mnist-f32", mac.to("cpu"), PublishSpec(exact=svm, replicas=replicas))
+        rt.warmup("mnist-f32")
+        engines = rt.registry.get_engines("mnist-f32")[1]
+        check(len(engines) == replicas, f"{len(engines)} engines for {replicas}")
+        configs = sum(e.stats.compiled_steps for e in engines)
+        got, lat, wall = drive_clients(
+            work, pool, lambda _, Z: rt.submit("mnist-f32", Z).result(timeout=60)
+        )
+        st = rt.stats("mnist-f32")
+        recompiles = sum(e.stats.compiled_steps for e in engines) - configs
+    finally:
+        rt.close()
+    worst, far_rows, far_agree = hold_answers(work, pool, got, want, exact)
+    per = st["replicas"]
+    rows = sum(len(i) for w in work for _, i in w)
+    out = dict(
+        replicas=replicas,
+        requests=st["requests"],
+        rows=rows,
+        fallback_rows=far_rows,
+        fallback_label_agree=far_agree,
+        engine_steps=st["flushes"],
+        flushes_per_replica=[per[i]["flushes"] for i in sorted(per)],
+        rows_per_replica=[per[i]["rows"] for i in sorted(per)],
+        p50_ms=nearest_rank(lat, 50),
+        p99_ms=nearest_rank(lat, 99),
+        rows_per_s=rows / wall,
+        max_err_over_tol=worst,
+        failed=st["failed_requests"],
+        shed=st["shed_requests"],
+        steady_state_recompiles=recompiles,
+    )
+    phase("scaleout_replicas", **out)
+    check(sorted(per) == [str(i) for i in range(replicas)], f"replicas: {sorted(per)}")
+    check(min(out["flushes_per_replica"]) >= 1, f"an idle replica: {out}")
+    check(sum(out["flushes_per_replica"]) == st["flushes"], "flushes conserved")
+    check(sum(out["rows_per_replica"]) == st["rows"], "rows conserved")
+    check(st["failed_requests"] == 0 == st["shed_requests"], "failed or shed requests")
+    check(st["requests"] == RT_CLIENTS * RT_REQUESTS, f"requests: {st['requests']}")
+    check(recompiles == 0, f"{recompiles} new bucket configs after warm-up")
+    return out
+
+
+def fault_act(dev, svm, mac, inside) -> dict:
+    """``examples/svm_scaleout.py``'s act 2 on the card: 3 replicas, one
+    scripted fault on replica 1 opening only its breaker, the siblings
+    answering every other request on the fast path."""
+    from repro_torch.serve import FaultInjector, PublishSpec, Runtime
+    from repro_torch.serve.runtime import (
+        ENGINE_STEP,
+        InjectedFault,
+        MetricsRegistry,
+        Observability,
+    )
+
+    faults = FaultInjector(seed=SEED)
+    rt = Runtime(
+        engine_opts=dict(device=dev, **RT_OPTS),
+        max_wait_us=RT_WAIT_US,
+        max_queue_rows=RT_QUEUE_ROWS,
+        breaker=dict(fail_threshold=1, reset_after_s=60.0),
+        fault_injector=faults,
+        obs=Observability(registry=MetricsRegistry()),
+    )
+    try:
+        rt.publish("mnist-f32", mac.to("cpu"), PublishSpec(exact=svm, replicas=3))
+        rt.predict("mnist-f32", inside[:2])  # warm flush -> replica 0
+        faults.fail_next(FaultInjector.replica_site(ENGINE_STEP, 1), 1)
+        failed, fast = 0, 0
+        for i in range(SCALE_FAULT_REQUESTS):
+            try:
+                _, valid = rt.predict("mnist-f32", inside[4 * i : 4 * i + 4])
+            except InjectedFault:
+                failed += 1
+            else:
+                fast += int(valid.all())
+        st = rt.stats("mnist-f32")
+    finally:
+        rt.close()
+    per = st["replicas"]
+    states = {i: per[i]["breaker_state"] for i in sorted(per)}
+    out = dict(
+        replicas=3,
+        requests=SCALE_FAULT_REQUESTS,
+        failed=failed,
+        answered_fast=fast,
+        breakers=states,
+        flushes_per_replica=[per[i]["flushes"] for i in sorted(per)],
+        degraded_requests=st["breaker"]["degraded_requests"],
+    )
+    phase("scaleout_fault", **out)
+    check(failed == 1, f"{failed} requests failed, not 1")
+    check(states == {"0": "closed", "1": "open", "2": "closed"}, f"breakers: {states}")
+    check(fast == SCALE_FAULT_REQUESTS - 1, f"{fast} answered on the fast path")
+    check(st["breaker"]["degraded_requests"] == 0, "the model degraded")
+    return out
+
+
+def extreme_model(dev):
+    """``examples/svm_scaleout.py``'s ``make_model(7, k=4096, d=32)`` (EXTREME)
+    and its rows: (svm, rows)."""
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core.bounds import gamma_max
+
+    k, d, n_sv, n = EXTREME
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((n_sv, d)).astype(np.float32) * 0.5
+    gamma = 0.8 * float(gamma_max(torch.from_numpy(X)))
+    ay = rng.standard_normal((k, n_sv)).astype(np.float32) * 0.5
+    b = (rng.standard_normal(k) * 0.1).astype(np.float32)
+    Z = np.random.default_rng(2).standard_normal((n, d)).astype(np.float32)
+    return convert.svm_from_numpy(X, ay, b, gamma, device=dev), Z
+
+
+def extreme_fastfood(dev, dtype: str):
+    """A K = 4096 Fastfood artifact at d = 32, F = 64 built from arrays, as
+    ``tests/test_scaleout.py``'s ``_synthetic_fastfood_artifact``."""
+    import torch
+
+    from repro_torch.core.families import CompiledArtifact, fourier
+    from repro_torch.core.families.base import base_meta
+
+    k, d = EXTREME[:2]
+    rng = np.random.default_rng(SEED)
+    arrays, f, proj = fourier._fastfood_arrays(rng, d, EXTREME_FF_FEATURES, 0.5)
+    arrays = dict(arrays)
+    arrays["phase"] = rng.uniform(0, 2 * np.pi, (f,)).astype(np.float32)
+    arrays["weights"] = (rng.standard_normal((k, f)) * 0.05).astype(np.float32)
+    arrays["b"] = (rng.standard_normal(k) * 0.1).astype(np.float32)
+    meta = dict(kind="rff", validity="global", num_features=f, seed=SEED, **proj)
+    art = CompiledArtifact(
+        family="fourier",
+        arrays={n: torch.from_numpy(a).to(dev) for n, a in arrays.items()},
+        meta=base_meta(d=d, num_heads=k, multiclass=True, **meta),
+    )
+    return fourier.quantize_fastfood_artifact(art) if dtype == "int8" else art
+
+
+def shard_parity(label, art, Z, mesh, dev, **engine_opts) -> dict:
+    """Serve ``Z`` through ``art`` on an unsharded and a head-sharded engine
+    (no exact model: the kernels' own scores): shapes, both engines' scores
+    within the kernel's twin tolerance of the plain twin's on the same rows
+    and of each other, finite scores, no label on a padding head, equal
+    validity, equal labels but on rows whose top two scores lie within that
+    tolerance (counted), and both engines' warmed submit times (host clock,
+    median of 10)."""
+    import torch
+
+    from repro_torch.serve import SVMEngine
+
+    ref = SVMEngine(art, device=dev, **engine_opts)
+    shd = SVMEngine(art, head_mesh=mesh, **engine_opts)
+    Zd = torch.from_numpy(Z).to(dev)
+    s0, tol = plain_scores(art, Zd)
+    s0 = s0.cpu().numpy()
+    r_ref, r_shd = ref.submit(Z), shd.submit(Z)
+    v0, v1 = r_ref.values, r_shd.values
+    k = art.num_heads
+    top2 = np.sort(v0, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > tol
+    out = dict(
+        cell=label,
+        rows=int(Z.shape[0]),
+        k=k,
+        padded_heads=shd._serve_artifact.meta.get("padded_heads", k),
+        max_abs_err=float(np.abs(v1 - v0).max()),
+        max_abs_err_vs_plain=float(np.abs(v0 - s0).max()),
+        sharded_max_abs_err_vs_plain=float(np.abs(v1 - s0).max()),
+        tol=tol,
+        max_abs_ref=float(np.abs(v0).max()),
+        valid_rows=int(r_ref.valid.sum()),
+        label_agree_decided=float((r_shd.labels == r_ref.labels)[decided].mean()),
+        near_tie_rows=int((~decided).sum()),
+        scores_finite=bool(np.isfinite(v1).all()),
+        labels_on_real_heads=bool((r_shd.labels < k).all()),
+        sharded_ms=median_request_ms(shd, Z),
+        unsharded_ms=median_request_ms(ref, Z),
+    )
+    phase("head_sharded", **out)
+    check(v1.shape == (Z.shape[0], k), f"{label}: scores {v1.shape}")
+    check(out["max_abs_err"] <= tol, f"{label}: {out['max_abs_err']} > {tol}")
+    for key in ("max_abs_err_vs_plain", "sharded_max_abs_err_vs_plain"):
+        check(out[key] <= tol, f"{label}: {key} {out[key]} > {tol}")
+    check(bool((r_shd.valid == r_ref.valid).all()), f"{label}: validity differs")
+    check(out["label_agree_decided"] == 1.0, f"{label}: labels on decided rows")
+    check(out["scores_finite"], f"{label}: a score is not finite")
+    check(out["labels_on_real_heads"], f"{label}: a padding head won the argmax")
+    return out
+
+
+def seventh_path(dev, svm, mac, X_te, Zq, requests, exact) -> dict:
+    """Scale-out on the card (``examples/svm_scaleout.py``): replicas of path
+    1's f32 artifact behind one runtime (``scaleout_replicas``), a fault
+    isolated to one replica (``scaleout_fault``), head-sharded engines at
+    the mnist width for the six (family, dtype) artifacts and at K = 4096
+    (``head_sharded``), and path 1's exact model with its SVs split
+    (``sv_sharded``), every mesh ``SCALE_SHARDS`` x the one card.
+
+    ``mac`` is path 1's f32 maclaurin artifact, ``Zq`` its kernel check rows
+    (both sides of the envelope), ``requests`` its (rows, pushed-out mask)
+    list, ``exact`` its float64 reference. Returns every kernel's launches
+    on this path."""
+    import torch
+
+    from repro_torch.core.families import fourier, maclaurin
+    from repro_torch.kernels import build
+    from repro_torch.launch import make_mesh
+    from repro_torch.serve import SVMEngine
+
+    t_path = time.perf_counter()
+    seconds = {}
+    build.reset_counts()
+
+    # ------------------------------------------------------------ replicas
+    t0 = time.perf_counter()
+    pool = np.concatenate([Z for Z, _ in requests])
+    work = runtime_plan(np.random.default_rng(SEED + 5), len(pool))  # path 5's
+    direct = SVMEngine(mac, svm, device=dev, **RT_OPTS)
+    direct.warmup()
+    want = [[read(direct.submit(pool[i])) for _, i in w] for w in work]
+    for replicas in SCALE_REPLICAS:
+        replica_act(dev, svm, mac, pool, work, want, exact, replicas)
+    inside = np.concatenate([Z[~s] for Z, s in requests])
+    fault_act(dev, svm, mac, inside)
+    seconds["replicas"] = time.perf_counter() - t0
+
+    # ---------------------------------------------------- head-sharded
+    t0 = time.perf_counter()
+    mesh = make_mesh((SCALE_SHARDS,), ("heads",), devices=[dev] * SCALE_SHARDS)
+    Z = Zq.cpu().numpy()
+    arts = {
+        "maclaurin/float32": mac,
+        "maclaurin/int8": maclaurin.quantize_quadform_artifact(mac),
+    }
+    for dt in ("float32", "int8"):
+        for label, structured in (("fourier", False), ("fastfood", True)):
+            arts[f"{label}/{dt}"] = fourier.compile(
+                svm,
+                num_features=SCALE_FEATURES,
+                structured=structured,
+                dtype=dt,
+                seed=SEED,
+            )
+    for label, art in arts.items():
+        shard_parity(label, art, Z, mesh, dev)
+    seconds["head_sharded"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    big, Zb = extreme_model(dev)
+    extreme = {
+        "maclaurin/float32": maclaurin.compile(big),
+        "maclaurin/int8": maclaurin.compile(big, dtype="int8", seed=SEED),
+        "fastfood/float32": extreme_fastfood(dev, "float32"),
+        "fastfood/int8": extreme_fastfood(dev, "int8"),
+    }
+    n = EXTREME[3]
+    for label, art in extreme.items():
+        label = f"K={EXTREME[0]} {label}"
+        shard_parity(label, art, Zb, mesh, dev, min_bucket=n, max_batch=n)
+    seconds["head_sharded_extreme"] = time.perf_counter() - t0
+
+    # ------------------------------------------------------ SV-sharded
+    t0 = time.perf_counter()
+    sv_mesh = make_mesh((SCALE_SHARDS,), ("sv",), devices=[dev] * SCALE_SHARDS)
+    ref = SVMEngine(mac, svm, device=dev)
+    shd = SVMEngine(mac, svm, mesh=sv_mesh)
+    for engine in (ref, shd):
+        engine.warmup(list(REQUEST_ROWS))
+    Zx = X_te[-EXACT_ROWS * 4 :]
+    b2 = build.counts()["rbf_scores"]
+    got = shd.submit_exact(Zx)
+    got_values = got.values
+    b2 = build.counts()["rbf_scores"] - b2
+    want_x = ref.submit_exact(Zx).values
+    ref64, tol = exact(Zx)
+    top2 = np.sort(ref64, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * tol
+    fallback_err, fallback_rows, fallback_agree = 0.0, 0, 0
+    for Zr, scaled in requests:
+        r = shd.submit(Zr)
+        check(bool((r.valid == ~scaled).all()), "sv_sharded: valid != envelope")
+        if scaled.any():
+            far64, far_tol = exact(Zr[scaled])
+            err = float(np.abs(r.values[scaled] - far64).max())
+            check(err <= far_tol, f"sv_sharded fallback values: {err} > {far_tol}")
+            fallback_err = max(fallback_err, err)
+            fallback_rows += int(scaled.sum())
+            fallback_agree += int((r.labels[scaled] == far64.argmax(-1)).sum())
+    out = dict(
+        shards=SCALE_SHARDS,
+        svs_per_shard=shd._sv_rows,
+        rows=int(Zx.shape[0]),
+        b2_launches_a_call=b2,
+        max_abs_err_vs_unsharded=float(np.abs(got_values - want_x).max()),
+        max_abs_err_vs_float64=float(np.abs(got_values - ref64).max()),
+        unsharded_max_abs_err_vs_float64=float(np.abs(want_x - ref64).max()),
+        tol=tol,
+        label_agree_decided=float((got.labels == ref64.argmax(-1))[decided].mean()),
+        rows_tied_in_fp32=int((~decided).sum()),
+        fallback_rows=fallback_rows,
+        fallback_stat=shd.stats.fallback_instances,
+        fallback_max_abs_err=fallback_err,
+        fallback_label_agree=fallback_agree / max(1, fallback_rows),
+        submit_exact_sharded_ms=median_request_ms(shd, Zx, exact=True),
+        submit_exact_unsharded_ms=median_request_ms(ref, Zx, exact=True),
+    )
+    phase("sv_sharded", **out)
+    check(b2 == SCALE_SHARDS, f"B2 launched {b2} times for {SCALE_SHARDS} shards")
+    check(out["max_abs_err_vs_unsharded"] <= tol, f"sv_sharded against unsharded: {out}")
+    check(out["max_abs_err_vs_float64"] <= tol, f"sv_sharded against float64: {out}")
+    check(out["label_agree_decided"] == 1.0, "sv_sharded labels against float64")
+    check(fallback_rows == shd.stats.fallback_instances > 0, "sv_sharded fallback rows")
+    check(fallback_agree == fallback_rows, "sv_sharded fallback labels against float64")
+    seconds["sv_sharded"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    launches = build.counts()
+    phase("seventh_path_launches", **launches)
+    path_kernels = (
+        "quadform_heads",
+        "rbf_scores",
+        "quadform_heads_q8",
+        "rff_score",
+        "rff_score_q8",
+        "fastfood_score",
+        "fastfood_score_q8",
+    )
+    for name in path_kernels:
+        check(launches[name] > 0, f"{name} never launched on the seventh path")
+    seconds["path7_seconds"] = time.perf_counter() - t_path
+    phase("seventh_path_seconds", **seconds)
+    return launches
+
+
 def run(dev) -> list[dict]:
     """Every phase on ``dev``; returns the ``kernels`` entries."""
     import torch
@@ -1869,6 +2252,8 @@ def run(dev) -> list[dict]:
     # ============================ sixth path (the HTTP front door, after 5)
     p50 = out5["coalesce"]["p50_ms"]
     launches6 = sixth_path(dev, svm, loaded, requests, exact, p50)
+    # ================================ seventh path (scale-out on the card)
+    launches7 = seventh_path(dev, svm, loaded, X_te, Zq, requests, exact)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -1876,7 +2261,7 @@ def run(dev) -> list[dict]:
     profiled = build.counts()
     phase("runtime_profile_launches", seconds=time.perf_counter() - t0, **profiled)
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
-    paths = (launches, launches2, launches3, launches4, launches5, launches6)
+    paths = (launches, launches2, launches3, launches4, launches5, launches6, launches7)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [

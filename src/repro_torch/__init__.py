@@ -1,7 +1,7 @@
 """``repro_torch`` — the PyTorch/CUDA port of ``repro``.
 
 It mirrors ``repro``'s layout module for module, so the counterpart of
-``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Five
+``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Seven
 paths run on a CUDA card through nine kernels written by hand for Hopper
 (``csrc/*.cu``, B1-B9):
 
@@ -21,7 +21,11 @@ paths run on a CUDA card through nine kernels written by hand for Hopper
 5. the multi-tenant serving runtime (``serve.runtime``: registry,
    coalescing, admission control, the circuit breaker degrading to B2,
    the drift guard recompiling through ``compile_model``) in front of
-   ``SVMEngine``.
+   ``SVMEngine``;
+6. the HTTP front door (``serve.server``) over that runtime;
+7. scale-out: ``SVMEngine``'s ``head_mesh=`` (heads split over a
+   ``launch.Mesh``, B1 and B3-B7 once a shard) and ``mesh=`` (the exact
+   model's SVs split, B2 once a shard), and runtime replicas.
 
 On CPU tensors every kernel wrapper computes with its plain PyTorch twin
 instead. Entry points (``SVMEngine``, ``Runtime``, ``CompiledArtifact.load``,

@@ -15,7 +15,10 @@
 Every family also compiles an int8 variant (``dtype="int8"``, see
 ``quantize``). A family module exports
 ``NAME``, ``compile(svm, **opts)``, ``score(artifact, Z, config=None)``,
-``TILE_KERNEL`` and ``tile_lookup(artifact, bucket)``.
+``TILE_KERNEL`` and ``tile_lookup(artifact, bucket)``, and for
+head-sharded serving ``pad_heads(artifact, multiple)``,
+``place_shards(artifact, mesh)`` and
+``score_sharded(artifact, Z, mesh=..., config=None)``.
 
 ``compile_model(svm, budget)`` is the front door: the §4 verification
 run across all families, returning the cheapest artifact within budget.

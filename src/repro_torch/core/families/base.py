@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch.core import backend
 
 # Readers accept anything <= their own version and reject newer files.
 # v2: quantized variants (int8 weights, ``dtype`` in the meta).
@@ -163,6 +164,31 @@ def as_batch(Z, device) -> torch.Tensor:
     if not isinstance(Z, torch.Tensor):
         Z = torch.from_numpy(np.asarray(Z, dtype=np.float32))
     return Z.to(device=device, dtype=torch.float32).contiguous()
+
+
+def pad_rows(x: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """``x`` with ``pad`` rows of ``value`` appended along its first axis."""
+    fill = torch.full((pad, *x.shape[1:]), value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, fill])
+
+
+def placed(artifact: "CompiledArtifact", mesh, heads: dict, shared: dict) -> dict:
+    """The operands a head-sharded scorer takes, placed on ``mesh``: each
+    tensor of ``heads`` cut into the shards of the mesh's first axis
+    (``backend.shard_heads``), each of ``shared`` on every shard's device
+    (``backend.replicate``). Placed on the first call for a mesh, kept in
+    ``artifact.derived`` and reused while the mesh and the given tensors are
+    the same, so a served batch moves no slab."""
+    key = ("placed", tuple(heads), tuple(shared))
+    given = tuple(heads.values()) + tuple(shared.values())
+    hit = artifact.derived.get(key)
+    if hit is not None and hit[0] == mesh:
+        if all(x is y for x, y in zip(hit[1], given)):
+            return hit[2]
+    out = {name: backend.shard_heads(t, mesh) for name, t in heads.items()}
+    out.update({name: backend.replicate(t, mesh) for name, t in shared.items()})
+    artifact.derived[key] = (mesh, given, out)
+    return out
 
 
 def stack_heads(svm) -> tuple[torch.Tensor, torch.Tensor, int, bool]:

@@ -37,9 +37,12 @@ import torch
 from repro_torch.core import backend
 from repro_torch.core.families import quantize
 from repro_torch.core.families.base import (
+    PAD_HEAD_BIAS,
     CompiledArtifact,
     as_batch,
     base_meta,
+    pad_rows,
+    placed,
     stack_heads,
 )
 from repro_torch.core.rbf import SVMModel
@@ -326,6 +329,88 @@ def score(artifact: CompiledArtifact, Z, *, config: TileConfig | None = None):
         scores = backend.rff_score(
             Z, a["W"], a["phase"], a["weights"], a["b"], config=config
         )
+    valid = torch.full(
+        (scores.shape[0],),
+        bool(artifact.meta.get("valid_globally", True)),
+        device=scores.device,
+    )
+    return scores, valid
+
+
+def pad_heads(artifact: CompiledArtifact, multiple: int) -> CompiledArtifact:
+    """Pad the head axis up to a multiple of ``multiple`` (head sharding).
+
+    Only the (K, F) readout, its head scales (int8) and the (K,) bias have
+    a head axis: padding heads get zero weights (int8: zero codes, scale
+    1) and the argmax-neutral ``PAD_HEAD_BIAS``. Validity is a
+    per-artifact verdict, which padding cannot move. ``meta["num_heads"]``
+    keeps the real K; already aligned, the same object is returned.
+    """
+    k = artifact.num_heads
+    pad = (-k) % max(1, int(multiple))
+    if pad == 0:
+        return artifact
+    a = artifact.arrays
+    arrays = dict(a)
+    arrays["weights"] = pad_rows(a["weights"], pad)
+    if artifact.dtype == quantize.INT8_DTYPE:
+        arrays["weights_scale"] = pad_rows(a["weights_scale"], pad, 1.0)
+    arrays["b"] = pad_rows(a["b"], pad, PAD_HEAD_BIAS)
+    return CompiledArtifact(
+        family=NAME,
+        arrays=arrays,
+        meta={**artifact.meta, "padded_heads": k + pad},
+    )
+
+
+def place_shards(artifact: CompiledArtifact, mesh) -> dict:
+    """The scorer's operands placed on ``mesh`` once per (artifact, mesh)
+    (``base.placed``): the readout, its head scales and the bias cut into
+    shards, the projection operands and the phase on every shard's
+    device."""
+    a = artifact.arrays
+    q8 = artifact.dtype == quantize.INT8_DTYPE
+    heads = {"weights": a["weights"], "b": a["b"]}
+    if q8:
+        heads["weights_scale"] = a["weights_scale"]
+    if artifact.meta.get("projection") == "fastfood":
+        names = ("ff_b", "ff_g", "ff_perm", "ff_scale")
+        names += ("ff_stack_scale", "phase") if q8 else ("phase",)
+    else:
+        names = ("W", "W_scale", "phase") if q8 else ("W", "phase")
+    return placed(artifact, mesh, heads, {n: a[n] for n in names})
+
+
+def score_sharded(
+    artifact: CompiledArtifact, Z, *, mesh, config: TileConfig | None = None
+):
+    """``score`` with the (K, F) readout split over ``mesh``'s first axis.
+
+    All four (projection, dtype) combinations shard: the per-row
+    projection (the dense GEMM, or Fastfood's transforms) runs on every
+    shard, the readout, its int8 head scales and the bias are split. The
+    validity verdict is per-artifact meta, computed outside the shards.
+    Returns (scores (n, K), valid_rows (n,)) on the mesh's first device.
+    """
+    p = place_shards(artifact, mesh)
+    fastfood = artifact.meta.get("projection") == "fastfood"
+    if artifact.dtype == quantize.INT8_DTYPE:
+        readout = (p["weights"], p["weights_scale"], p["b"])
+        if fastfood:
+            ops = (p[n] for n in ("ff_b", "ff_g", "ff_perm", "ff_scale"))
+            fn = backend.fastfood_score_q8_sharded
+            args = (*ops, p["ff_stack_scale"], p["phase"], *readout)
+        else:
+            fn = backend.rff_score_q8_sharded
+            args = (p["W"], p["W_scale"], p["phase"], *readout)
+    elif fastfood:
+        ops = (p[n] for n in ("ff_b", "ff_g", "ff_perm", "ff_scale"))
+        fn = backend.fastfood_score_sharded
+        args = (*ops, p["phase"], p["weights"], p["b"])
+    else:
+        fn = backend.rff_score_sharded
+        args = (p["W"], p["phase"], p["weights"], p["b"])
+    scores = fn(Z, *args, mesh=mesh, config=config)
     valid = torch.full(
         (scores.shape[0],),
         bool(artifact.meta.get("valid_globally", True)),

@@ -28,9 +28,12 @@ from repro_torch.core import backend
 from repro_torch.core.bounds import REL_ERR_AT_HALF
 from repro_torch.core.families import quantize
 from repro_torch.core.families.base import (
+    PAD_HEAD_BIAS,
     CompiledArtifact,
     as_batch,
     base_meta,
+    pad_rows,
+    placed,
     stack_heads,
 )
 from repro_torch.core.maclaurin import ApproxModel, approximate
@@ -203,6 +206,75 @@ def q8_operands(artifact: CompiledArtifact) -> tuple[torch.Tensor, torch.Tensor]
     v = a["v"].to(torch.float32) * a["v_scale"][:, None]
     artifact.derived["q8_operands"] = (stored, (col_scale, v))
     return col_scale, v
+
+
+def pad_heads(artifact: CompiledArtifact, multiple: int) -> CompiledArtifact:
+    """Pad the head axis up to a multiple of ``multiple`` (head sharding).
+
+    Padding heads are validity-neutral and argmax-neutral: msq = 0 holds
+    the Eq 3.11 envelope for every row, gamma = 1, zero M, v and c, and the
+    ``PAD_HEAD_BIAS`` bias can never win an argmax. Int8 padding is zero
+    codes with scale 1. ``meta["num_heads"]`` keeps the real K and
+    ``meta["padded_heads"]`` records the served width. The padded artifact
+    is engine-internal (padding changes the digest). Already aligned, the
+    same object is returned.
+    """
+    k = artifact.num_heads
+    pad = (-k) % max(1, int(multiple))
+    if pad == 0:
+        return artifact
+    a = artifact.arrays
+    arrays = {
+        "c": pad_rows(a["c"], pad),
+        "b": pad_rows(a["b"], pad, PAD_HEAD_BIAS),
+        "gamma": pad_rows(a["gamma"], pad, 1.0),
+        "msq": pad_rows(a["msq"], pad),
+        "M": pad_rows(a["M"], pad),
+        "v": pad_rows(a["v"], pad),
+    }
+    if artifact.dtype == quantize.INT8_DTYPE:
+        arrays["M_scale"] = pad_rows(a["M_scale"], pad, 1.0)
+        arrays["v_scale"] = pad_rows(a["v_scale"], pad, 1.0)
+    return CompiledArtifact(
+        family=artifact.family,
+        arrays=arrays,
+        meta={**artifact.meta, "padded_heads": k + pad},
+    )
+
+
+def place_shards(artifact: CompiledArtifact, mesh) -> dict:
+    """The scorer's per-head operands cut over ``mesh`` and placed on its
+    shards' devices, once per (artifact, mesh) (``base.placed``)."""
+    a = artifact.arrays
+    heads = {n: a[n] for n in ("M", "v", "c", "b", "gamma", "msq")}
+    if artifact.dtype == quantize.INT8_DTYPE:
+        heads["col_scale"], heads["v"] = q8_operands(artifact)
+    return placed(artifact, mesh, heads, {})
+
+
+def score_sharded(
+    artifact: CompiledArtifact, Z, *, mesh, config: TileConfig | None = None
+):
+    """``score`` with the K heads split over ``mesh``'s first axis.
+
+    The (K, d, d) stacked Hessian, the operand that outgrows one device
+    when K is in the thousands, lives shard by shard; each shard's device
+    scores its K/shards heads through B1 (B3 at int8, its column scales
+    split with the Hessian). The head count must already divide the axis
+    size (``pad_heads``). Returns (scores (n, K), valid_rows (n,)) on the
+    mesh's first device.
+    """
+    p = place_shards(artifact, mesh)
+    rest = (p["c"], p["b"], p["gamma"], p["msq"])
+    if artifact.dtype == quantize.INT8_DTYPE:
+        scores, valid = backend.quadform_heads_q8_sharded(
+            Z, p["M"], p["col_scale"], p["v"], *rest, mesh=mesh, config=config
+        )
+    else:
+        scores, valid = backend.quadform_heads_sharded(
+            Z, p["M"], p["v"], *rest, mesh=mesh, config=config
+        )
+    return scores, valid.all(-1)
 
 
 def tile_lookup(artifact: CompiledArtifact, bucket: int) -> tuple[str, str]:

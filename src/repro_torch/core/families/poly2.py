@@ -55,4 +55,7 @@ def compile(  # noqa: A001
 
 # Same artifact kind, so the same scorer and tuning resolution as maclaurin.
 score = _mac.score
+pad_heads = _mac.pad_heads
+place_shards = _mac.place_shards
+score_sharded = _mac.score_sharded
 tile_lookup = _mac.tile_lookup

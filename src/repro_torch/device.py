@@ -22,6 +22,15 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def pin(device) -> torch.device:
+    """``device`` as a ``torch.device``, a bare ``cuda`` pinned to the
+    current card, so that equal devices compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """Streaming multiprocessors on CUDA device ``index``."""

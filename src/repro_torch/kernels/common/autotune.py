@@ -1,9 +1,11 @@
-"""Best-of-N timing of a callable on the device it runs on.
+"""Best-of-N timing of a callable on the device it runs on, and the
+rank-and-prune step of a tile search.
 
 ``repro``'s ``autotune`` also sweeps ``TileConfig`` candidates and
 records winners into a tuning table; the port gets that once there are
 H100 measurements to record. ``measure`` is what ``compile_model`` needs
-to time each candidate artifact.
+to time each candidate artifact; ``prune_candidates`` picks which
+candidates a sweep measures from a cost prior (``launch.roofline``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import time
 from typing import Callable
 
 import torch
+
+from repro_torch.kernels.common.config import TileConfig
 
 
 def measure(
@@ -48,3 +52,22 @@ def measure(
         fn()
         best = min(best, time.perf_counter() - t0)
     return best
+
+
+def prune_candidates(
+    candidates: list[TileConfig],
+    default: TileConfig,
+    prior: Callable[[TileConfig], float],
+    keep: int,
+) -> list[TileConfig]:
+    """The ``keep`` candidates of least predicted cost under ``prior``, and
+    ``default`` always, in the order given.
+
+    Pruning decides only what is measured; keeping the default in the
+    measured set keeps a tuned pick never worse than the default, however
+    wrong the prior is.
+    """
+    ranked = sorted(candidates, key=prior)
+    kept = set(ranked[: max(1, int(keep))])
+    kept.add(default)
+    return [c for c in candidates if c in kept]

@@ -44,6 +44,16 @@ def quadform_tile_seconds(
     return predict_seconds(flops, stream + io)
 
 
+def rbf_tile_seconds(cfg, *, n: int, d: int, m: int) -> float:
+    """Analytic cost of the exact expansion over ``m`` SVs (kernel B2):
+    the SVs are streamed once per row tile."""
+    blocks = _row_blocks(n, getattr(cfg, "block_n", None) if cfg else None)
+    flops = 2.0 * n * m * d
+    stream = float(blocks) * m * d * 4.0
+    io = 4.0 * (n * d + n)
+    return predict_seconds(flops, stream + io)
+
+
 def rff_tile_seconds(
     cfg, *, n: int, d: int, f: int, k: int, weight_bytes: int = 4
 ) -> float:

@@ -428,7 +428,8 @@ class ArtifactRegistry:
                         warmup: bool | None = None) -> list[SVMEngine]:
         """``count`` engines off one artifact, pinned round-robin across
         local devices (pinning is skipped when the caller already chose
-        placement via ``device=`` / ``head_mesh=`` engine opts)."""
+        placement via ``device=`` / ``head_mesh=`` / ``mesh=`` engine opts:
+        a mesh's engines stage on its first device)."""
         if warmup is None:
             warmup = self.warmup_on_load
         devices = local_devices(self.engine_opts)
@@ -436,7 +437,7 @@ class ArtifactRegistry:
         for i in range(count):
             opts = dict(self.engine_opts)
             if (count > 1 and "device" not in opts
-                    and "head_mesh" not in opts):
+                    and "head_mesh" not in opts and "mesh" not in opts):
                 opts["device"] = devices[i % len(devices)]
             engine = SVMEngine(artifact, exact, **opts)
             if warmup:

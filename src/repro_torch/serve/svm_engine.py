@@ -31,8 +31,22 @@ Exact fallback
   patched into the result when it is read. ``submit_exact`` serves a
   whole batch through that path (the runtime's degraded mode).
 
-Sharding the SVs (``mesh``) or the heads (``head_mesh``) waits for
-ROADMAP queue A9.
+Head-sharded serving (``head_mesh``)
+  With K in the thousands the stacked (K, d, d) Hessian outgrows one
+  device. A ``head_mesh`` (``repro_torch.launch.make_mesh``) splits the
+  heads over its first axis through the family's ``score_sharded``: the
+  artifact is padded to the axis size with argmax- and validity-neutral
+  heads once at build (kept engine-internal: padding changes the digest),
+  each shard's slabs are placed on its device once, every step launches
+  the family's kernel once a shard and gathers the scores on the mesh's
+  first device, where the batch is staged; the argmax runs over the padded
+  heads and ``_finalize`` slices the score columns back to the real K.
+
+SV-sharded exact path (``mesh``)
+  A ``mesh`` splits the exact model's support vectors over its first axis
+  (zero rows with alpha 0 pad them to a multiple of it): a fallback or
+  ``submit_exact`` step runs kernel B2 on every shard with bias 0, sums
+  the partial scores on the mesh's first device and adds the bias there.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ import torch
 from repro_torch import device as _device
 from repro_torch.core import backend, families
 from repro_torch.core.families import CompiledArtifact
+from repro_torch.core.families.base import pad_rows
 from repro_torch.core.maclaurin import ApproxModel
 from repro_torch.core.rbf import SVMModel
 from repro_torch.kernels.common import TileConfig, tuning
@@ -279,6 +294,24 @@ class _PinnedStaging:
         return out
 
 
+def _staging_device(device, *meshes) -> torch.device:
+    """The device an engine stages batches on: the first device of the
+    meshes given (they must agree), which ``device`` may only repeat, or
+    ``device`` (the card unless the CPU is named) without a mesh."""
+    firsts = {m.devices[0] for m in meshes if m is not None}
+    if len(firsts) > 1:
+        raise ValueError(f"mesh and head_mesh start on different devices: {firsts}")
+    if not firsts:
+        return _device.resolve(device)
+    first = _device.resolve(firsts.pop())
+    if device is not None and _device.pin(_device.resolve(device)) != first:
+        raise ValueError(
+            f"device={device} disagrees with the mesh, whose first device "
+            f"{first} stages every batch"
+        )
+    return first
+
+
 class SVMEngine:
     """Serve ``model`` (a ``CompiledArtifact``, or an ``ApproxModel`` taken
     as a maclaurin artifact) on ``device`` (the card unless the CPU is
@@ -291,6 +324,11 @@ class SVMEngine:
     ``TileConfig`` (its ``block_n`` clamped to the bucket) instead of the
     tuning table's. The reference's ``block_m`` has no counterpart: B2's
     SV tile is fixed in ``csrc/rbf_pred.cu``.
+
+    ``head_mesh`` splits the heads, ``mesh`` the exact model's support
+    vectors, over the first axis of a ``repro_torch.launch.Mesh``. Batches
+    are staged on the first device of the meshes given (``device`` may
+    name only that device, else ``ValueError``).
     """
 
     def __init__(
@@ -306,14 +344,11 @@ class SVMEngine:
         max_batch: int = 8192,
         tile_config: TileConfig | None = None,
     ):
-        if mesh is not None or head_mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh / head_mesh) is not ported yet "
-                "(ROADMAP queue A9)"
-            )
         if min_bucket & (min_bucket - 1) or max_batch & (max_batch - 1):
             raise ValueError("min_bucket and max_batch must be powers of two")
-        self.device = _device.resolve(device)
+        self.mesh = mesh
+        self.head_mesh = head_mesh
+        self.device = _staging_device(device, mesh, head_mesh)
         if isinstance(model, CompiledArtifact):
             self.approx = None
             artifact = model
@@ -325,7 +360,9 @@ class SVMEngine:
                 f"SVMEngine serves a CompiledArtifact (or an ApproxModel), "
                 f"got {type(model).__name__}"
             )
-        self.artifact = artifact.to(self.device)
+        # Under a head_mesh the slabs go to the shards' devices from where
+        # they are, never whole onto one device.
+        self.artifact = artifact if head_mesh is not None else artifact.to(self.device)
         self._family = families.get_family(self.artifact.family)
         self.family = self.artifact.family
         self.dtype = self.artifact.dtype
@@ -344,15 +381,53 @@ class SVMEngine:
             _PinnedStaging(self.device, self.d) if self.device.type == "cuda" else None
         )
 
+        if head_mesh is not None:
+            pad = getattr(self._family, "pad_heads", None)
+            sharded = getattr(self._family, "score_sharded", None)
+            if pad is None or sharded is None:
+                raise NotImplementedError(
+                    f"family {self.family!r} has no head-sharded serving path"
+                )
+            shards = head_mesh.shape[head_mesh.axis_names[0]]
+            self._serve_artifact = pad(self.artifact, shards)
+            self._family.place_shards(self._serve_artifact, head_mesh)
+        else:
+            self._serve_artifact = self.artifact
+
         if exact is not None:
-            ay = exact.alpha_y.to(self.device, torch.float32)
-            self._ay2 = (ay[None, :] if ay.ndim == 1 else ay).contiguous()
-            self._X = exact.X.to(self.device, torch.float32).contiguous()
-            k = self._ay2.shape[0]
-            b = torch.as_tensor(exact.b, dtype=torch.float32).reshape(-1)
-            self._bias = b.to(self.device).expand(k).contiguous()
-            self._gamma = torch.as_tensor(exact.gamma, dtype=torch.float32).reshape(1)
-            self._gamma = self._gamma.to(self.device)
+            self._build_slow(exact)
+
+    def _build_slow(self, exact: SVMModel) -> None:
+        """Place the exact model for B2: whole on the engine's device, or
+        under a ``mesh`` its SVs (zero-padded to a multiple of the axis
+        size, alpha 0 contributing exactly 0) in equal chunks on the
+        shards' devices."""
+        ay = exact.alpha_y.to(torch.float32)
+        ay2 = ay[None, :] if ay.ndim == 1 else ay
+        X = exact.X.to(torch.float32)
+        k = ay2.shape[0]
+        b = torch.as_tensor(exact.b, dtype=torch.float32).reshape(-1)
+        self._bias = b.to(self.device).expand(k).contiguous()
+        gamma = torch.as_tensor(exact.gamma, dtype=torch.float32).reshape(1)
+        if self.mesh is None:
+            devices = (self.device,)
+        else:
+            devices = self.mesh.shard_devices()
+            pad = (-X.shape[0]) % len(devices)
+            X = pad_rows(X, pad)
+            ay2 = pad_rows(ay2.T, pad).T
+        per = X.shape[0] // len(devices)
+        self._sv_rows = per
+        self._X = tuple(
+            X[i * per : (i + 1) * per].to(dev).contiguous()
+            for i, dev in enumerate(devices)
+        )
+        self._ay2 = tuple(
+            ay2[:, i * per : (i + 1) * per].to(dev).contiguous()
+            for i, dev in enumerate(devices)
+        )
+        self._gamma = tuple(gamma.to(dev) for dev in devices)
+        self._zero_bias = tuple(torch.zeros(k, device=dev) for dev in devices)
 
     # ---------------------------------------------------------- tile tuning
 
@@ -386,20 +461,35 @@ class SVMEngine:
 
     def _step(self, Zp: torch.Tensor) -> torch.Tensor:
         cfg = self._resolve_tile_config(Zp.shape[0])
-        scores, valid_row = self._family.score(self.artifact, Zp, config=cfg)
+        art = self._serve_artifact
+        if self.head_mesh is None:
+            scores, valid_row = self._family.score(art, Zp, config=cfg)
+        else:
+            scores, valid_row = self._family.score_sharded(
+                art, Zp, mesh=self.head_mesh, config=cfg
+            )
         return self._pack(scores, valid_row)
 
     def _slow(self, Zb: torch.Tensor) -> torch.Tensor:
-        """Exact (m, K) scores through kernel B2, all heads at once."""
+        """Exact (m, K) scores through kernel B2, all heads at once (under
+        a ``mesh``, once a shard with bias 0, the partial sums added on the
+        first device before the bias)."""
         cfg = tuning.lookup(
             "rbf_pred",
-            tuning.shape_key(
-                d=self.d, m=self._X.shape[0], n=tuning.bucket(Zb.shape[0])
-            ),
+            tuning.shape_key(d=self.d, m=self._sv_rows, n=tuning.bucket(Zb.shape[0])),
         )
-        return backend.rbf_scores(
-            Zb, self._X, self._ay2, self._gamma, self._bias, config=cfg
-        )
+        if self.mesh is None:
+            return backend.rbf_scores(
+                Zb, self._X[0], self._ay2[0], self._gamma[0], self._bias, config=cfg
+            )
+        parts = zip(backend.replicate(Zb, self.mesh), self._X, self._ay2)
+        total = None
+        for s, (z, X, A) in enumerate(parts):
+            part = backend.rbf_scores(
+                z, X, A, self._gamma[s], self._zero_bias[s], config=cfg
+            ).to(Zb.device)
+            total = part if total is None else total + part
+        return total + self._bias
 
     def _slow_step(self, Zp: torch.Tensor) -> torch.Tensor:
         scores = self._slow(Zp)
@@ -502,9 +592,12 @@ class SVMEngine:
         if event is not None:
             torch.cuda.current_stream(self.device).wait_event(event)
         packed = torch.cat([p[:m] for p, m in chunks]).cpu().numpy()
+        # head-sharded serving scores the padded heads; they never win the
+        # argmax, so only the score columns are sliced back to the real K
+        served = packed.shape[1] - 2
         scores = np.ascontiguousarray(packed[:, :k])
-        valid = packed[:, k] > 0.5
-        labels = packed[:, k + 1].astype(np.int32)
+        valid = packed[:, served] > 0.5
+        labels = packed[:, served + 1].astype(np.int32)
 
         if Z is not None and self.allow_fallback and not valid.all():
             idx = np.nonzero(~valid)[0]

@@ -13,8 +13,9 @@ from repro.core import SVMModel as JSVM  # noqa: E402
 from repro.core.families import maclaurin as jmac  # noqa: E402
 from repro.serve.svm_engine import SVMEngine as JEngine  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import families  # noqa: E402
+from repro_torch.core import backend, families  # noqa: E402
 from repro_torch.core.maclaurin import approximate  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
 from repro_torch.serve import SVMEngine, bucket_size  # noqa: E402
 
 N_SV = 200
@@ -116,8 +117,26 @@ def test_engine_takes_an_approx_model_and_warms_up():
 
 
 def test_sharded_serving_is_not_ported():
-    _, eng, _ = _pair(16, 1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        SVMEngine(eng.artifact, mesh=object(), device="cpu")
+    """Sharded serving refuses what it cannot serve, with ``ValueError``: a
+    head count that does not split over the mesh's axis (the engine pads
+    to it; the primitives take no padding), a ``device`` other than the
+    mesh's first, where every batch is staged, and meshes that start on
+    different devices. A bucket that is not a power of two is refused too."""
+    _, eng, _ = _pair(16, 3)
+    art = eng.artifact
+    mesh = make_mesh((2,), ("heads",), devices=["cpu", "cpu"])
+    a = art.arrays
+    Z = torch.zeros((4, 16))
+    with pytest.raises(ValueError, match="must divide by mesh axis 'heads' \\(2\\)"):
+        backend.quadform_heads_sharded(
+            Z, a["M"], a["v"], a["c"], a["b"], a["gamma"], a["msq"], mesh=mesh
+        )
+    assert SVMEngine(art, head_mesh=mesh, device="cpu").num_heads == 3
+    assert SVMEngine(art, mesh=mesh).device == torch.device("cpu")
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        SVMEngine(art, head_mesh=mesh, device="meta")
+    other = make_mesh((2,), ("sv",), devices=["meta", "cpu"])
+    with pytest.raises(ValueError, match="different devices"):
+        SVMEngine(art, mesh=other, head_mesh=mesh, device="cpu")
     with pytest.raises(ValueError):
-        SVMEngine(eng.artifact, device="cpu", min_bucket=24)
+        SVMEngine(art, device="cpu", min_bucket=24)

@@ -697,3 +697,167 @@ def test_attention_wrappers_reject_what_the_kernels_do_not_take(cuda):
         maclaurin_attn.maclaurin_attention_cuda(*wide)
     with pytest.raises(ValueError, match="route"):
         maclaurin_attn.maclaurin_attention_cuda(q, k, v, force_route="chunked")
+
+
+# --------------------------------------------- head- and SV-sharded shapes
+
+# (n, d, K): one shard of the extreme one-vs-rest model (4096 heads over
+# four shards), the whole of it, and a shard of the mnist width's 10 heads
+# padded to 12 over four shards.
+SHARD_SHAPES = [(256, 32, 1024), (256, 32, 4096), (1024, 780, 3)]
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("n,d,k", SHARD_SHAPES)
+def test_quadform_kernels_at_sharded_head_counts(cuda, n, d, k, q8):
+    """B1 and B3 at a shard's head count: a grid of up to 4096 heads in y,
+    held by B1's rule, equal masks."""
+    args = (_q8_heads if q8 else _heads)(n, k, d, seed=k + d, dev=cuda)
+    kernel = qf.KERNEL_Q8 if q8 else qf.KERNEL
+    fn = qf.quadform_heads_q8_cuda if q8 else qf.quadform_heads_cuda
+    twin = qf.quadform_heads_q8_torch if q8 else qf.quadform_heads_torch
+    before = kernel.launches
+    s, _, v = fn(*args)
+    assert kernel.launches == before + 1
+    s0, _, v0 = twin(*args)
+    torch.cuda.synchronize()
+    assert s.shape == (n, k)
+    assert float((s - s0).abs().max()) <= 1e-4 * float(s0.abs().max()) + 1e-5
+    assert torch.equal(v, v0)
+
+
+@pytest.mark.parametrize("kind", ["rff", "rff_q8", "fastfood", "fastfood_q8"])
+@pytest.mark.parametrize("n,d,k", SHARD_SHAPES)
+def test_fourier_kernels_at_sharded_head_counts(cuda, n, d, k, kind):
+    """B4-B7 at a shard's head count: F = 64 at d = 32 (B6/B7 at d' = 32, two
+    stacks; 4096 heads are 86 of B4/B5's 48-head blocks and 256 of B6/B7's
+    16-head tiles), F = 4096 at d = 780; held by their twins' rule."""
+    q8 = kind.endswith("q8")
+    f = 64 if d == 32 else 4096
+    if kind.startswith("rff"):
+        args = _rff(n, d, f, k, seed=k + d, dev=cuda, q8=q8)
+        kernel = rk.KERNEL_Q8 if q8 else rk.KERNEL
+        fn = rk.rff_score_q8_cuda if q8 else rk.rff_score_cuda
+        out0, tol = _rff_tol(args, q8)
+    else:
+        stacks = 2 if d == 32 else 4  # d' = 32 or 1024
+        args = _fastfood(n, d, stacks, k, seed=k + d, dev=cuda, q8=q8)
+        kernel = fwht.KERNEL_Q8 if q8 else fwht.KERNEL
+        fn = fwht.fastfood_score_q8_cuda if q8 else fwht.fastfood_score_cuda
+        out0, tol = _fastfood_tol(args, q8)
+    before = kernel.launches
+    out = fn(*args)
+    assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (n, k)
+    assert float((out - out0).abs().max()) <= tol
+
+
+def _small_ovr(dev, k=10, d=24, n_sv=300, seed=2):
+    rng = np.random.default_rng(seed)
+    X = (rng.standard_normal((n_sv, d)) * 0.3).astype(np.float32)
+    ay = rng.standard_normal((k, n_sv)).astype(np.float32)
+    ay -= ay.mean(1, keepdims=True)
+    b = rng.standard_normal(k).astype(np.float32)
+    Z = (rng.standard_normal((77, d)) * 0.3).astype(np.float32)
+    Z[::6] *= 80.0  # outside the Eq 3.11 envelope
+    return convert.svm_from_numpy(X, ay, b, 0.02, device=dev), Z
+
+
+def _compiled(svm, family, dtype):
+    opts = {"num_features": 500, "dtype": dtype}
+    if family == "fastfood":  # fourier's structured projection
+        family, opts["structured"] = "fourier", True
+    return families.get_family(family).compile(svm, **opts)
+
+
+FAMILY_CELLS = [
+    (f, dt) for f in ("maclaurin", "fourier", "fastfood") for dt in ("float32", "int8")
+]
+SHARD_KERNELS = {
+    ("maclaurin", "float32"): qf.KERNEL,
+    ("maclaurin", "int8"): qf.KERNEL_Q8,
+    ("fourier", "float32"): rk.KERNEL,
+    ("fourier", "int8"): rk.KERNEL_Q8,
+    ("fastfood", "float32"): fwht.KERNEL,
+    ("fastfood", "int8"): fwht.KERNEL_Q8,
+}
+
+
+@pytest.mark.parametrize("family,dtype", FAMILY_CELLS)
+def test_padding_heads_never_win_and_stay_finite_on_the_card(cuda, family, dtype):
+    """Heads padded with PAD_HEAD_BIAS (10 -> 12) through each family's kernel,
+    on rows inside and far outside the envelope: every padding score is the
+    bias exactly (no NaN, no inf), no argmax lands on one, the real heads'
+    scores and the validity are unchanged."""
+    svm, Z = _small_ovr(cuda)
+    art = _compiled(svm, family, dtype)
+    fam = families.get_family(art.family)
+    padded = fam.pad_heads(art, 4)
+    Zd = torch.from_numpy(Z).to(cuda)
+    s0, v0 = fam.score(art, Zd)
+    s1, v1 = fam.score(padded, Zd)
+    torch.cuda.synchronize()
+    assert s1.shape == (77, 12) and bool(torch.isfinite(s1).all())
+    assert bool((s1[:, 10:] == families.PAD_HEAD_BIAS).all())
+    assert int(s1.argmax(1).max()) < 10
+    assert torch.equal(v1, v0)
+    assert float((s1[:, :10] - s0).abs().max()) <= 1e-4 * float(s0.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("family,dtype", FAMILY_CELLS)
+def test_head_sharded_engine_on_four_logical_shards_matches_unsharded(cuda, family, dtype):
+    """A head mesh of 4 x the card: each submit launches the family's kernel
+    once a shard (3 of 12 padded heads each) and serves the unsharded
+    engine's scores, validity and labels."""
+    from repro_torch.launch import make_mesh
+
+    svm, Z = _small_ovr(cuda)
+    art = _compiled(svm, family, dtype)
+    mesh = make_mesh((4,), ("heads",), devices=[cuda] * 4)
+    ref = SVMEngine(art, device=cuda)
+    shd = SVMEngine(art, head_mesh=mesh)
+    kernel = SHARD_KERNELS[family, dtype]
+    before = kernel.launches
+    r_shd = shd.submit(Z)
+    assert kernel.launches == before + 4
+    r_ref = ref.submit(Z)
+    assert r_shd.values.shape == (77, 10)
+    np.testing.assert_allclose(r_shd.values, r_ref.values, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(r_shd.valid, r_ref.valid)
+    assert (r_shd.labels == r_ref.labels).mean() >= 0.98  # near-ties may split
+
+
+def test_sv_sharded_exact_path_on_four_logical_shards_matches_unsharded(cuda):
+    """An SV mesh of 4 x the card at the mnist width: 16384 SVs in shards of
+    4096, B2 launched four times a call; both engines within B2's rule of
+    each other and of float64, with float64's labels."""
+    from repro_torch.launch import make_mesh
+
+    rng = np.random.default_rng(3)
+    d, m, k = 780, 16384, 10
+    X = rng.random((m, d)).astype(np.float32)
+    A = rng.standard_normal((k, m))
+    A = (A - A.mean(1, keepdims=True)).astype(np.float32)
+    b = rng.standard_normal(k).astype(np.float32)
+    svm = convert.svm_from_numpy(X, A, b, 2.0 / d, device=cuda)
+    art = families.maclaurin.compile(svm)
+    Z = rng.random((256, d)).astype(np.float32)
+    mesh = make_mesh((4,), ("sv",), devices=[cuda] * 4)
+    ref = SVMEngine(art, svm, device=cuda)
+    shd = SVMEngine(art, svm, mesh=mesh)
+    before = rp.KERNEL.launches
+    got = shd.submit_exact(Z)
+    got.values
+    assert rp.KERNEL.launches == before + 4
+    want = ref.submit_exact(Z)
+    Zd = torch.from_numpy(Z).to(cuda)
+    out0, tol = _rbf_tol(Zd, svm.X, svm.alpha_y, 2.0 / d, svm.b)
+    out64 = rp.rbf_scores_torch(
+        Zd.double(), svm.X.double(), svm.alpha_y.double(), 2.0 / d, svm.b.double()
+    ).cpu().numpy()
+    assert float(np.abs(got.values - want.values).max()) <= tol
+    assert float(np.abs(got.values - out64).max()) <= tol
+    top2 = np.sort(out64, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * tol
+    np.testing.assert_array_equal(got.labels[decided], out64.argmax(-1)[decided])
