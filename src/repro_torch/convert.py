@@ -65,17 +65,20 @@ def _leaf(tree, path: str):
 
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, device=None) -> LMParams:
     """The port's ``LMParams`` from ``repro``'s ``init_params`` tree as numpy
-    arrays: ``embed``/``lm_head``/``final_ln`` as they are, and ``layers``
-    with every leaf stacked along a first axis of ``cfg.n_layers``. Every
-    parameter keeps the reference's key and (in, out) layout and is stored
-    f32, as the reference stores it."""
+    arrays, for any family: ``embed``/``lm_head``/``final_ln`` and hybrid's
+    ``shared_attn`` as they are; ``layers`` (vlm: its self-attention layers)
+    and vlm's ``cross_layers`` with every leaf stacked along a first axis,
+    one entry a layer. Every parameter keeps the reference's key and
+    (in, out) layout and is stored f32, as the reference stores it."""
     dev = _device.resolve(device)
     with torch.no_grad():
         model = LMParams(cfg, torch.Generator(device=dev), dev)
-        for name in ("embed", "lm_head", "final_ln"):
-            for path, p in getattr(model, name).named_parameters():
-                p.copy_(_f32(_leaf(params[name], path), dev))
-        for i, layer in enumerate(model.layers):
-            for path, p in layer.named_parameters():
-                p.copy_(_f32(_leaf(params["layers"], path)[i], dev))
+        for name, child in model.named_children():
+            if isinstance(child, torch.nn.ModuleList):  # stacked in the reference
+                for i, layer in enumerate(child):
+                    for path, p in layer.named_parameters():
+                        p.copy_(_f32(_leaf(params[name], path)[i], dev))
+            else:
+                for path, p in child.named_parameters():
+                    p.copy_(_f32(_leaf(params[name], path), dev))
     return model

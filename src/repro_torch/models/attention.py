@@ -1,10 +1,11 @@
-"""GQA attention: full causal (prefill), and cached decode.
+"""GQA attention: full causal (prefill), cached decode, and the VLM's
+cross-attention to image tokens.
 
-The port of ``repro/models/attention.py`` (cross-attention follows with
-the VLM slice). Head layout convention: activations (B, T, H, hd).
-``Attention`` holds the projections under the reference's keys (``w_q``,
-``w_k``, ``w_v``, ``w_o`` and, with ``qkv_bias``, ``b_q``, ``b_k``,
-``b_v``), in its (in, out) layout.
+The port of ``repro/models/attention.py``. Head layout convention:
+activations (B, T, H, hd). ``Attention`` holds the projections under the
+reference's keys (``w_q``, ``w_k``, ``w_v``, ``w_o`` and, with
+``qkv_bias``, ``b_q``, ``b_k``, ``b_v``), in its (in, out) layout;
+``CrossAttention`` the same four without biases.
 
 The reference's decode writes one cache slot with
 ``dynamic_update_slice`` and returns new arrays; the port writes the slot
@@ -196,3 +197,28 @@ def decode_attention_quant(
     )
     out = out.reshape(B, 1, n_heads * head_dim) @ params["w_o"]
     return out, cache_k, cache_v, k_scale, v_scale
+
+
+class CrossAttention(ParamModule):
+    """``w_q`` (d, Hq hd), ``w_k``/``w_v`` (d, Hkv hd), ``w_o`` (Hq hd, d)."""
+
+    def __init__(self, d, n_heads, n_kv, head_dim, generator, device=None):
+        super().__init__()
+        hq = n_heads * head_dim
+        self.w_q = init_((d, hq), generator, device)
+        self.w_k = init_((d, n_kv * head_dim), generator, device)
+        self.w_v = init_((d, n_kv * head_dim), generator, device)
+        self.w_o = init_((hq, d), generator, device, scale=1.0 / (hq**0.5))
+
+
+def cross_attention(params, x, ctx, *, n_heads, n_kv, head_dim):
+    """Queries from x (B,T,d), keys/values from ctx (B,N,d). No mask, no RoPE
+    (the Llama-3.2-vision convention for image cross-attention); plain
+    blockwise softmax, as the reference's."""
+    B, T, _ = x.shape
+    N = ctx.shape[1]
+    q = (x @ params["w_q"]).reshape(B, T, n_heads, head_dim)
+    k = (ctx @ params["w_k"]).reshape(B, N, n_kv, head_dim)
+    v = (ctx @ params["w_v"]).reshape(B, N, n_kv, head_dim)
+    out = _gqa_scores_full(q, k, v, causal=False)
+    return out.reshape(B, T, n_heads * head_dim) @ params["w_o"]

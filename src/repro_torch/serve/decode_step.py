@@ -8,7 +8,9 @@ backend follows ``cfg.attention_backend``:
   maclaurin  O(d^2) moment state — the paper's collapse (context-length-free)
 
 ``make_prefill_step(cfg)`` runs the full-sequence forward (logits only).
-The VLM signatures (with image embeddings) follow with the VLM slice.
+A VLM's steps also take the image embeddings, as the reference's do:
+prefill (params, tokens, image_embeds), decode (params, tokens, pos,
+cache, image_embeds).
 """
 
 from __future__ import annotations
@@ -22,32 +24,58 @@ from repro_torch.models.transformer import decode, forward
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    def prefill_step(params, tokens):
-        logits, _ = forward(cfg, params, tokens)
-        return logits
+    if cfg.family == "vlm":
+
+        def prefill_step(params, tokens, image_embeds):
+            logits, _ = forward(cfg, params, tokens, image_embeds)
+            return logits
+
+    else:
+
+        def prefill_step(params, tokens):
+            logits, _ = forward(cfg, params, tokens)
+            return logits
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    def serve_step(params, tokens, pos, cache):
-        return decode(cfg, params, tokens, pos, cache)
+    if cfg.family == "vlm":
+
+        def serve_step(params, tokens, pos, cache, image_embeds):
+            return decode(cfg, params, tokens, pos, cache, image_embeds)
+
+    else:
+
+        def serve_step(params, tokens, pos, cache):
+            return decode(cfg, params, tokens, pos, cache)
 
     return serve_step
 
 
 @torch.inference_mode()
-def greedy_generate(cfg: ModelConfig, params, prompt, cache, *, steps: int, start_pos: int = 0):
+def greedy_generate(
+    cfg: ModelConfig,
+    params,
+    prompt,
+    cache,
+    *,
+    steps: int,
+    start_pos: int = 0,
+    image_embeds=None,
+):
     """Greedy decode loop. As in the reference, it feeds only the prompt's
     last token (``prompt[:, -1:]``) at ``start_pos`` and does not fill the
     cache from the prompt: a caller that wants the prompt in the cache
-    decodes it first. Returns (tokens (B, steps) int32, cache)."""
+    decodes it first. A VLM passes ``image_embeds`` to each step. Returns
+    (tokens (B, steps) int32, cache)."""
     step = make_serve_step(cfg)
+    extra = (image_embeds,) if cfg.family == "vlm" else ()
     tok = prompt[:, -1:]
     out = []
     pos = start_pos
     for _ in range(steps):
-        logits, cache = step(params, tok, pos, cache)
+        logits, cache = step(params, tok, pos, cache, *extra)
         tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         out.append(tok)
         pos += 1

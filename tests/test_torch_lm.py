@@ -195,13 +195,6 @@ def test_state_bytes_do_not_grow_with_context():
     assert tf.cache_bytes(tf.init_cache(cfg, 2, 4096, device="cpu")) == 32 * kv
 
 
-@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-90b"])
-def test_later_families_name_their_roadmap_item(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tf.init_params(cfg, device="cpu")
-
-
 def test_prefill_on_cpu_launches_no_kernel():
     cfg = dataclasses.replace(get_config("smollm-135m").reduced(), attention_impl="flash")
     params = tf.init_params(cfg, device="cpu")
