@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives eight paths: six at the
-paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4
-and 8):
+source, all started together) and drives nine paths: six at the
+paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
+8 and 9):
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -68,7 +68,19 @@ and 8):
    (f32, bf16 and, for the MoE, int8 KV; the ``MacState``; the RWKV6 and
    Mamba2 states), held against the forward or the next wider cache; 16
    greedy tokens from each; B8 and B9 held against their twins at the
-   path's head widths 80 and 128. Path 5's profile act runs after it.
+   path's head widths 80 and 128;
+9. training (``repro_torch.train``, ``launch.train``): B8's gradient
+   (the kernel's forward, the plain twin's backward) against the twin's at
+   (72, 2048, 64) and (128, 2048, 128); ``smollm-135m`` at full width and
+   depth (remat on, bf16) trained on 8 x 2048-token batches from
+   ``lm_token_batches``: 20 AdamW steps with the blockwise attention (no
+   kernel), 10 with the maclaurin backend (B8 in each layer's forward and
+   again where remat reruns it: 60 a step), four microbatches against one
+   at f32, 15 steps of int8-compressed gradients, the launcher's failure
+   drill (exit 42, then the resume from the committed checkpoint, its
+   arrays restored bit for bit), flash attention refused under a gradient
+   before any launch, and 16 greedy tokens from the trained weights. Path
+   5's profile act runs after it.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -87,7 +99,8 @@ Output: phase lines (each with its seconds), the card line from
 nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, on any failed phase,
 without a card, or without the repo's ``src/`` beside it.
-``python3 chip_smoke.py --eighth-path`` runs path 8 alone.
+``python3 chip_smoke.py --eighth-path`` runs path 8 alone,
+``--ninth-path`` path 9.
 """
 
 from __future__ import annotations
@@ -293,6 +306,35 @@ FAM_ATTN_CASES = tuple(
         ("maclaurin_attention", label, shape, "float32"),
     )
 )
+
+# Ninth path: LM training at full width and depth (LM_NAME: 30 layers,
+# 162.8 M parameters, cfg.remat on, bf16 compute over f32 masters), random
+# weights from SEED, batches from ``lm_token_batches``. Act 1 holds B8's
+# gradient (``ChunkedMaclaurin``: the kernel's forward, the plain twin's
+# backward) against the twin's own autograd at the training shape and at
+# path 8's (128, 2048, 128), each within ATTN_TWIN times the twin's own
+# distance from float64 + ATTN_ABS. The losses must fall as the
+# reference's tests require (tests/test_train.py:45, :64, :128): the mean
+# of the last 5 below that of the first 5 by TRAIN_DROP (AdamW, softmax),
+# by COMPRESS_DROP (int8 error feedback) and at all (maclaurin); four
+# microbatches within MICRO_TOL of one batch after a step at f32. The
+# resume drill follows examples/elastic_restart.py through the launcher:
+# the resumed run's loss at the first step after the restored one within
+# RESUME_REL of the first run's (the card's atomic adds are not
+# bit-deterministic), the restored arrays bit-equal to the checkpoint.
+# Step counts: a step takes 1.7 s (softmax: the blockwise attention's f32
+# score slabs) and 6.8 s (maclaurin: the twin's backward) on an H100 80GB
+# HBM3 at 700 W, so the reference tests' 60 / 20 / 30 steps and a 30-step
+# drill (461 s of path 9) are cut to fit the script's time: 20 / 10 / 15,
+# a 16-step drill.
+TRAIN_B, TRAIN_T = 8, 2048
+TRAIN_LR, TRAIN_WARMUP = 3e-3, 5
+TRAIN_STEPS, TRAIN_MAC_STEPS, TRAIN_COMPRESS_STEPS = 20, 10, 15
+TRAIN_DROP, COMPRESS_DROP, MICRO_TOL, RESUME_REL = 0.3, 0.2, 5e-3, 1e-2
+TRAIN_GRAD_CASES = ((TRAIN_B * 9, TRAIN_T, 64, 64), (128, 2048, 128, 128))
+DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 16, 5, 12
+DRILL_ARGS = ("--arch", LM_NAME)  # the launcher's model (full width and depth)
+TRAIN_GEN = 16  # greedy tokens from the trained weights
 
 # Fifth path: the serving runtime. Deferred sync: a DEFER_ROWS-row submit
 # behind ~DEFER_QUEUED_MS of B2 must return to the host before that work
@@ -803,6 +845,16 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
         kernels, _ = eighth_path(torch.device("cuda"))
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--ninth-path"]:
+        from repro_torch.kernels import build
+
+        print(card_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all(["maclaurin_attn.cu"])
+        kernels, _ = ninth_path(torch.device("cuda"))
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
     if sys.argv[1:2] == ["--submit-deferral"]:
@@ -2350,6 +2402,8 @@ def run(dev) -> list[dict]:
     launches7 = seventh_path(dev, svm, loaded, X_te, Zq, requests, exact)
     # ============================ eighth path (the LM families past dense)
     kernels_fam, launches8 = eighth_path(dev)
+    # ============================================ ninth path (LM training)
+    kernels_train, launches9 = ninth_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2358,7 +2412,7 @@ def run(dev) -> list[dict]:
     phase("runtime_profile_launches", seconds=time.perf_counter() - t0, **profiled)
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
-    paths += (launches5, launches6, launches7, launches8)
+    paths += (launches5, launches6, launches7, launches8, launches9)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -2393,7 +2447,7 @@ def run(dev) -> list[dict]:
             "library_ms": r_lib,
         },
     ]
-    kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam
+    kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train
     for entry in kernels:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
@@ -3733,6 +3787,434 @@ def eighth_path(dev):
         )
     return entries, launches
 
+
+
+def grad_checks(dev) -> tuple[dict, dict]:
+    """Act 1 of path 9: B8 under a gradient. At each (BH, T, d, dv), f32,
+    ``ChunkedMaclaurin`` (the kernel's forward, the twin's backward) against
+    the twin's own autograd on the card: the output and dq, dk, dv within
+    ATTN_TWIN times the twin's distance from float64 (the quadratic form's
+    autograd) + ATTN_ABS. Times: B8's forward, the Function's backward, the
+    twin's forward and its forward+backward. Returns (checks, timings) by
+    shape."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import tuning
+    from repro_torch.kernels.maclaurin_attn import kernel as ma
+    from repro_torch.kernels.maclaurin_attn.ref import maclaurin_attention_ref
+    from repro_torch.models import maclaurin_attention as mac
+
+    config = tuning.lookup("maclaurin_attn")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    checks, timings = {}, {}
+    for bh, t, d, dv in TRAIN_GRAD_CASES:
+        t0 = time.perf_counter()
+        q, k = (torch.randn((bh, t, d), generator=gen, device=dev) for _ in range(2))
+        v = torch.randn((bh, t, dv), generator=gen, device=dev)
+        w = torch.randn((bh, t, dv), generator=gen, device=dev)
+
+        def by_groups(fn, dtype, group):
+            """fn's output and its VJP against w, a group of heads at a time."""
+            parts = []
+            for i in range(0, bh, group):
+                leaves = [x[i : i + group].to(dtype).requires_grad_(True) for x in (q, k, v)]
+                out = fn(*leaves)
+                grads = torch.autograd.grad(out, leaves, w[i : i + group].to(out.dtype))
+                parts.append([out.detach(), *grads])
+            return [torch.cat(xs) for xs in zip(*parts)]
+
+        group = mac.backward_group(bh, t, d, dv, config.chunk)
+        twin_fn = lambda *x: ma.maclaurin_attention_torch(*x, config=config)  # noqa: E731
+        twin = by_groups(twin_fn, torch.float32, group)
+        scale = d**-0.5
+        ref_fn = lambda *x: maclaurin_attention_ref(*x, scale=scale)  # noqa: E731
+        exact = by_groups(ref_fn, torch.float64, max(1, 2**28 // t**2))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = build.counts()["maclaurin_attention"]
+        out = mac.ChunkedMaclaurin.apply(*leaves, None, config)
+        grads = torch.autograd.grad(out, leaves, w, retain_graph=True)
+        torch.cuda.synchronize()
+        launched = build.counts()["maclaurin_attention"] - before
+        res = {"launches": launched}
+        for name, got, tw, ex in zip(("out", "dq", "dk", "dv"), (out.detach(), *grads), twin, exact):
+            twin_err = max_err(tw, ex)
+            tol = ATTN_TWIN * twin_err + ATTN_ABS
+            err = max_err(got, tw)
+            res[name] = dict(
+                max_abs_err=err,
+                twin_max_abs_err_vs_float64=twin_err,
+                tol=tol,
+                max_abs_ref=float(tw.abs().max()),
+            )
+            check(err <= tol, f"B8 gradient {name} at {(bh, t, d, dv)}: {err} > {tol}")
+            check(bool(torch.isfinite(got).all()), f"B8 gradient {name}: not finite")
+        check(launched == 1, f"B8 under a gradient launched {launched} times, want 1")
+        del twin, exact
+        tm = dict(
+            ms=time_ms(lambda: ma.maclaurin_attention_cuda(q, k, v, config=config), iters=5, warm=1),
+            backward_ms=time_ms(
+                lambda: torch.autograd.grad(out, leaves, w, retain_graph=True), iters=2, warm=1
+            ),
+            plain_ms=time_ms(lambda: ma.maclaurin_attention_torch(q, k, v, config=config), 3, 1),
+            twin_fwd_bwd_ms=time_ms(lambda: by_groups(twin_fn, torch.float32, group), 2, 1),
+            bound=bound(*maclaurin_work(bh, t, d, dv, config.chunk), peak=PEAK_F32_3XTF32),
+        )
+        phase(
+            "train_b8_grad",
+            shape=[bh, t, d, dv],
+            chunk=config.chunk,
+            backward_head_group=group,
+            seconds=time.perf_counter() - t0,
+            **res,
+            **{k_: v_ for k_, v_ in tm.items() if k_ != "bound"},
+            bound_ms=tm["bound"][0],
+            bound_by=tm["bound"][1],
+        )
+        checks[bh, t, d, dv], timings[bh, t, d, dv] = res, tm
+        del out, grads, leaves, q, k, v, w
+        torch.cuda.empty_cache()
+    return checks, timings
+
+
+def train_steps(cfg, ocfg, params, steps: int, dev, seed: int, counted: str | None = None):
+    """``steps`` steps of ``make_train_step`` from fresh optimizer state, on
+    ``lm_token_batches`` rows (TRAIN_B x TRAIN_T, ``seed``). Returns
+    (params, losses, step ms from CUDA events around each step, launches of
+    kernel ``counted`` each step)."""
+    import torch
+
+    from repro_torch.data.loader import lm_token_batches
+    from repro_torch.kernels import build
+    from repro_torch.train.train_step import init_opt_state, make_train_step
+
+    state = init_opt_state(ocfg, params, device=dev)
+    step_fn = make_train_step(cfg, ocfg)
+    make = lm_token_batches(cfg.vocab_size, TRAIN_B, TRAIN_T, seed=seed)
+    losses, ms, launches = [], [], []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(x).to(dev) for k, x in make(s).items()}
+        before = build.counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, metrics = step_fn(params, state, batch, s)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        if counted:
+            launches.append(build.counts()[counted] - before[counted])
+    del state
+    return params, losses, ms, launches
+
+
+def falls(losses, by: float) -> tuple[float, float, bool]:
+    """(mean of the first 5, of the last 5, whether the last fall below the
+    first by more than ``by``): the rule of tests/test_train.py:45."""
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    return first, last, last < first - by
+
+
+def ninth_path(dev):
+    """Path 9, LM training at full width (kernel B8): act 1 holds B8's
+    gradient against the twin's (``grad_checks``); then, with the counts at
+    0, ``LM_NAME`` trained at full width and depth from seeded random
+    weights: AdamW with the softmax (blockwise) attention, the maclaurin
+    backend (B8 in each layer's forward and again where remat reruns it),
+    four microbatches against one at f32, int8-compressed gradients, the
+    launcher's failure drill and resume in subprocesses, flash attention's
+    refusal, and greedy decoding from the trained weights. Returns (the
+    B8 ``kernels`` entries at the training shapes, every kernel's launches
+    on the path)."""
+    import copy
+    import dataclasses
+    import gc
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.data.loader import lm_token_batches
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.decode_step import greedy_generate, make_serve_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_step import OptimizerConfig, init_opt_state, make_train_step
+
+    seconds = {}
+    t_path = t0 = time.perf_counter()
+    checks, timings = grad_checks(dev)
+    seconds["b8_grad"] = time.perf_counter() - t0
+
+    # ------------------------------------------- softmax training (AdamW)
+    t0 = time.perf_counter()
+    build.reset_counts()
+    cfg = lm_config()
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    trained, losses, ms, _ = train_steps(cfg, ocfg, params, TRAIN_STEPS, dev, seed=42)
+    peak = torch.cuda.max_memory_allocated()
+    first, last, fell = falls(losses, TRAIN_DROP)
+    step_ms = float(np.median(ms[1:]))
+    phase(
+        "train_softmax",
+        model=cfg.name,
+        params=n_params,
+        dtype=cfg.dtype,
+        remat=cfg.remat,
+        batch=TRAIN_B,
+        tokens=TRAIN_T,
+        steps=TRAIN_STEPS,
+        loss_first5=first,
+        loss_last5=last,
+        losses=losses[:3] + losses[-3:],
+        step_ms_median=step_ms,
+        step_ms_first=ms[0],
+        tokens_per_s=TRAIN_B * TRAIN_T / step_ms * 1e3,
+        max_memory_allocated=peak,
+        launches=build.counts(),
+        seconds=time.perf_counter() - t0,
+    )
+    check(bool(np.isfinite(losses).all()), "softmax training: a loss is not finite")
+    check(fell, f"softmax training: last-5 mean {last} not below first-5 {first} - {TRAIN_DROP}")
+    check(not any(build.counts().values()), "softmax training launched a kernel")
+    seconds["softmax"] = time.perf_counter() - t0
+
+    # ------------------------------------------------- maclaurin training
+    t0 = time.perf_counter()
+    mcfg = cfg.with_backend("maclaurin")
+    mocfg = dataclasses.replace(ocfg, total_steps=TRAIN_MAC_STEPS)
+    params = tf.init_params(mcfg, seed=SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    params, mlosses, mms, b8 = train_steps(
+        mcfg, mocfg, params, TRAIN_MAC_STEPS, dev, seed=42, counted="maclaurin_attention"
+    )
+    mpeak = torch.cuda.max_memory_allocated()
+    mfirst, mlast, mfell = falls(mlosses, 0.0)
+    mstep = float(np.median(mms[1:]))
+    want = 2 * mcfg.n_layers  # each layer's forward, and remat's rerun of it
+    phase(
+        "train_maclaurin",
+        steps=TRAIN_MAC_STEPS,
+        loss_first5=mfirst,
+        loss_last5=mlast,
+        step_ms_median=mstep,
+        tokens_per_s=TRAIN_B * TRAIN_T / mstep * 1e3,
+        b8_launches_per_step=sorted(set(b8)),
+        max_memory_allocated=mpeak,
+        seconds=time.perf_counter() - t0,
+    )
+    check(bool(np.isfinite(mlosses).all()), "maclaurin training: a loss is not finite")
+    check(mfell, f"maclaurin training: last-5 mean {mlast} not below first-5 {mfirst}")
+    check(set(b8) == {want}, f"maclaurin training: B8 launches a step {sorted(set(b8))}, want {want}")
+    del params
+    seconds["maclaurin"] = time.perf_counter() - t0
+
+    # -------------------------------------------- microbatches, at f32
+    t0 = time.perf_counter()
+    cfg32 = lm_config(dtype="float32")
+    base = OptimizerConfig(peak_lr=1e-3, warmup=0, total_steps=10)
+    micro = dataclasses.replace(base, microbatches=4)
+    params = tf.init_params(cfg32, seed=SEED + 1, device=dev)
+    batch = {
+        k: torch.from_numpy(x).to(dev)
+        for k, x in lm_token_batches(cfg32.vocab_size, TRAIN_B, TRAIN_T, seed=7)(0).items()
+    }
+    got = {}
+    for label, oc in (("one", base), ("four", micro)):
+        p = copy.deepcopy(params)
+        p, _, m = make_train_step(cfg32, oc)(p, init_opt_state(oc, p, device=dev), batch, 0)
+        got[label] = (p, {k: float(v) for k, v in m.items()})
+    diff = max(
+        float((a - b).detach().abs().max())
+        for a, b in zip(got["one"][0].parameters(), got["four"][0].parameters())
+    )
+    moved = max(
+        float((a - b).detach().abs().max())
+        for a, b in zip(got["one"][0].parameters(), params.parameters())
+    )
+    phase(
+        "train_microbatches",
+        dtype="float32",
+        microbatches=4,
+        max_abs_param_diff=diff,
+        tol=MICRO_TOL,
+        max_abs_step=moved,
+        metrics_one=got["one"][1],
+        metrics_four=got["four"][1],
+        seconds=time.perf_counter() - t0,
+    )
+    check(diff < MICRO_TOL, f"microbatches: parameters differ by {diff} >= {MICRO_TOL}")
+    check(moved > 0, "microbatches: the step moved no parameter")
+    del params, got, batch, p
+    seconds["microbatches"] = time.perf_counter() - t0
+
+    # ------------------------------------------------ compressed gradients
+    t0 = time.perf_counter()
+    cocfg = dataclasses.replace(ocfg, compress_grads=True)
+    params = tf.init_params(cfg, seed=SEED + 3, device=dev)
+    params, closses, cms, _ = train_steps(cfg, cocfg, params, TRAIN_COMPRESS_STEPS, dev, seed=4)
+    cfirst, clast, cfell = falls(closses, COMPRESS_DROP)
+    cstep = float(np.median(cms[1:]))
+    phase(
+        "train_compressed",
+        steps=TRAIN_COMPRESS_STEPS,
+        loss_first5=cfirst,
+        loss_last5=clast,
+        step_ms_median=cstep,
+        tokens_per_s=TRAIN_B * TRAIN_T / cstep * 1e3,
+        seconds=time.perf_counter() - t0,
+    )
+    check(bool(np.isfinite(closses).all()), "compressed training: a loss is not finite")
+    check(cfell, f"compressed training: last-5 {clast} not below first-5 {cfirst} - {COMPRESS_DROP}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["compressed"] = time.perf_counter() - t0
+
+    # ------------------------------------------ entry point, resume drill
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_drill_")
+    try:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        cmd = [
+            sys.executable, "-m", "repro_torch.launch.train", *DRILL_ARGS,
+            "--steps", str(DRILL_STEPS), "--batch", str(TRAIN_B), "--seq", str(TRAIN_T),
+            "--ckpt-every", str(DRILL_EVERY), "--log-every", "1", "--ckpt-dir", tmp,
+            "--device", dev.type,
+        ]
+        run1 = subprocess.run(
+            cmd + ["--simulate-failure", str(DRILL_FAIL)],
+            env=env, capture_output=True, text=True, timeout=600,
+        )
+        tail = lambda r: (r.stdout[-1500:], r.stderr[-1500:])  # noqa: E731
+        check(run1.returncode == 42, f"drill: first run exited {run1.returncode}: {tail(run1)}")
+        n = ckpt.latest_step(tmp)
+        committed = range(DRILL_EVERY, DRILL_FAIL + 1, DRILL_EVERY)
+        check(n in committed[-2:], f"drill: LATEST is {n}")
+        with np.load(os.path.join(tmp, f"step_{n}", "arrays.npz")) as data:
+            saved = {key: data[key] for key in data.files}
+        run2 = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        check(run2.returncode == 0, f"drill: resumed run exited {run2.returncode}: {tail(run2)}")
+        check(f"[train] resumed from step {n}\n" in run2.stdout, f"drill: no resume from {n}")
+        check(run2.stdout.rstrip().endswith("[train] done"), "drill: no [train] done")
+        pattern = re.compile(r"\[train\] step\s+(\d+) loss (\S+) gnorm \S+ lr \S+ \((\d+) tok/s\)")
+        logged = [
+            {int(m[1]): (float(m[2]), int(m[3])) for m in pattern.finditer(r.stdout)}
+            for r in (run1, run2)
+        ]
+        l1, l2 = logged[0][n + 1][0], logged[1][n + 1][0]
+        rel = abs(l1 - l2) / abs(l1)
+        like_params = tf.init_params(cfg, seed=SEED + 5, device=dev)
+        like = {"params": like_params, "opt": init_opt_state(ocfg, like_params, device=dev)}
+        restored = ckpt.flatten(ckpt.restore(tmp, n, like, shardings=dev))
+        same = sorted(restored) == sorted(saved) and all(
+            restored[key].dtype == saved[key].dtype
+            and restored[key].tobytes() == saved[key].tobytes()
+            for key in saved
+        )
+        tok_s = [tok for s_, (_, tok) in logged[1].items() if s_ > n + 1]
+        phase(
+            "train_drill",
+            first_exit=run1.returncode,
+            committed=n,
+            resumed_exit=run2.returncode,
+            loss_first_run=l1,
+            loss_resumed=l2,
+            rel_diff=rel,
+            restored_arrays=len(restored),
+            restored_bytes=int(sum(a.nbytes for a in saved.values())),
+            restored_bit_equal=same,
+            launcher_tokens_per_s_median=float(np.median(tok_s)) if tok_s else None,
+            disk_free_bytes=shutil.disk_usage(tmp).free,
+            seconds=time.perf_counter() - t0,
+        )
+        check(rel <= RESUME_REL, f"drill: step {n + 1} loss {l2} vs {l1}, rel {rel}")
+        check(same, "drill: restored arrays differ from the checkpoint")
+        del like, like_params, restored, saved
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds["drill"] = time.perf_counter() - t0
+
+    # ------------------------------------------------------ flash refused
+    t0 = time.perf_counter()
+    fcfg = lm_config(attention_impl="flash")
+    batch = {
+        k: torch.from_numpy(x).to(dev)
+        for k, x in lm_token_batches(cfg.vocab_size, TRAIN_B, TRAIN_T, seed=42)(0).items()
+    }
+    before = build.counts()["flash_attention"]
+    refused = ""
+    try:
+        make_train_step(fcfg, ocfg)(trained, init_opt_state(ocfg, trained, device=dev), batch, 0)
+    except RuntimeError as e:
+        refused = str(e)
+    b9 = build.counts()["flash_attention"] - before
+    phase("train_flash_refused", error=refused, b9_launches=b9)
+    check("flash_attention: the kernel has no backward" in refused, "flash training not refused")
+    check(b9 == 0, f"flash training launched B9 {b9} times")
+    seconds["flash_refused"] = time.perf_counter() - t0
+
+    # ------------------------------------------- serve what was trained
+    t0 = time.perf_counter()
+    prompt = batch["tokens"][:2, :16]
+    cache = tf.init_cache(cfg, 2, 16 + TRAIN_GEN, dtype=torch.float32, device=dev)
+    step = make_serve_step(cfg)
+    finite, graph = True, False
+    for pos in range(prompt.shape[1]):
+        logits, cache = step(trained, prompt[:, pos : pos + 1], pos, cache)
+        finite &= bool(torch.isfinite(logits).all())
+        graph |= logits.grad_fn is not None
+    nxt = logits[:, -1:].argmax(-1).to(torch.int32)
+    toks, _ = greedy_generate(cfg, trained, nxt, cache, steps=TRAIN_GEN, start_pos=16)
+    in_range = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    phase(
+        "train_serve",
+        cache="float32",
+        steps=TRAIN_GEN,
+        finite=finite,
+        graph=graph,
+        tokens=toks[0].tolist(),
+        seconds=time.perf_counter() - t0,
+    )
+    check(finite, "serving the trained weights: logits not finite")
+    check(not graph, "serving recorded a graph")
+    check(toks.shape == (2, TRAIN_GEN) and in_range, "serving the trained weights: tokens")
+    launches = build.counts()
+    del trained, cache, batch
+    torch.cuda.empty_cache()
+    seconds["serve"] = time.perf_counter() - t0
+    phase("ninth_path_launches", **launches)
+    phase("ninth_path_seconds", total=time.perf_counter() - t_path, **seconds)
+    check(launches["maclaurin_attention"] == TRAIN_MAC_STEPS * 2 * cfg.n_layers, "B8 launches")
+
+    entries = []
+    for shape, res in checks.items():
+        tm = timings[shape]
+        entries.append(
+            {
+                "name": "maclaurin_attention",
+                "case": "training" if shape == TRAIN_GRAD_CASES[0] else "training hd128",
+                "shape": list(shape),
+                "route": "cuda",
+                "source": "src/repro_torch/csrc/maclaurin_attn.cu",
+                "replaces": "src/repro/kernels/maclaurin_attn/kernel.py:137",
+                "launches": launches["maclaurin_attention"],
+                "max_abs_err": res["out"]["max_abs_err"],
+                "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1],
+                "library_ms": None,  # no PyTorch call computes w(u) attention
+                "backward_ms": tm["backward_ms"],
+                "twin_fwd_bwd_ms": tm["twin_fwd_bwd_ms"],
+            }
+        )
+    return entries, launches
 
 def serve_cell_checks(
     label, art, engine, results, requests, refs, exact, dev

@@ -1,7 +1,7 @@
 """``repro_torch`` — the PyTorch/CUDA port of ``repro``.
 
 It mirrors ``repro``'s layout module for module, so the counterpart of
-``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Seven
+``repro/core/maclaurin.py`` is ``repro_torch/core/maclaurin.py``. Nine
 paths run on a CUDA card through nine kernels written by hand for Hopper
 (``csrc/*.cu``, B1-B9):
 
@@ -25,11 +25,19 @@ paths run on a CUDA card through nine kernels written by hand for Hopper
 6. the HTTP front door (``serve.server``) over that runtime;
 7. scale-out: ``SVMEngine``'s ``head_mesh=`` (heads split over a
    ``launch.Mesh``, B1 and B3-B7 once a shard) and ``mesh=`` (the exact
-   model's SVs split, B2 once a shard), and runtime replicas.
+   model's SVs split, B2 once a shard), and runtime replicas;
+8. the LM families past dense (MoE, RWKV6, the Mamba2 hybrid, the VLM's
+   cross-attention), with B8 and B9 in each self-attention application;
+9. LM training (``train``, ``data.loader``, ``launch.train``): AdamW or
+   Adafactor steps with remat, microbatches and int8 compression,
+   checkpoints in the reference's layout; B8 runs the forward of
+   maclaurin training (its gradient is the plain twin's), and every
+   kernel wrapper refuses a gradient rather than drop it.
 
 On CPU tensors every kernel wrapper computes with its plain PyTorch twin
 instead. Entry points (``SVMEngine``, ``Runtime``, ``CompiledArtifact.load``,
-``convert.*``, ``models.transformer.init_params`` and ``init_cache``)
+``convert.*_from_numpy``, ``models.transformer.init_params`` and ``init_cache``,
+``train.train_step.init_opt_state``, ``launch.train``)
 default to ``torch.device("cuda")`` and raise when no card is present,
 unless the caller passes ``device="cpu"``.
 

@@ -19,6 +19,7 @@ from repro_torch.core.families.base import CompiledArtifact
 from repro_torch.core.maclaurin import ApproxModel
 from repro_torch.core.rbf import SVMModel
 from repro_torch.models.transformer import LMParams
+from repro_torch.train.tree import tree_map
 
 
 def _f32(x, dev: torch.device) -> torch.Tensor:
@@ -57,10 +58,8 @@ def artifact_from_numpy(family: str, arrays: dict, meta: dict, device=None):
     return CompiledArtifact(family=family, arrays=tensors, meta=dict(meta))
 
 
-def _leaf(tree, path: str):
-    for key in path.split("."):
-        tree = tree[key]
-    return tree
+def _numpy(tree):
+    return tree_map(lambda t: t.detach().to("cpu", copy=True).numpy(), tree)
 
 
 def lm_params_from_numpy(cfg: ModelConfig, params: dict, device=None) -> LMParams:
@@ -68,17 +67,32 @@ def lm_params_from_numpy(cfg: ModelConfig, params: dict, device=None) -> LMParam
     arrays, for any family: ``embed``/``lm_head``/``final_ln`` and hybrid's
     ``shared_attn`` as they are; ``layers`` (vlm: its self-attention layers)
     and vlm's ``cross_layers`` with every leaf stacked along a first axis,
-    one entry a layer. Every parameter keeps the reference's key and
-    (in, out) layout and is stored f32, as the reference stores it."""
+    one entry a layer (``LMParams.assign``). Every parameter keeps the
+    reference's key and (in, out) layout and is stored f32, as the
+    reference stores it."""
     dev = _device.resolve(device)
     with torch.no_grad():
         model = LMParams(cfg, torch.Generator(device=dev), dev)
-        for name, child in model.named_children():
-            if isinstance(child, torch.nn.ModuleList):  # stacked in the reference
-                for i, layer in enumerate(child):
-                    for path, p in layer.named_parameters():
-                        p.copy_(_f32(_leaf(params[name], path)[i], dev))
-            else:
-                for path, p in child.named_parameters():
-                    p.copy_(_f32(_leaf(params[name], path), dev))
-    return model
+    return model.assign(tree_map(lambda x: _f32(x, dev), params))
+
+
+def lm_params_to_numpy(cfg: ModelConfig, params: LMParams) -> dict:
+    """``repro``'s ``init_params`` tree of ``params`` as numpy arrays, the
+    inverse of ``lm_params_from_numpy``: ``layers`` and ``cross_layers``
+    with every leaf stacked along a first layer axis (``LMParams.tree``)."""
+    del cfg  # the tree follows the modules; kept for the inverse's signature
+    return _numpy(params.tree(lambda p: p.detach()))
+
+
+def opt_state_from_numpy(state: dict, device=None) -> dict:
+    """The port's optimizer state from ``repro``'s (AdamW's ``m``/``v``/
+    ``count``, Adafactor's ``v`` with ``vr``/``vc``/``v`` and ``count``,
+    ``ef`` where present) as numpy arrays: the same keys, shapes and
+    dtypes, each leaf a tensor on ``device``."""
+    dev = _device.resolve(device)
+    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(dev), state)
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """The inverse of ``opt_state_from_numpy``: every leaf a numpy copy."""
+    return _numpy(state)

@@ -186,6 +186,21 @@ def on_card(Z: torch.Tensor, name: str) -> bool:
     return True
 
 
+def refuse_grad(name: str, *operands) -> None:
+    """Raise before a launch that autograd would record: grad mode is on
+    and an operand requires a gradient. A kernel writes its output by bare
+    pointer, so the result would carry no ``grad_fn`` and ``backward``
+    would leave the operands' gradients out without a word; the kernels
+    have no backward, as the reference's Pallas kernels have none."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in operands
+    ):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under torch.no_grad() "
+            "or on operands that do not require a gradient"
+        )
+
+
 def check_operands(Z: torch.Tensor, operands: dict, z_dtype=torch.float32) -> None:
     """Raise unless Z is contiguous and of ``z_dtype`` (f32 by default) and
     every ``name: (tensor, shape, dtype)`` operand has its shape and dtype,

@@ -23,7 +23,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import tiles
 
 NEG_INF = -1e30
@@ -79,6 +84,7 @@ def flash_attention_cuda(q, k, v, *, scale=None, causal=True, block_q=None, bloc
         return flash_attention_torch(
             q, k, v, scale=scale, causal=causal, block_q=block_q, block_k=block_k
         )
+    refuse_grad("flash_attention", q, k, v)
     scale = _resolve(q, scale, block_k, causal)
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}; the kernel takes {DTYPES}")

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from repro_torch.kernels.build import refuse_grad
 from repro_torch.kernels.flash_attn.kernel import flash_attention_cuda
 
 
@@ -15,7 +16,12 @@ def flash_attention(
     ``block_k`` are the reference's (256 x 256 unless named): they set its
     refusal of padded non-causal keys, and the kernel runs its own 64 x 64
     tile. On CPU tensors the plain twin computes; on CUDA tensors the
-    kernel launches."""
+    kernel launches.
+
+    Under a gradient it raises on both devices: the reference's kernel has
+    no VJP, so ``jax.grad`` through it fails, and training takes the
+    blockwise attention."""
+    refuse_grad("flash_attention", q, k, v)
     b, h, t, _ = q.shape
     dv = v.shape[-1]
 

@@ -24,7 +24,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import TileConfig, tuning
 from repro_torch.kernels.fwht.ref import fastfood_score_q8_ref, fastfood_score_ref
 
@@ -85,6 +90,7 @@ def fastfood_score_cuda(
     """
     if not on_card(Z, "fastfood_score"):
         return fastfood_score_torch(Z, B, G, perm, scale, phase, weights, bias)
+    refuse_grad("fastfood_score", Z, B, G, perm, scale, phase, weights, bias)
     f32 = torch.float32
     operands = _operands(Z, B, perm, phase, weights, bias, f32, torch.int32, f32)
     operands["G"] = (G, B.shape, f32)
@@ -122,6 +128,8 @@ def fastfood_score_q8_cuda(
         return fastfood_score_q8_torch(
             Z, b_q, g_q, perm, s_q, stack_scale, phase, weights_q, wt_scale, bias
         )
+    operands = (Z, b_q, g_q, perm, s_q, stack_scale, phase, weights_q, wt_scale, bias)
+    refuse_grad("fastfood_score_q8", *operands)
     i8, f32 = torch.int8, torch.float32
     operands = _operands(
         Z, b_q, perm, phase, weights_q, bias, i8, torch.int16, torch.float16

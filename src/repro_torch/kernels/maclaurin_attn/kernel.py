@@ -25,7 +25,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 from repro_torch.kernels.maclaurin_attn.ref import extend_state, init_state, moment_terms
 
@@ -162,6 +167,7 @@ def maclaurin_attention_cuda(
     """
     if not on_card(q, "maclaurin_attention"):
         return maclaurin_attention_torch(q, k, v, scale=scale, config=config)
+    refuse_grad("maclaurin_attention", q, k, v)
     config = config or tuning.lookup("maclaurin_attn")
     bh, t, d = q.shape
     dv = v.shape[-1]

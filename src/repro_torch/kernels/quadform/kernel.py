@@ -17,7 +17,12 @@ import ctypes
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 from repro_torch.kernels.quadform.ref import eq311_valid
 
@@ -98,6 +103,7 @@ def quadform_heads_cuda(
     """
     if not on_card(Z, "quadform_heads"):
         return quadform_heads_torch(Z, M_all, V, c, b, gamma, msq)
+    refuse_grad("quadform_heads", Z, M_all, V, c, b, gamma, msq)
     check_operands(Z, _heads_operands(Z, M_all, V, c, b, gamma, msq, torch.float32))
     config = config or tuning.lookup("quadform")
     return _launch(KERNEL, config, Z, (M_all,), (V, c, b, gamma, msq))
@@ -117,6 +123,7 @@ def quadform_heads_q8_cuda(
     """
     if not on_card(Z, "quadform_heads_q8"):
         return quadform_heads_q8_torch(Z, M_q, col_scale, V, c, b, gamma, msq)
+    refuse_grad("quadform_heads_q8", Z, M_q, col_scale, V, c, b, gamma, msq)
     operands = _heads_operands(Z, M_q, V, c, b, gamma, msq, torch.int8)
     operands["col_scale"] = (col_scale, (M_q.shape[0], Z.shape[1]), torch.float32)
     check_operands(Z, operands)

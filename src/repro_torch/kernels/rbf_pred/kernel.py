@@ -16,7 +16,12 @@ import ctypes
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 
 BLOCK_M = 64  # SVs per tile, fixed in the source
@@ -63,6 +68,7 @@ def rbf_scores_cuda(Z, X, alpha_y, gamma, b, *, config: TileConfig | None = None
     """
     if not on_card(Z, "rbf_scores"):
         return rbf_scores_torch(Z, X, alpha_y, gamma, b)
+    refuse_grad("rbf_scores", Z, X, alpha_y, gamma, b)
     A, bias, single = _as_heads(alpha_y, b)
     bias = bias.contiguous()
     gamma = torch.as_tensor(gamma, dtype=torch.float32, device=Z.device).reshape(1)

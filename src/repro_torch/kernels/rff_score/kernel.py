@@ -18,7 +18,12 @@ import ctypes
 import torch
 
 from repro_torch.device import sm_count
-from repro_torch.kernels.build import CudaKernel, check_operands, on_card
+from repro_torch.kernels.build import (
+    CudaKernel,
+    check_operands,
+    on_card,
+    refuse_grad,
+)
 from repro_torch.kernels.common import TileConfig, tiles, tuning
 
 BLOCK_F = 64  # features per tile, fixed in the source
@@ -78,6 +83,7 @@ def rff_score_cuda(Z, W, phase, weights, bias, *, config: TileConfig | None = No
     """
     if not on_card(Z, "rff_score"):
         return rff_score_torch(Z, W, phase, weights, bias)
+    refuse_grad("rff_score", Z, W, phase, weights, bias)
     check_operands(Z, _operands(Z, W, phase, weights, bias, torch.float32))
     config = config or tuning.lookup("rff_score")
     return _launch(KERNEL, config, Z, (W, phase, weights, bias), W.shape[0], bias)
@@ -103,6 +109,7 @@ def rff_score_q8_cuda(
     """
     if not on_card(Z, "rff_score_q8"):
         return rff_score_q8_torch(Z, W_q, w_scale, phase, weights_q, wt_scale, bias)
+    refuse_grad("rff_score_q8", Z, W_q, w_scale, phase, weights_q, wt_scale, bias)
     operands = _operands(Z, W_q, phase, weights_q, bias, torch.int8)
     operands["w_scale"] = (w_scale, (W_q.shape[0],), torch.float32)
     operands["wt_scale"] = (wt_scale, (weights_q.shape[0],), torch.float32)

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from repro_torch.models.layers import ParamModule, apply_rope, init_, zeros_
+from repro_torch.models.layers import ParamModule, apply_rope, init_, remat, zeros_
 
 
 class Attention(ParamModule):
@@ -54,8 +54,10 @@ def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta):
 def _gqa_scores_full(q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch.float32):
     """q: (B,T,Hq,hd), k/v: (B,S,Hkv,hd). Softmax attention, blockwise over
     query chunks of 512, so the (T x S) score matrix never materializes —
-    peak extra memory is one (B,Hkv,g,chunk,S) slab. Full-softmax rows per
-    chunk (S is not chunked), so no online-softmax state is needed.
+    peak extra memory is one (B,Hkv,g,chunk,S) slab, recomputed in the
+    backward pass (each chunk under ``remat``, as the reference
+    ``jax.checkpoint``s each chunk body). Full-softmax rows per chunk (S is
+    not chunked), so no online-softmax state is needed.
     """
     B, T, Hq, hd = q.shape
     Hkv = k.shape[2]
@@ -67,7 +69,7 @@ def _gqa_scores_full(q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch
     n_chunks = T // chunk
     assert n_chunks * chunk == T, f"T={T} not divisible by attention chunk {chunk}"
     outs = [
-        _attn_chunk(qh[:, c0 : c0 + chunk], k, v, c0, causal, scale, T, scores_dtype)
+        remat(_attn_chunk, qh[:, c0 : c0 + chunk], k, v, c0, causal, scale, T, scores_dtype)
         for c0 in range(0, T, chunk)
     ]
     return torch.cat(outs, dim=1).reshape(B, T, Hq, hd)

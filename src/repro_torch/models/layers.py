@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def init_(shape, generator: torch.Generator, device, scale=None) -> nn.Parameter:
@@ -46,6 +47,28 @@ class ParamModule(nn.Module):
         for name, child in self.named_children():
             out[name] = child.tensors(dtype)
         return out
+
+
+def _records(tree) -> bool:
+    """Whether a tensor in ``tree`` (dicts, lists, tuples) requires grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_records(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records(v) for v in tree)
+    return False
+
+
+def remat(fn, *args):
+    """``fn(*args)`` recomputed in the backward pass instead of keeping its
+    intermediates, where the reference wraps ``fn`` in ``jax.checkpoint``:
+    ``torch.utils.checkpoint`` (non-reentrant) while autograd records a
+    graph through ``args``, a plain call otherwise (serving, evaluation).
+    Nothing here draws random numbers, so no RNG state is kept."""
+    if torch.is_grad_enabled() and _records(args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------- norms
@@ -129,8 +152,9 @@ def lm_head(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean token cross-entropy; stable logsumexp; logits (B,T,V) f32."""
+    """Mean token cross-entropy; stable logsumexp; logits (B,T,V) f32;
+    labels (B,T) of any integer type."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    gold = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
     return torch.mean(lse - gold)

@@ -33,6 +33,13 @@ runs at; unnamed, B8 runs at the port's one chunk, ``tuning``'s default
 (64), as ``use_kernel=True`` does: the chunk changes the order of the
 sums, not the function.
 
+Under a gradient the chunked form is ``ChunkedMaclaurin``, an autograd
+``Function``: its forward is B8's dispatch as above, and its backward
+recomputes the plain chunked twin (``maclaurin_attention_torch``) and
+returns that twin's vector-Jacobian product. That is the reference's
+gradient, JAX's autodiff of the same chunked algebra; the reference has
+no backward kernel, and neither does the port.
+
 ``MacState``, ``init_state`` and ``extend_state`` live beside the
 quadratic oracle in ``kernels/maclaurin_attn/ref.py``, which B8's plain
 twin shares, and are re-exported here.
@@ -43,7 +50,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import tuning
-from repro_torch.kernels.maclaurin_attn import maclaurin_attention, maclaurin_attention_ref
+from repro_torch.kernels.maclaurin_attn import (
+    maclaurin_attention,
+    maclaurin_attention_cuda,
+    maclaurin_attention_ref,
+    maclaurin_attention_torch,
+)
 from repro_torch.kernels.maclaurin_attn.ref import (  # noqa: F401  (re-exported)
     MacState,
     extend_state,
@@ -52,6 +64,10 @@ from repro_torch.kernels.maclaurin_attn.ref import (  # noqa: F401  (re-exported
 )
 
 REF_CHUNK = 256  # the reference's default chunk, which sets its refusal
+# What the backward's twin may keep for autograd at once: heads are
+# independent, so it runs over groups of heads whose saved moments (one
+# (d^2, dv) S2 and two (chunk, d^2) feature maps a chunk) fit in this.
+BACKWARD_BYTES = 4 << 30
 
 
 def readout(state: MacState, q: torch.Tensor, scale: float | None = None):
@@ -100,7 +116,8 @@ def maclaurin_attention_chunked(
     q, k, v, scale: float | None = None, chunk: int | None = None
 ):
     """Chunked causal Maclaurin attention: kernel B8 at this chunk (``None``:
-    the port's default from ``tuning``).
+    the port's default from ``tuning``), through ``ChunkedMaclaurin``, so
+    that a gradient flows (the plain twin's).
 
     q,k,v: (B, H, T, d) -> (B, H, T, d_v) in v's dtype, computed in f32.
     Refuses, as the reference does, a T that is not a multiple of the
@@ -110,7 +127,61 @@ def maclaurin_attention_chunked(
     if chunk is not None:
         config = config.with_(chunk=chunk)
     refused = REF_CHUNK if chunk is None else config.chunk
-    T = q.shape[2]
+    b, h, T, _ = q.shape
     if T % refused:
         raise ValueError(f"T={T} % chunk={refused}")
-    return maclaurin_attention(q, k, v, scale=scale, config=config)
+    dv = v.shape[-1]
+
+    def flat(x):
+        return x.reshape(b * h, T, x.shape[-1])
+
+    out = ChunkedMaclaurin.apply(flat(q), flat(k), flat(v), scale, config)
+    return out.reshape(b, h, T, dv).to(v.dtype)
+
+
+def backward_group(bh: int, t: int, d: int, dv: int, chunk: int) -> int:
+    """Heads a group of the backward's twin takes: as many as keep its
+    saved moments within ``BACKWARD_BYTES``."""
+    c = min(chunk, t)
+    n_chunks = -(-t // c)
+    per_head = 4 * n_chunks * (d * d * dv + 2 * c * d * d + d * dv + 3 * c * c)
+    return max(1, min(bh, BACKWARD_BYTES // per_head))
+
+
+class ChunkedMaclaurin(torch.autograd.Function):
+    """Chunked causal Maclaurin attention with a gradient. q, k (BH, T, d),
+    v (BH, T, dv) -> (BH, T, dv) f32.
+
+    forward: kernel B8 on CUDA tensors, its plain twin on CPU tensors
+    (``maclaurin_attention_cuda``; autograd records nothing inside).
+    backward: the twin rerun under ``torch.enable_grad()`` over groups of
+    heads (``backward_group``), and its vector-Jacobian product returned:
+    plain PyTorch, as the reference differentiates its plain ``lax.scan``
+    form. Gradients come back in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, config):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.config = scale, config
+        return maclaurin_attention_cuda(q, k, v, scale=scale, config=config)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        bh, t, d = q.shape
+        group = backward_group(bh, t, d, v.shape[-1], ctx.config.chunk)
+        grads = [torch.empty_like(x) if n else None for x, n in zip((q, k, v), needs)]
+        for i in range(0, bh, group):
+            with torch.enable_grad():
+                part = [
+                    x[i : i + group].detach().requires_grad_(n)
+                    for x, n in zip((q, k, v), needs)
+                ]
+                out = maclaurin_attention_torch(*part, scale=ctx.scale, config=ctx.config)
+                wrt = [x for x, n in zip(part, needs) if n]
+                got = iter(torch.autograd.grad(out, wrt, grad_out[i : i + group]))
+            for g, n in zip(grads, needs):
+                if n:
+                    g[i : i + group] = next(got)
+        return (*grads, None, None)

@@ -7,8 +7,17 @@ RWKV6 (``ssm``), Mamba2 with one shared attention block (``hybrid``, the
 Zamba2 pattern) and self-attention stacks with interleaved
 cross-attention to image tokens (``vlm``, the Llama-3.2-vision pattern).
 ``lax.scan`` over stacked layers becomes a loop over an
-``nn.ModuleList``; the reference's sharding hints and ``jax.checkpoint``
-have no job off a mesh and outside training.
+``nn.ModuleList``; the reference's sharding hints have no job off a
+mesh. Its ``jax.checkpoint`` is ``layers.remat``, placed as the reference
+places it: with ``cfg.remat`` each layer of a scanned stack (the dense
+blocks, RWKV6 blocks, Mamba2 blocks and the VLM's self-attention blocks;
+not hybrid's shared block or the VLM's cross blocks), taken only while
+autograd records a graph.
+
+``forward`` records a graph where the parameters require gradients:
+they are built frozen (``requires_grad=False``), and a trainer turns them
+on for the module it trains (``train.train_step``). ``decode`` and the
+serving steps run under ``torch.inference_mode``.
 
 What is cast to ``cfg.dtype``, as in the reference: the layer stack
 (every layer parameter, norms included) and the LM head, at each call.
@@ -50,6 +59,7 @@ from repro_torch.models.layers import (
     SwiGLU,
     embed,
     lm_head,
+    remat,
     rmsnorm,
     swiglu,
 )
@@ -152,6 +162,58 @@ class LMParams(ParamModule):
                 CrossLayer(cfg, generator, device) for _ in range(n_cross)
             )
 
+    def tree(self, leaf=None) -> dict:
+        """The reference's tree of these parameters: nested dicts under its
+        keys, each ``nn.ModuleList`` (``layers``, ``cross_layers``) with every
+        leaf stacked along a first layer axis (a copy), the rest as they
+        are. ``leaf(p)`` stands in for each parameter where given (e.g. its
+        gradient)."""
+        leaf = leaf or (lambda p: p)
+        out = {}
+        for name, child in self.named_children():
+            if isinstance(child, nn.ModuleList):
+                layers = [dict(layer.named_parameters()) for layer in child]
+                flat = {
+                    path: torch.stack([leaf(layer[path]) for layer in layers])
+                    for path in layers[0]
+                }
+            else:
+                flat = {path: leaf(p) for path, p in child.named_parameters()}
+            out[name] = _nest(flat)
+        return out
+
+    @torch.no_grad()
+    def assign(self, tree: dict) -> "LMParams":
+        """Copy the reference's tree (as ``tree`` gives it) into these
+        parameters in place; returns self."""
+        for name, child in self.named_children():
+            if isinstance(child, nn.ModuleList):
+                for i, layer in enumerate(child):
+                    for path, p in layer.named_parameters():
+                        p.copy_(_leaf(tree[name], path)[i])
+            else:
+                for path, p in child.named_parameters():
+                    p.copy_(_leaf(tree[name], path))
+        return self
+
+
+def _nest(flat: dict) -> dict:
+    """``{"attn.w_q": x}`` -> ``{"attn": {"w_q": x}}``."""
+    out = {}
+    for path, value in flat.items():
+        *parents, key = path.split(".")
+        node = out
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[key] = value
+    return out
+
+
+def _leaf(tree: dict, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
 
 def init_params(cfg: ModelConfig, seed: int = SEED, device=None) -> LMParams:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, at
@@ -235,13 +297,18 @@ def _cross_block(cfg: ModelConfig, pc, x, ctx):
     return x + swiglu(pc["ffn"], rmsnorm(pc["ln2"], x))
 
 
-@torch.inference_mode()
+def _layer(cfg: ModelConfig, block, *args):
+    """One layer of a scanned stack, under ``remat`` where ``cfg.remat``."""
+    return remat(block, cfg, *args) if cfg.remat else block(cfg, *args)
+
+
 def forward(
     cfg: ModelConfig, params: LMParams, tokens: torch.Tensor, image_embeds=None
 ):
     """Full-sequence forward -> (logits, aux_loss). tokens: (B, T); a VLM
     also takes ``image_embeds`` (B, N, d). ``aux_loss`` is the sum over
-    layers of the MoE load-balancing losses (0 for the other families)."""
+    layers of the MoE load-balancing losses (0 for the other families).
+    Records a graph when the parameters require gradients."""
     dtype = getattr(torch, cfg.dtype)
     T = tokens.shape[1]
     dev = tokens.device
@@ -251,13 +318,13 @@ def forward(
     layers = params.layers
     if cfg.family == "ssm":
         for layer in layers:
-            x = _rwkv_block(cfg, layer.tensors(dtype), x)
+            x = _layer(cfg, _rwkv_block, layer.tensors(dtype), x)
     elif cfg.family == "hybrid":
         k_every = cfg.hybrid_attn_every
         shared = params.shared_attn.tensors(dtype)
         for g in range(cfg.n_layers // k_every):
             for layer in layers[g * k_every : (g + 1) * k_every]:
-                x = _mamba_block(cfg, layer.tensors(dtype), x)
+                x = _layer(cfg, _mamba_block, layer.tensors(dtype), x)
             x, a = _dense_block(cfg, shared, x, positions)  # shared weights
             aux = aux + a
     elif cfg.family == "vlm":
@@ -267,12 +334,12 @@ def forward(
         n_cross, _, per_block = vlm_layout(cfg)
         for g in range(n_cross):
             for layer in layers[g * per_block : (g + 1) * per_block]:
-                x, a = _dense_block(cfg, layer.tensors(dtype), x, positions)
+                x, a = _layer(cfg, _dense_block, layer.tensors(dtype), x, positions)
                 aux = aux + a
             x = _cross_block(cfg, params.cross_layers[g].tensors(dtype), x, ctx)
     else:
         for layer in layers:
-            x, a = _dense_block(cfg, layer.tensors(dtype), x, positions)
+            x, a = _layer(cfg, _dense_block, layer.tensors(dtype), x, positions)
             aux = aux + a
     x = rmsnorm(params.final_ln.tensors(), x)
     logits = lm_head(params.lm_head.tensors(dtype), x)

@@ -8,6 +8,9 @@ backend follows ``cfg.attention_backend``:
   maclaurin  O(d^2) moment state — the paper's collapse (context-length-free)
 
 ``make_prefill_step(cfg)`` runs the full-sequence forward (logits only).
+Every step, and ``greedy_generate``, runs under ``torch.inference_mode``:
+serving records no graph, even on parameters a trainer left requiring
+gradients.
 A VLM's steps also take the image embeddings, as the reference's do:
 prefill (params, tokens, image_embeds), decode (params, tokens, pos,
 cache, image_embeds).
@@ -26,12 +29,14 @@ from repro_torch.models.transformer import decode, forward
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     if cfg.family == "vlm":
 
+        @torch.inference_mode()
         def prefill_step(params, tokens, image_embeds):
             logits, _ = forward(cfg, params, tokens, image_embeds)
             return logits
 
     else:
 
+        @torch.inference_mode()
         def prefill_step(params, tokens):
             logits, _ = forward(cfg, params, tokens)
             return logits
@@ -42,11 +47,13 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 def make_serve_step(cfg: ModelConfig) -> Callable:
     if cfg.family == "vlm":
 
+        @torch.inference_mode()
         def serve_step(params, tokens, pos, cache, image_embeds):
             return decode(cfg, params, tokens, pos, cache, image_embeds)
 
     else:
 
+        @torch.inference_mode()
         def serve_step(params, tokens, pos, cache):
             return decode(cfg, params, tokens, pos, cache)
 

@@ -185,3 +185,20 @@ def test_failed_build_raises_with_the_log(monkeypatch, tmp_path, source):
         "rff_score",
         "rff_score_q8",
     }
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    """``init_opt_state`` and the launcher build on the card unless told
+    the CPU; the optimizer's state lies where it was asked for."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import OptimizerConfig, init_opt_state
+
+    cfg = get_config("smollm-135m").reduced()
+    params = transformer.init_params(cfg, device="cpu")
+    state = init_opt_state(OptimizerConfig(), params, device="cpu")
+    assert {t.device.type for t in state["m"]["layers"]["attn"].values()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_opt_state(OptimizerConfig(), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "smollm-135m", "--reduced", "--steps", "1"])
