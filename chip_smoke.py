@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives nine paths: six at the
+source, all started together) and drives ten paths: seven at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
 8 and 9):
 
@@ -79,8 +79,17 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
    at f32, 15 steps of int8-compressed gradients, the launcher's failure
    drill (exit 42, then the resume from the committed checkpoint, its
    arrays restored bit for bit), flash attention refused under a gradient
-   before any launch, and 16 greedy tokens from the trained weights. Path
-   5's profile act runs after it.
+   before any launch, and 16 greedy tokens from the trained weights;
+10. the tuning table and placement: ``kernels/common/tuning_table.json``
+   loads with no warning and holds this card's entries for B1-B7; engines
+   of every artifact paths 1-3 serve run each bucket 32-1024 (and path 1's
+   exact fallback, B2, at 32-256) with the tabled tiles, each held against
+   its plain twin and timed in turns with the default tile; then
+   qwen3-moe at path 8's depth cut is placed on a (data, model) mesh of
+   2 x 2 slots of the card under three rule sets
+   (``repro_torch.sharding``), every leaf gathered back bit for bit, and
+   its embedding, LM head and first layer checkpointed and restored onto
+   their shardings. Path 5's profile act runs after it.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -100,13 +109,14 @@ nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, on any failed phase,
 without a card, or without the repo's ``src/`` beside it.
 ``python3 chip_smoke.py --eighth-path`` runs path 8 alone,
-``--ninth-path`` path 9.
+``--ninth-path`` path 9, ``--tenth-path`` path 10.
 """
 
 from __future__ import annotations
 
 import http.client
 import json
+import math
 import re
 import subprocess
 import sys
@@ -379,6 +389,33 @@ SCALE_SHARDS = 4
 SCALE_FEATURES = 4096
 EXTREME = (4096, 32, 64, 256)
 EXTREME_FF_FEATURES = 64
+
+
+# Tenth path: the tuning table on the card, and placement by the
+# partitioning rules. The engine's buckets of paths 1-3 and B2's fallback
+# buckets, the kernels the table must hold entries for, and qwen3-moe at
+# path 8's depth cut placed on a (data, model) mesh of 2 x 2 slots of the
+# card under three rule sets.
+TUNED_BUCKETS = (32, 64, 128, 256, 512, 1024)
+TUNED_B2_BUCKETS = (32, 64, 128, 256)
+TUNED_KERNELS = ("quadform", "quadform_q8", "rbf_pred", "rff_score", "rff_score_q8", "fwht", "fwht_q8")
+TUNED_WRAPPERS = (  # their wrappers' names in ``build.counts()``: B1-B7
+    "quadform_heads",
+    "quadform_heads_q8",
+    "rbf_scores",
+    "rff_score",
+    "rff_score_q8",
+    "fastfood_score",
+    "fastfood_score_q8",
+)
+PLACE_MODEL = ("qwen3-moe-30b-a3b", 4)
+PLACE_MESH = ((2, 2), ("data", "model"))
+PLACE_RULES = ("DEFAULT_RULES", "TP_ONLY_RULES", "EP_DATA_RULES")
+# PyTorch's caching allocator splits a cached block for a request only
+# where more than 1 MiB would remain, so a shard may take up to this much
+# more than its bytes: the card's allocated memory grows by the bytes
+# placed, and by less than this a shard more.
+ALLOC_SLACK = 1 << 20
 
 
 class PhaseFailed(RuntimeError):
@@ -856,6 +893,15 @@ def main() -> int:
         build.build_all(["maclaurin_attn.cu"])
         kernels, _ = ninth_path(torch.device("cuda"))
         print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--tenth-path"]:
+        from repro_torch.kernels import build
+
+        print(card_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all(["quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu"])
+        print(json.dumps({"launches": tenth_path(torch.device("cuda"))}), flush=True)
         return 0
     if sys.argv[1:2] == ["--submit-deferral"]:
         from repro_torch.core import families
@@ -2404,6 +2450,8 @@ def run(dev) -> list[dict]:
     kernels_fam, launches8 = eighth_path(dev)
     # ============================================ ninth path (LM training)
     kernels_train, launches9 = ninth_path(dev)
+    # ============== tenth path (the tuning table, placement by the rules)
+    launches10 = tenth_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2412,7 +2460,7 @@ def run(dev) -> list[dict]:
     phase("runtime_profile_launches", seconds=time.perf_counter() - t0, **profiled)
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
-    paths += (launches5, launches6, launches7, launches8, launches9)
+    paths += (launches5, launches6, launches7, launches8, launches9, launches10)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -4215,6 +4263,241 @@ def ninth_path(dev):
             }
         )
     return entries, launches
+
+def served_artifacts(svm) -> list:
+    """(family module, artifact) of every artifact paths 1-3 serve, compiled
+    from ``svm``: maclaurin at f32 and int8 (poly2 runs the same kernels at
+    the same keys), dense fourier and Fastfood at FEATURES and f32/int8."""
+    from repro_torch.core import families
+
+    arts = [(families.maclaurin, families.maclaurin.compile(svm, dtype=dt)) for dt in ("float32", "int8")]
+    for structured in (False, True):
+        for f in FEATURES:
+            for dt in ("float32", "int8"):
+                art = families.fourier.compile(
+                    svm, num_features=f, structured=structured, dtype=dt, seed=SEED
+                )
+                arts.append((families.fourier, art))
+    return arts
+
+
+def tuned_serving(dev, card: str) -> dict:
+    """Path 10 (a): the checked-in table loads with no warning and holds
+    entries under this card's ``platform()`` for B1-B7; engines of every
+    artifact paths 1-3 serve (and path 1's exact fallback) run with the
+    counts at 0, each bucket's config the tabled one; then every tabled
+    (kernel, key) of those artifacts is held against its plain twin under
+    its pick, and pick and default are timed in turns (``device_ms``).
+    Returns the launches of the serving window."""
+    import warnings
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import tuning
+    from repro_torch.kernels.rbf_pred import kernel as rp
+    from repro_torch.serve import SVMEngine
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a dropped entry fails the path
+        table = tuning.load_table(tuning.TABLE_PATH)
+    plat = tuning.platform()
+    held = table["entries"].get(plat, {})
+    counts = {k: len(held.get(k, {})) for k in TUNED_KERNELS}
+    phase("tuning_table", platform=plat, entries=counts)
+    check(all(counts.values()), f"the table holds no entry of {TUNED_KERNELS} for {plat!r}")
+
+    svm, X_te, _, _ = smoke_model(dev)
+    arts = served_artifacts(svm)
+    engines = [(family, art, SVMEngine(art, svm, device=dev)) for family, art in arts]
+    build.reset_counts()
+    for _, _, engine in engines:
+        for b in TUNED_BUCKETS:
+            engine.submit(X_te[:b]).values
+    mac_engine = engines[0][2]
+    for b in TUNED_B2_BUCKETS:
+        mac_engine.submit_exact(X_te[:b]).values
+    torch.cuda.synchronize()
+    launches = build.counts()
+    for family, art, engine in engines:
+        for b in TUNED_BUCKETS:
+            kernel, key = family.tile_lookup(art, b)
+            want = tuning.lookup(kernel, key, strict=True).clamp_block_n(b)
+            check(
+                engine.bucket_configs[b] == want,
+                f"{kernel}/{key}: engine runs {engine.bucket_configs[b]}, table {want}",
+            )
+    phase("tuned_serving", seconds=time.perf_counter() - t0, engines=len(engines), **launches)
+
+    # every tabled key of these artifacts: the pick against the twin, and
+    # pick and default in turns (default, pick, pick, default)
+    cases = []
+    for family, art in arts:
+        _, launch, args = kernel_args(art)
+        for b in TUNED_BUCKETS:
+            kernel, key = family.tile_lookup(art, b)
+            cases.append((kernel, key, b, art, launch, args))
+    X, A = svm.X, svm.alpha_y
+    for b in TUNED_B2_BUCKETS:
+        key = tuning.shape_key(d=X.shape[1], m=X.shape[0], n=b)
+        cases.append(("rbf_pred", key, b, None, None, None))
+    exact = exact64(svm, dev)
+    for kernel, key, b, art, launch, args in cases:
+        pick = tuning.lookup(kernel, key, strict=True)
+        default = tuning.DEFAULTS[kernel].clamp_block_n(b)
+        Zb = torch.from_numpy(X_te[:b].copy()).to(dev)
+        if art is None:  # B2: its rule against its fp32 twin and float64
+            def run(cfg, Zb=Zb):
+                return rp.rbf_scores_cuda(Zb, X, A, svm.gamma, svm.b, config=cfg)
+
+            out0 = rp.rbf_scores_torch(Zb, X, A, svm.gamma, svm.b)
+            tol = exact(X_te[:b])[1]
+        else:
+            def run(cfg, Zb=Zb, launch=launch, args=args):
+                return launch(Zb, *args, config=cfg)
+
+            out0, tol = plain_scores(art, Zb)
+        out = run(pick)
+        out = out[0] if isinstance(out, tuple) else out
+        err = max_err(out, out0)
+        if pick == default:
+            pick_ms = default_ms = device_ms(lambda: run(pick))
+        else:
+            turns = [device_ms(lambda c=c: run(c)) for c in (default, pick, pick, default)]
+            default_ms, pick_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        phase(
+            "tuning",
+            kernel=kernel,
+            key=key,
+            pick={"block_n": pick.block_n, "splits": pick.splits},
+            default={"block_n": default.block_n, "splits": default.splits},
+            pick_ms=pick_ms,
+            default_ms=default_ms,
+            max_abs_err=err,
+            tol=tol,
+            card=card,
+        )
+        check(err <= tol, f"{kernel}/{key} under {pick}: {err} > {tol}")
+    return launches
+
+
+def placement(dev) -> None:
+    """Path 10 (b): PLACE_MODEL at full width, depth cut, from seeded random
+    weights, placed on a PLACE_MESH of slots of the one card under each of
+    PLACE_RULES (``param_shardings``, ``sanitize``, ``device_put``): every
+    shard the leaf cut along its spec, every leaf gathered back bit for bit,
+    the card's allocated memory grown by the bytes placed; then the
+    embedding, the LM head and the first layer saved and restored onto
+    their shardings, bit for bit."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.specs import sanitize
+    from repro_torch.models import transformer
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.train import checkpoint as ckpt
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in leaves(v, path + (k,))]
+        return [(path, tree)]
+
+    t0 = time.perf_counter()
+    name, layers = PLACE_MODEL
+    cfg = family_config(name, layers)
+    params = transformer.init_params(cfg, seed=SEED, device=dev)
+    spec, tree = params.spec(), params.tree()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = sum(x.numel() * x.element_size() for _, x in leaves(tree))
+    mesh = make_mesh(*PLACE_MESH, devices=[dev] * math.prod(PLACE_MESH[0]))
+    for rules_name in PLACE_RULES:
+        t1 = time.perf_counter()
+        rules = getattr(part, rules_name)
+        shardings = sanitize(part.param_shardings(spec, rules, mesh), tree, mesh)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        placed = part.device_put(tree, shardings)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(dev) - before
+        per_position = [0] * mesh.size
+        n_shards = 0
+        for (path, leaf), (_, got) in zip(leaves(tree), leaves(placed)):
+            cut = got.sharding.shard_shape(tuple(leaf.shape))
+            check(all(tuple(s.shape) == cut for s in got.shards), f"{rules_name} {path}: shard shapes")
+            check(torch.equal(got.gather(), leaf), f"{rules_name} {path}: gather differs")
+            per_position = [a + b for a, b in zip(per_position, got.position_bytes())]
+            n_shards += len(got.shards)
+        held = sum(per_position)
+        check(held <= grown < held + ALLOC_SLACK * n_shards, f"{rules_name}: {grown} B allocated for {held} B")
+        phase(
+            "placement",
+            model=name,
+            layers=layers,
+            rules=rules_name,
+            mesh=list(PLACE_MESH[0]),
+            whole_bytes=whole,
+            bytes_per_position=per_position,
+            position_share=[x / whole for x in per_position],
+            allocated_bytes=grown,
+            seconds=time.perf_counter() - t1,
+        )
+        del placed
+        torch.cuda.empty_cache()
+
+    # a checkpoint of the embedding, the LM head and the first layer
+    t1 = time.perf_counter()
+    sub = {"embed": tree["embed"], "lm_head": tree["lm_head"], "layers": _first_layer(tree["layers"])}
+    sub_spec = {k: spec[k] for k in sub}
+    shardings = sanitize(part.param_shardings(sub_spec, part.DEFAULT_RULES, mesh), sub, mesh)
+    by_path = dict(leaves(shardings))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save(tmp, 0, sub)
+        saved_s = time.perf_counter() - t1
+        restored = ckpt.restore(tmp, 0, sub, shardings=shardings)
+    for (path, leaf), (_, got) in zip(leaves(sub), leaves(restored)):
+        check(got.sharding == by_path[path], f"checkpoint {path}: sharding")
+        check(torch.equal(got.gather(), leaf), f"checkpoint {path}: restored bits differ")
+    phase(
+        "placement_checkpoint",
+        rules="DEFAULT_RULES",
+        bytes=sum(x.numel() * x.element_size() for _, x in leaves(sub)),
+        save_s=saved_s,
+        restore_s=time.perf_counter() - t1 - saved_s,
+    )
+    del tree, sub, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("placement_seconds", seconds=time.perf_counter() - t0)
+
+
+def _first_layer(tree: dict) -> dict:
+    """The first layer of a stacked layer tree, its layer axis kept (1, ...)."""
+    return {k: _first_layer(v) if isinstance(v, dict) else v[:1] for k, v in tree.items()}
+
+
+def tenth_path(dev) -> dict:
+    """Path 10: the tuning table on the card (``tuned_serving``), then
+    placement by the partitioning rules (``placement``). Returns every
+    kernel's launches on the path (the serving window of (a))."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    card = card_line()
+    launches = tuned_serving(dev, card)
+    for kernel in TUNED_WRAPPERS:
+        check(launches[kernel] > 0, f"{kernel} never launched on path 10")
+    placement(dev)
+    phase("tenth_path_launches", **launches)
+    phase("tenth_path_seconds", seconds=time.perf_counter() - t0)
+    return launches
+
+
 
 def serve_cell_checks(
     label, art, engine, results, requests, refs, exact, dev

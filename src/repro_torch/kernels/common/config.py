@@ -69,3 +69,20 @@ class TileConfig:
         pow2 = 1 << max(0, int(n) - 1).bit_length()
         target = min(self.block_n, max(ROW_QUANTUM, pow2))
         return self if target == self.block_n else self.with_(block_n=target)
+
+    def to_json(self) -> dict:
+        """The fields as a JSON-ready dict (a tuning table entry's ``config``)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: dict) -> "TileConfig":
+        """The config a tuning table entry names. Raises ``TypeError`` on a
+        field this class lacks (the TPU config's ``block_m`` and
+        ``vmem_limit_mb`` among them) and ``ValueError`` on a bad value, so
+        that ``tuning.validate_table`` drops the entry."""
+        if not isinstance(d, dict):
+            raise TypeError(f"a TileConfig entry is a dict, got {type(d).__name__}")
+        unknown = sorted(set(d) - {f.name for f in dataclasses.fields(cls)})
+        if unknown:
+            raise TypeError(f"TileConfig has no field(s) {unknown}")
+        return cls(**d)

@@ -32,7 +32,9 @@ class Mesh:
 
     ``shape`` maps each axis to its size, as ``jax.sharding.Mesh.shape``
     does; the sharded serving paths read ``axis_names[0]``,
-    ``shape[axis]`` and ``shard_devices()``.
+    ``shape[axis]`` and ``shard_devices()``. ``devices`` is empty on an
+    abstract mesh (``sharding.partitioning.abstract_mesh``: names and
+    sizes only, for the partitioning rules).
     """
 
     devices: tuple[torch.device, ...]
@@ -45,7 +47,7 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return math.prod(self.sizes)
 
     def shard_devices(self) -> tuple[torch.device, ...]:
         """The device of each position along the first axis: the first

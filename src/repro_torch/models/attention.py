@@ -23,6 +23,16 @@ from repro_torch.models.layers import ParamModule, apply_rope, init_, remat, zer
 
 
 class Attention(ParamModule):
+    SPEC = {
+        "w_q": ("embed", "heads"),
+        "w_k": ("embed", "kv_heads"),
+        "w_v": ("embed", "kv_heads"),
+        "w_o": ("heads", "embed"),
+        "b_q": ("heads",),
+        "b_k": ("kv_heads",),
+        "b_v": ("kv_heads",),
+    }
+
     def __init__(self, d, n_heads, n_kv, head_dim, qkv_bias, generator, device=None):
         super().__init__()
         self.w_q = init_((d, n_heads * head_dim), generator, device)
@@ -203,6 +213,13 @@ def decode_attention_quant(
 
 class CrossAttention(ParamModule):
     """``w_q`` (d, Hq hd), ``w_k``/``w_v`` (d, Hkv hd), ``w_o`` (Hq hd, d)."""
+
+    SPEC = {
+        "w_q": ("embed", "heads"),
+        "w_k": ("embed", "kv_heads"),
+        "w_v": ("embed", "kv_heads"),
+        "w_o": ("heads", "embed"),
+    }
 
     def __init__(self, d, n_heads, n_kv, head_dim, generator, device=None):
         super().__init__()

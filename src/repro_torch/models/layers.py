@@ -35,7 +35,24 @@ def zeros_(shape, device) -> nn.Parameter:
 
 
 class ParamModule(nn.Module):
-    """An ``nn.Module`` whose parameters read as the reference's dict."""
+    """An ``nn.Module`` whose parameters read as the reference's dict.
+
+    ``SPEC`` holds the spec half of the reference's ``*_params`` builder:
+    a tuple of logical axis names (``sharding.partitioning``'s vocabulary:
+    "vocab", "embed", "heads", "kv_heads", "ffn", "experts", None) for each
+    parameter, and for a child whose spec differs from its own."""
+
+    SPEC: dict = {}
+
+    def spec(self) -> dict:
+        """The reference's spec tree of this module: ``SPEC``'s entry for
+        each parameter present, each child's own ``spec()`` unless
+        ``SPEC`` names the child."""
+        own = self.named_parameters(recurse=False)
+        out = {name: self.SPEC[name] for name, _ in own}
+        for name, child in self.named_children():
+            out[name] = self.SPEC[name] if name in self.SPEC else child.spec()
+        return out
 
     def tensors(self, dtype: torch.dtype | None = None) -> dict:
         """Nested dict of this module's parameters, each cast to ``dtype``
@@ -75,6 +92,8 @@ def remat(fn, *args):
 
 
 class RMSNorm(ParamModule):
+    SPEC = {"scale": ("embed",)}
+
     def __init__(self, d: int, device=None):
         super().__init__()
         self.scale = nn.Parameter(torch.ones((d,), device=device), requires_grad=False)
@@ -113,6 +132,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 class SwiGLU(ParamModule):
+    SPEC = {
+        "w_gate": ("embed", "ffn"),
+        "w_up": ("embed", "ffn"),
+        "w_down": ("ffn", "embed"),
+    }
+
     def __init__(self, d: int, d_ff: int, generator: torch.Generator, device=None):
         super().__init__()
         self.w_gate = init_((d, d_ff), generator, device)
@@ -129,6 +154,8 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embedding(ParamModule):
+    SPEC = {"table": ("vocab", "embed")}
+
     def __init__(self, vocab: int, d: int, generator: torch.Generator, device=None):
         super().__init__()
         self.table = init_((vocab, d), generator, device, scale=0.02)
@@ -139,6 +166,8 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 class LMHead(ParamModule):
+    SPEC = {"w": ("embed", "vocab")}
+
     def __init__(self, d: int, vocab: int, generator: torch.Generator, device=None):
         super().__init__()
         self.w = init_((d, vocab), generator, device, scale=0.02)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.layers import ParamModule, init_
+from repro_torch.sharding.hints import hint
 
 
 class MoE(ParamModule):
@@ -32,6 +33,13 @@ class MoE(ParamModule):
     ``w_down`` (E, f, d). As in the reference, ``w_gate`` and ``w_up`` take
     the default scale of their first axis, 1/sqrt(E), and ``w_down``
     1/sqrt(f)."""
+
+    SPEC = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "ffn"),
+        "w_up": ("experts", "embed", "ffn"),
+        "w_down": ("experts", "ffn", "embed"),
+    }
 
     def __init__(self, d: int, d_ff: int, num_experts: int, generator, device=None):
         super().__init__()
@@ -114,10 +122,12 @@ def moe_forward(
 
     C = capacity(T, top_k, E, capacity_factor)
     buf, meta = _dispatch(x, expert_idx, gate_vals, E, top_k, C)  # (B, E, C, d)
+    buf = hint(buf, "batch", "experts", None, None)  # the experts' all-to-all
 
     h = torch.nn.functional.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
     y = torch.einsum("becf,efd->becd", h, params["w_down"])  # (B, E, C, d)
+    y = hint(y, "batch", "experts", None, None)
 
     out = _combine(y, meta, top_k, C)
 

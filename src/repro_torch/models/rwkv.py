@@ -60,6 +60,26 @@ class RWKV6(ParamModule):
     (2, d), ``w_ffn_k``, ``w_ffn_v``, ``w_ffn_r``. Scales are the
     reference's."""
 
+    SPEC = {
+        "ln1": ("embed",),
+        "ln2": ("embed",),
+        "mu": (None, "embed"),
+        "w_r": ("embed", "heads"),
+        "w_k": ("embed", "heads"),
+        "w_v": ("embed", "heads"),
+        "w_g": ("embed", "heads"),
+        "w0": ("heads",),
+        "w_lora_a": ("embed", None),
+        "w_lora_b": (None, "heads"),
+        "u": (None, None),
+        "ln_scale": ("heads",),
+        "w_o": ("heads", "embed"),
+        "mu_ffn": (None, "embed"),
+        "w_ffn_k": ("embed", "ffn"),
+        "w_ffn_v": ("ffn", "embed"),
+        "w_ffn_r": ("embed", "embed"),
+    }
+
     def __init__(
         self, d: int, d_ff: int, generator, device=None, *, head_dim=64, lora_r=64
     ):

@@ -37,6 +37,16 @@ class Mamba2(ParamModule):
     (W, d_inner + 2N), ``A_log`` = log(linspace(1, 16, H)), ``D`` (ones),
     ``dt_bias`` (zeros), ``norm.scale`` and ``w_out``."""
 
+    SPEC = {
+        "w_in": ("embed", "ffn"),
+        "conv": (None, "ffn"),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": {"scale": ("ffn",)},  # the inner width, not the model's
+        "w_out": ("ffn", "embed"),
+    }
+
     def __init__(
         self,
         d: int,

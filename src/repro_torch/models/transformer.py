@@ -7,12 +7,15 @@ RWKV6 (``ssm``), Mamba2 with one shared attention block (``hybrid``, the
 Zamba2 pattern) and self-attention stacks with interleaved
 cross-attention to image tokens (``vlm``, the Llama-3.2-vision pattern).
 ``lax.scan`` over stacked layers becomes a loop over an
-``nn.ModuleList``; the reference's sharding hints have no job off a
-mesh. Its ``jax.checkpoint`` is ``layers.remat``, placed as the reference
-places it: with ``cfg.remat`` each layer of a scanned stack (the dense
-blocks, RWKV6 blocks, Mamba2 blocks and the VLM's self-attention blocks;
-not hybrid's shared block or the VLM's cross blocks), taken only while
-autograd records a graph.
+``nn.ModuleList``. The reference's sharding hints stand where it puts
+them (``sharding.hints.hint``: each scanned layer's residual stream on
+the way in and out, the embedding, the logits); they resolve their specs
+under ``use_hints`` and never change a value. ``LMParams.spec()`` is the
+reference's spec tree. Its ``jax.checkpoint`` is ``layers.remat``,
+placed as the reference places it: with ``cfg.remat`` each layer of a
+scanned stack (the dense blocks, RWKV6 blocks, Mamba2 blocks and the
+VLM's self-attention blocks; not hybrid's shared block or the VLM's
+cross blocks), taken only while autograd records a graph.
 
 ``forward`` records a graph where the parameters require gradients:
 they are built frozen (``requires_grad=False``), and a trainer turns them
@@ -77,6 +80,7 @@ from repro_torch.models.ssm import (
     mamba2_forward,
     mamba2_init_state,
 )
+from repro_torch.sharding.hints import hint
 
 SEED = 0
 
@@ -182,6 +186,18 @@ class LMParams(ParamModule):
             out[name] = _nest(flat)
         return out
 
+    def spec(self) -> dict:
+        """The reference's spec tree of these parameters (the second half
+        of its ``init_params``), in ``tree()``'s layout: each stacked leaf's
+        spec led by "layers"."""
+        out = {}
+        for name, child in self.named_children():
+            if isinstance(child, nn.ModuleList):
+                out[name] = _map_specs(lambda s: ("layers",) + s, child[0].spec())
+            else:
+                out[name] = child.spec()
+        return out
+
     @torch.no_grad()
     def assign(self, tree: dict) -> "LMParams":
         """Copy the reference's tree (as ``tree`` gives it) into these
@@ -195,6 +211,12 @@ class LMParams(ParamModule):
                 for path, p in child.named_parameters():
                     p.copy_(_leaf(tree[name], path))
         return self
+
+
+def _map_specs(fn, spec: dict) -> dict:
+    return {
+        k: _map_specs(fn, v) if isinstance(v, dict) else fn(v) for k, v in spec.items()
+    }
 
 
 def _nest(flat: dict) -> dict:
@@ -297,9 +319,16 @@ def _cross_block(cfg: ModelConfig, pc, x, ctx):
     return x + swiglu(pc["ffn"], rmsnorm(pc["ln2"], x))
 
 
-def _layer(cfg: ModelConfig, block, *args):
-    """One layer of a scanned stack, under ``remat`` where ``cfg.remat``."""
-    return remat(block, cfg, *args) if cfg.remat else block(cfg, *args)
+def _layer(cfg: ModelConfig, block, p, x, *extra):
+    """One layer of a scanned stack, under ``remat`` where ``cfg.remat``,
+    its residual stream hinted to batch sharding on the way in and out, as
+    the reference's scan body does ("seq" is replicated unless the rules
+    map it)."""
+    x = hint(x, "batch", "seq", None)
+    out = remat(block, cfg, p, x, *extra) if cfg.remat else block(cfg, p, x, *extra)
+    if isinstance(out, tuple):
+        return hint(out[0], "batch", "seq", None), out[1]
+    return hint(out, "batch", "seq", None)
 
 
 def forward(
@@ -313,6 +342,7 @@ def forward(
     T = tokens.shape[1]
     dev = tokens.device
     x = embed(params.embed.tensors(), tokens).to(dtype)
+    x = hint(x, "batch", None, None)
     positions = torch.arange(T, dtype=torch.int32, device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     layers = params.layers
@@ -343,7 +373,7 @@ def forward(
             aux = aux + a
     x = rmsnorm(params.final_ln.tensors(), x)
     logits = lm_head(params.lm_head.tensors(dtype), x)
-    return logits, aux
+    return hint(logits, "batch", None, "vocab"), aux
 
 
 # ======================================================================
@@ -564,6 +594,7 @@ def decode(
     """
     dtype = getattr(torch, cfg.dtype)
     x = embed(params.embed.tensors(), tokens).to(dtype)
+    x = hint(x, "batch", None, None)
     f32 = torch.float32
     if cfg.family == "ssm":
         for i, layer in enumerate(params.layers):
@@ -615,8 +646,8 @@ def decode(
 
 def cache_spec(cfg: ModelConfig):
     """Logical-axis spec tree mirroring ``init_cache``'s structure: the
-    reference's ``cache_spec``, pure data (the port has no partitioner to
-    read it; it pins the cache's layout)."""
+    reference's ``cache_spec``, which ``sharding.partitioning`` maps to
+    shardings (``param_shardings``) as it does ``LMParams.spec()``."""
     kv_leaf = ("layers", "batch", None, "kv_heads", None)
     if cfg.kv_cache_dtype == "int8" and cfg.family not in ("hybrid", "vlm"):
         kv_tuple = (kv_leaf, kv_leaf, kv_leaf, kv_leaf)  # + per-token scales

@@ -17,9 +17,11 @@ Fault-tolerance contract, as the reference's:
   * ``save`` is crash-safe: written to step_<N>.tmp, fsync'd, renamed;
     LATEST is updated last, also by rename. A death at any point leaves a
     valid previous checkpoint.
-  * ``restore(..., shardings)`` places each array on the device given
-    (one device, or a tree of them): restoring onto another device is
-    the same code path.
+  * ``restore(..., shardings)`` places each array where it is told: on a
+    device (one for all, or a tree of them), or over a mesh by a
+    ``sharding.partitioning.NamedSharding`` (``device_put``; the
+    reference's elastic-remesh path). Restoring onto another device or
+    mesh is the same code path.
   * ``AsyncCheckpointer`` writes on a worker thread after a copying
     host snapshot, taken before ``save`` returns: a point-in-time copy
     even where a CPU tensor's ``numpy()`` would share memory with a
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import LMParams
+from repro_torch.sharding.partitioning import NamedSharding, device_put
 from repro_torch.train.tree import as_tree, leaves_with_paths, tree_map, tree_map_with_path
 
 SEP = "/"
@@ -155,9 +158,12 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any | None = None) -
     """Restore into the structure of ``like``: tensors (``meta`` ones
     give only a shape), numpy arrays, or an ``LMParams`` (restored into a
     copy of it). ``shardings``, the port's counterpart of the reference's:
-    one device for every array, or a tree of devices matching ``like``
-    (one device for a whole ``LMParams``). Without it each array goes to
-    its ``like`` leaf's device."""
+    one device or one ``NamedSharding`` for every array, or a tree of
+    them matching ``like``. A ``NamedSharding`` places its array over its
+    mesh by ``device_put`` (a ``Sharded``). An ``LMParams`` restored
+    under one device stays an ``LMParams``; under a tree (its spec tree's
+    layout, ``tree()``'s) it comes back as that tree of placed arrays.
+    Without ``shardings`` each array goes to its ``like`` leaf's device."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with np.load(os.path.join(path, "arrays.npz")) as data:
         flat = {k: data[k] for k in data.files}
@@ -169,8 +175,11 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any | None = None) -
         return arr
 
     def build(node, place, prefix: tuple):
-        dev = torch.device(place) if _is_place(place) and place is not None else None
+        whole = _is_place(place) or isinstance(place, NamedSharding)
+        if isinstance(node, LMParams) and not _is_place(place):
+            node = node.tree(leaf=lambda p: p.to("meta"))
         if isinstance(node, LMParams):
+            dev = None if place is None else torch.device(place)
             out = copy.deepcopy(node) if dev is None else copy.deepcopy(node).to(dev)
             ref = out.tree()
             arrays = tree_map_with_path(lambda p, leaf: array(prefix + p, leaf.shape), ref)
@@ -178,11 +187,14 @@ def restore(ckpt_dir: str, step: int, like: Any, shardings: Any | None = None) -
         if isinstance(node, (dict, list, tuple)):
             keys = node.keys() if isinstance(node, dict) else range(len(node))
             built = {
-                k: build(node[k], place if _is_place(place) else place[k], prefix + (k,))
+                k: build(node[k], place if whole else place[k], prefix + (k,))
                 for k in keys
             }
             return built if isinstance(node, dict) else type(node)(built[i] for i in keys)
         shape = node.shape if hasattr(node, "shape") else np.shape(node)
+        if isinstance(place, NamedSharding):
+            return device_put(torch.from_numpy(array(prefix, shape)), place)
+        dev = None if place is None else torch.device(place)
         return _placed(array(prefix, shape), node, dev)
 
     return build(like, shardings, ())

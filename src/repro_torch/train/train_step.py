@@ -33,6 +33,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import softmax_xent
 from repro_torch.models.transformer import LMParams, forward
+from repro_torch.sharding.hints import hint
 from repro_torch.train import compression
 from repro_torch.train import optimizer as opt
 from repro_torch.train.tree import leaves
@@ -53,11 +54,12 @@ class OptimizerConfig:
 
 def make_loss_fn(cfg: ModelConfig, aux_weight: float = 0.01) -> Callable:
     """loss_fn(params, batch) -> (xent + aux_weight * aux, {"xent", "aux"});
-    a VLM's batch carries ``image_embeds``. The reference's sharding hint
-    on the logits has no job off a mesh."""
+    a VLM's batch carries ``image_embeds``. The logits are hinted to batch
+    and vocab sharding as the reference's are (``sharding.hints``)."""
 
     def loss_fn(params, batch):
         logits, aux = forward(cfg, params, batch["tokens"], batch.get("image_embeds"))
+        logits = hint(logits, "batch", None, "vocab")
         xent = softmax_xent(logits, batch["labels"])
         return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 

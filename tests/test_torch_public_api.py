@@ -135,3 +135,29 @@ def test_spec_plus_legacy_kwargs_is_an_error():
     want = _raised(lambda: j_resolve_spec(JPublishSpec(), caller="x", replicas=2))
     assert got == want
     assert got[0] == "TypeError" and "not both" in got[1]
+
+
+@pytest.mark.parametrize("package", ["kernels.common", "sharding"])
+def test_package_surface_equals_the_reference(package):
+    """``repro_torch.kernels.common`` (with ``autotune``) and
+    ``repro_torch.sharding`` export the reference's names."""
+    import importlib
+
+    port = importlib.import_module(f"repro_torch.{package}")
+    ref = importlib.import_module(f"repro.{package}")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    for name in port.__all__:
+        assert getattr(port, name, None) is not None, name
+
+
+def test_tuning_and_autotune_have_the_reference_names():
+    from repro.kernels.common import autotune as j_autotune
+    from repro.kernels.common import tuning as j_tuning
+    from repro_torch.kernels.common import autotune, tuning
+
+    public = lambda mod: {n for n in vars(mod) if not n.startswith("_") and callable(getattr(mod, n))}  # noqa: E731
+    names = {"platform", "shape_key", "bucket", "validate_table", "load_table", "lookup",
+             "record", "clear_overrides", "save_table", "reload_table"}
+    assert names <= public(tuning) and names <= public(j_tuning)
+    assert tuning.TABLE_PATH.endswith("repro_torch/kernels/common/tuning_table.json")
+    assert {"measure", "sweep", "prune_candidates", "autotune"} <= public(autotune) & public(j_autotune)
