@@ -115,6 +115,7 @@ without a card, or without the repo's ``src/`` beside it.
 from __future__ import annotations
 
 import http.client
+import inspect
 import json
 import math
 import re
@@ -411,6 +412,48 @@ TUNED_WRAPPERS = (  # their wrappers' names in ``build.counts()``: B1-B7
 PLACE_MODEL = ("qwen3-moe-30b-a3b", 4)
 PLACE_MESH = ((2, 2), ("data", "model"))
 PLACE_RULES = ("DEFAULT_RULES", "TP_ONLY_RULES", "EP_DATA_RULES")
+# Eleventh path: the rule-sharded LM steps (``launch.specs.build_cell``,
+# ``repro_torch.sharding``) on a (data, model) mesh of 2 x 2 slots of the
+# one card, at full width, each held against the one-device step of the
+# same weights on the same card, at f32 (the comparisons' tolerance is f32
+# reduction order, so both sides compute in f32; serving cells keep the
+# reference's bf16 weights, and the one-device step runs on the same
+# values). (model, layers): qwen3-moe 4 of 48 served (12.46 GB f32; flash,
+# so B9 launches on each position's 16 of 32 heads) and 2 of 48 trained
+# under DEFAULT and EP_DATA rules (parameters, gradients and two moments
+# ~30 GB; maclaurin at T = 1024, so B8 launches on each head shard);
+# smollm-135m at full depth trained under DP_ONLY and DEFAULT (576 q
+# columns cut mid-head) and decoded under TP_ONLY (3 kv heads: the cache
+# cut along its sequence).
+SHARD_MESH = PLACE_MESH
+SHARD_SERVE, SHARD_TRAIN = ("qwen3-moe-30b-a3b", 4), ("qwen3-moe-30b-a3b", 2)
+SHARD_SMALL = (LM_NAME, 30)
+SHARD_PREFILL = (2, 2048)  # global batch, tokens
+SHARD_DECODE = (2, 64, 4)  # global batch, cache slots, greedy steps
+SHARD_TRAIN_SHAPE = {"qwen3-moe-30b-a3b": (2, 1024), LM_NAME: (4, 1024)}
+SHARD_TRAIN_RULES = {
+    "qwen3-moe-30b-a3b": ("DEFAULT_RULES", "EP_DATA_RULES"),
+    LM_NAME: ("DP_ONLY_RULES", "DEFAULT_RULES"),
+}
+SHARD_ATTN_CASES = (  # what one head shard gives B9 (prefill) and B8 (training)
+    ("flash_attention", "head shard f32", (16, 2048, 128, 128), "float32"),
+    ("maclaurin_attention", "head shard", (16, 1024, 128, 128), "float32"),
+)
+# Sharded against one device, both f32: logits within SHARD_REL of
+# max|logit| (path 4's top-1 rule at SHARD_GAP; an MoE's on MOE_F32_SHARE
+# of the positions, as path 8 holds its f32 pair); loss, its parts and
+# the learning rate within SHARD_RTOL; the gradient norm within
+# SHARD_NORM_RTOL; updated parameters within SHARD_ATOL + SHARD_RTOL |p|,
+# but where the gradient's running RMS (AdamW's bias-corrected sqrt(v))
+# is below SHARD_TINY_GRAD: there the update lr m / (sqrt(v) + eps) moves
+# by lr times the gradient's relative rounding, which is large where the
+# gradient is a cancellation near 0 (an H100 80GB HBM3 at 700 W read ~1000
+# such elements of qwen3-moe's 1.9 B, up to 0.24 lr, each of gradient RMS
+# below 2.5e-7, where typical gradient entries are ~1e-4). Every element
+# within SHARD_LR_STEPS times the learning rate.
+SHARD_REL, SHARD_GAP = 1e-4, 1e-3
+SHARD_RTOL, SHARD_ATOL, SHARD_NORM_RTOL = 1e-5, 1e-6, 1e-4
+SHARD_TINY_GRAD, SHARD_LR_STEPS = 1e-5, 2.0
 # PyTorch's caching allocator splits a cached block for a request only
 # where more than 1 MiB would remain, so a shard may take up to this much
 # more than its bytes: the card's allocated memory grows by the bytes
@@ -902,6 +945,16 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         build.build_all(["quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu"])
         print(json.dumps({"launches": tenth_path(torch.device("cuda"))}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--eleventh-path"]:
+        from repro_torch.kernels import build
+
+        print(card_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
+        kernels, _ = eleventh_path(torch.device("cuda"))
+        print(json.dumps({"kernels": kernels}), flush=True)
         return 0
     if sys.argv[1:2] == ["--submit-deferral"]:
         from repro_torch.core import families
@@ -2452,6 +2505,8 @@ def run(dev) -> list[dict]:
     kernels_train, launches9 = ninth_path(dev)
     # ============== tenth path (the tuning table, placement by the rules)
     launches10 = tenth_path(dev)
+    # ================================ eleventh path (the rule-sharded steps)
+    kernels_shard, launches11 = eleventh_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2460,7 +2515,7 @@ def run(dev) -> list[dict]:
     phase("runtime_profile_launches", seconds=time.perf_counter() - t0, **profiled)
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
-    paths += (launches5, launches6, launches7, launches8, launches9, launches10)
+    paths += (launches5, launches6, launches7, launches8, launches9, launches10, launches11)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -2495,7 +2550,7 @@ def run(dev) -> list[dict]:
             "library_ms": r_lib,
         },
     ]
-    kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train
+    kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train + kernels_shard
     for entry in kernels:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
@@ -4497,6 +4552,432 @@ def tenth_path(dev) -> dict:
     phase("tenth_path_seconds", seconds=time.perf_counter() - t0)
     return launches
 
+
+
+class spy_kernels:
+    """Within it, every launch of B8 and B9 (their ``*_cuda`` wrappers, as
+    the models call them) is kept: inputs and output, to be held against
+    the plain twin after the step (``held_against_twins``)."""
+
+    def __init__(self, calls: dict):
+        self.calls = calls
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attn import ops as fa_ops
+        from repro_torch.models import maclaurin_attention as mac
+
+        self.saved = (fa_ops.flash_attention_cuda, mac.maclaurin_attention_cuda)
+
+        def flash(q, k, v, **kw):
+            out = self.saved[0](q, k, v, **kw)
+            self.calls.setdefault("flash_attention", []).append(((q, k, v), kw, out))
+            return out
+
+        def maclaurin(q, k, v, **kw):
+            out = self.saved[1](q, k, v, **kw)
+            self.calls.setdefault("maclaurin_attention", []).append(((q, k, v), kw, out))
+            return out
+
+        fa_ops.flash_attention_cuda, mac.maclaurin_attention_cuda = flash, maclaurin
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.flash_attn import ops as fa_ops
+        from repro_torch.models import maclaurin_attention as mac
+
+        fa_ops.flash_attention_cuda, mac.maclaurin_attention_cuda = self.saved
+
+
+def held_against_twins(calls: dict, what: str) -> dict:
+    import torch
+
+    with torch.no_grad():
+        return _held_against_twins(calls, what)
+
+
+def _held_against_twins(calls: dict, what: str) -> dict:
+    """Each kept B8/B9 output against its plain twin on the same inputs,
+    within ATTN_TWIN times the twin's own distance from float64 (a few
+    heads of the call, the oracle's) + ATTN_ABS. Returns per kernel the
+    calls held and the largest error over tolerance."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as fa
+    from repro_torch.kernels.maclaurin_attn import kernel as ma
+    from repro_torch.kernels.maclaurin_attn.ref import (
+        maclaurin_attention_ref,
+        softmax_attention_ref,
+    )
+
+    twins = {
+        "flash_attention": (fa.flash_attention_torch, softmax_attention_ref),
+        "maclaurin_attention": (ma.maclaurin_attention_torch, maclaurin_attention_ref),
+    }
+    out = {}
+    for name, kept in calls.items():
+        twin, oracle = twins[name]
+        worst = 0.0
+        for (q, k, v), kw, got in kept:
+            want = twin(q, k, v, **{key: kw[key] for key in ("scale", "config") if key in kw})
+            heads = slice(0, 2)  # the float64 oracle on two heads sets the tolerance
+            scale = kw.get("scale") or q.shape[-1] ** -0.5
+            exact = oracle(*(x[heads].double() for x in (q, k, v)), scale=scale)
+            tol = ATTN_TWIN * max_err(want[heads], exact) + ATTN_ABS
+            err = max_err(got, want)
+            worst = max(worst, err / tol)
+            check(err <= tol, f"{what}: {name} on a shard {tuple(q.shape)}: {err} > {tol}")
+            check(bool(torch.isfinite(got).all()), f"{what}: {name} on a shard not finite")
+        out[name] = {"calls": len(kept), "worst_err_over_tol": worst}
+    calls.clear()
+    return out
+
+
+def placed_bytes(tree) -> dict:
+    """Bytes each mesh position holds of a placed tree, and what the
+    shardings say it holds (each leaf's shard shape)."""
+    from repro_torch.sharding.spmd import flat
+
+    held = placement = None
+    shards = 0
+    for leaf in flat(tree).values():
+        leaves = leaf if isinstance(leaf, tuple) else (leaf,)
+        for x in leaves:
+            per = x.position_bytes()
+            cut = math.prod(x.sharding.shard_shape(tuple(x.shape))) * x.shards[0].element_size()
+            held = per if held is None else [a + b for a, b in zip(held, per)]
+            placement = [cut] * len(per) if placement is None else [a + cut for a in placement]
+            shards += len(per)
+    return {"bytes_per_position": held, "placement_bytes_per_position": placement, "shards": shards}
+
+
+def fill(placed, whole) -> None:
+    """Copy ``whole``'s tensors (any device) into a placed tree's shards, in
+    place, each its block."""
+    from repro_torch.sharding.spmd import flat
+
+    want = flat(whole)
+    for path, leaf in flat(placed).items():
+        for p, shard in enumerate(leaf.shards):
+            shard.copy_(want[path][leaf.sharding.index(leaf.shape, p)])
+
+
+def to_host(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
+
+
+class Window:
+    """Launch counts over the sharded steps only: each ``with`` window sets
+    the counts to 0 and adds what it read to ``launches``; B8/B9 calls kept
+    in ``calls``."""
+
+    def __init__(self, launches: dict, calls: dict):
+        self.launches, self.calls = launches, calls
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+
+        build.reset_counts()
+        self.spy = spy_kernels(self.calls).__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from repro_torch.kernels import build
+
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        self.spy.__exit__(*exc)
+        for name, n in build.counts().items():
+            self.launches[name] += n
+
+
+def shard_gate(got, want, share: float | None, what: str) -> dict:
+    """``logit_gate`` at SHARD_REL, SHARD_GAP, checked."""
+    gate = logit_gate(got, want, SHARD_REL, SHARD_GAP, against="one_device")
+    for ok, msg in hold(gate, share, what):
+        check(ok, msg)
+    return gate
+
+
+def sharded_serving(dev, mesh, launches, calls, name: str, layers: int, prefill: bool) -> dict:
+    """``name`` at full width, ``layers`` deep, f32 compute on the bf16
+    weights a serving cell holds: a prefill cell (flash) and a decode cell
+    under the rules ``choose_rules`` picks, each held against the
+    one-device step on the same card. Returns the phase fields."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode_step as ds
+    from repro_torch.sharding.partitioning import device_put
+
+    moe = name.startswith("qwen3-moe")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = family_config(name, layers, dtype="float32", attention_impl="flash")
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(p.to(torch.bfloat16))  # the serving cell's weights, as f32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"model": name, "layers": layers}
+    share = MOE_F32_SHARE if moe else None
+    if prefill:
+        B, T = SHARD_PREFILL
+        tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
+        want = ds.make_prefill_step(cfg)(params, tokens)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        shape = ShapeConfig("path11_prefill", T, B, "prefill")
+        cell = build_cell(cfg, shape, mesh, params=params)
+        grown = torch.cuda.memory_allocated(dev) - before
+        held = placed_bytes(cell.args[0])
+        out.update(prefill_rules=cell_rules(cfg, shape), prefill_allocated_bytes=grown, **held)
+        placed = sum(held["bytes_per_position"])
+        check(placed == sum(held["placement_bytes_per_position"]), f"{name}: bytes held != the placement's")
+        check(placed <= grown < placed + ALLOC_SLACK * held["shards"], f"{name}: {grown} B allocated for {placed} B")
+        with Window(launches, calls) as w:
+            got = cell.step_fn(cell.args[0], tokens)
+        gate = shard_gate(got, want, share, f"{name} sharded prefill")
+        out.update(prefill_s=w.seconds, prefill=gate, prefill_twins=held_against_twins(calls, "prefill"))
+        del cell, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    B, S, steps = SHARD_DECODE
+    shape = ShapeConfig("path11_decode", S, B, "decode")
+    cell = build_cell(cfg, shape, mesh, params=params)
+    cache = device_put(tf.init_cache(cfg, B, S, dtype=torch.float32, device=dev), cell.in_shardings[3])
+    want_cache = tf.init_cache(cfg, B, S, dtype=torch.float32, device=dev)
+    step = ds.make_serve_step(cfg)
+    tok = want_tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    gates, tokens, seconds = [], [], []
+    for pos in range(steps):
+        with Window(launches, calls) as w:
+            logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+        seconds.append(w.seconds)
+        want, want_cache = step(params, want_tok, pos, want_cache)
+        gates.append(shard_gate(logits, want, share, f"{name} sharded decode at {pos}")["rel"])
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        want_tok = torch.argmax(want, -1).to(torch.int32)
+        check(torch.equal(tok, want_tok), f"{name} sharded decode at {pos}: greedy tokens differ")
+        tokens.append(tok[:, 0].tolist())
+    kv = cache["kv"]
+    out.update(
+        decode_rules=cell_rules(cfg, shape),
+        cache_spec=[list(x.sharding.spec) for x in kv],
+        decode_rel=gates,
+        decode_tokens=tokens,
+        decode_s=seconds,
+    )
+    for x in kv:
+        for g in x.replica_groups():
+            check(all(torch.equal(x.local(p), x.local(g[0])) for p in g), f"{name}: cache replicas differ")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del cell, cache, want_cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cell_rules(cfg, shape) -> str:
+    """The name of the rules a cell of ``shape`` runs under."""
+    from repro_torch.launch import specs
+    from repro_torch.sharding import spmd
+
+    return spmd.rules_name(specs.choose_rules(specs.pick_backend(cfg, shape), shape, None))
+
+
+def one_leaf(params, path: tuple):
+    """Leaf ``path`` of ``params.tree()`` alone (a layer leaf stacked)."""
+    import torch
+
+    name = ".".join(path[1:])
+    if path[0] == "layers":
+        return torch.stack([dict(layer.named_parameters())[name].detach() for layer in params.layers])
+    return dict(getattr(params, path[0]).named_parameters())[name].detach()
+
+
+def sharded_training(dev, mesh, launches, calls, name: str, layers: int) -> list[dict]:
+    """``name`` at full width, ``layers`` deep, f32 (maclaurin for the MoE,
+    so that B8 launches from T = 1024), remat on: one one-device AdamW step
+    leaves the state the compared step starts from; the one-device step
+    from it is the reference, then the sharded cell of each of
+    SHARD_TRAIN_RULES takes the same step from the same state (copied into
+    the cell's placed arguments). Returns one phase's fields a rule set."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.sharding.spmd import flat
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import OptimizerConfig, init_opt_state, make_train_step
+
+    moe = name.startswith("qwen3-moe")
+    changes = dict(dtype="float32")
+    if moe:
+        changes["attention_backend"] = "maclaurin"
+    cfg = family_config(name, layers, **changes)
+    ocfg = OptimizerConfig(warmup=2, total_steps=10)
+    B, T = SHARD_TRAIN_SHAPE[name]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def batch():
+        return {
+            k: torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
+            for k in ("tokens", "labels")
+        }
+
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    step = make_train_step(cfg, ocfg)
+    state = init_opt_state(ocfg, params, device=dev)
+    params, state, _ = step(params, state, batch(), 2)
+    start = to_host(params.tree(lambda p: p.detach()))
+    start_state = to_host(state)
+    b3 = batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, want = step(params, state, b3, 3)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = []
+    for rules_name in SHARD_TRAIN_RULES[name]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        shape = ShapeConfig("path11_train", T, B, "train")
+        cell = build_cell(cfg, shape, mesh, getattr(part, rules_name), ocfg, params=params)
+        fill(cell.args[0], start)
+        fill(cell.args[1], start_state)
+        held = placed_bytes(cell.args[0])
+        state_bytes = placed_bytes(cell.args[1])["bytes_per_position"]
+        torch.cuda.synchronize()
+        with Window(launches, calls) as w:
+            got_p, got_state, got = cell.step_fn(cell.args[0], cell.args[1], b3, 3)
+        cell.args = ()
+        fields = dict(model=name, layers=layers, rules=rules_name, batch=[B, T], step_s=w.seconds,
+                      one_device_step_s=one_s, **held, state_bytes_per_position=state_bytes)
+        check(held["bytes_per_position"] == held["placement_bytes_per_position"], f"{name} {rules_name}: bytes")
+        for key in ("loss", "xent", "aux", "lr"):
+            fields[key] = [float(got[key]), float(want[key])]
+            check(math.isclose(*fields[key], rel_tol=SHARD_RTOL, abs_tol=SHARD_ATOL), f"{name} {rules_name}: {key}")
+        fields["grad_norm"] = [float(got["grad_norm"]), float(want["grad_norm"])]
+        check(math.isclose(*fields["grad_norm"], rel_tol=SHARD_NORM_RTOL), f"{name} {rules_name}: grad norm")
+        lr = float(want["lr"])
+        b2 = inspect.signature(opt.adamw_update).parameters["b2"].default
+        unbias = 1 - b2 ** int(got_state["count"].local(0))
+        v = flat(got_state["v"])
+        worst, beyond, total, beyond_rms = 0.0, 0, 0, 0.0
+        for path, leaf in flat(got_p).items():
+            ref = one_leaf(params, path)
+            delta = (leaf.gather() - ref).abs()
+            worst = max(worst, float(delta.max()))
+            off = delta > SHARD_ATOL + SHARD_RTOL * ref.abs()
+            if off.any():
+                rms = (v[path].gather()[off] / unbias).sqrt()
+                beyond_rms = max(beyond_rms, float(rms.max()))
+            beyond += int(off.sum())
+            total += ref.numel()
+            for g in leaf.replica_groups():
+                same = all(torch.equal(leaf.local(p), leaf.local(g[0])) for p in g)
+                check(same, f"{name} {rules_name} {path}: replicas differ")
+        fields.update(
+            params_max_abs=worst,
+            params_beyond=beyond,
+            params_elements=total,
+            beyond_max_grad_rms=beyond_rms,
+            lr_steps=worst / lr,
+        )
+        fields["twins"] = held_against_twins(calls, f"{name} {rules_name} train")
+        fields["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        phase("shard_train", **fields)
+        what = f"{name} {rules_name}: a parameter beyond the tolerance"
+        check(beyond_rms < SHARD_TINY_GRAD, f"{what} where the gradient's RMS is {beyond_rms}")
+        check(worst <= SHARD_LR_STEPS * lr, f"{name} {rules_name}: a parameter moved {worst / lr} lr from one device's")
+        rows.append(fields)
+        del cell, got_p, got_state, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, start, start_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def eleventh_path(dev) -> tuple[list, dict]:
+    """Path 11: the rule-sharded LM steps on a (data, model) mesh of 2 x 2
+    slots of the card (SHARD_* above): B8 and B9 checked and timed at the
+    shapes one head shard gives them, then qwen3-moe served (prefill and
+    decode) and trained (DEFAULT, EP_DATA), smollm-135m trained (DP_ONLY,
+    DEFAULT) and decoded (TP_ONLY), each against one device's step; every
+    B8/B9 launch of the sharded steps held against its twin. The launch
+    counts are those of the sharded steps alone. Returns (the B8/B9
+    ``kernels`` entries at the shard shapes, every kernel's launches)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import make_mesh
+
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    checks, timings = attention_kernel_checks(dev, SHARD_ATTN_CASES)
+    kernel_s = time.perf_counter() - t_path
+    mesh = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
+    launches = {n: 0 for n in build.counts()}
+    calls: dict = {}
+    seconds = {"kernels": kernel_s}
+    t0 = time.perf_counter()
+    serve = sharded_serving(dev, mesh, launches, calls, *SHARD_SERVE, prefill=True)
+    phase("shard_serve", **serve)
+    seconds["qwen3_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = sharded_training(dev, mesh, launches, calls, *SHARD_TRAIN)
+    seconds["qwen3_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows += sharded_training(dev, mesh, launches, calls, *SHARD_SMALL)
+    small = sharded_serving(dev, mesh, launches, calls, *SHARD_SMALL, prefill=False)
+    phase("shard_serve", **small)
+    seconds["smollm"] = time.perf_counter() - t0
+    peak = max(x["peak_bytes"] for x in [serve, small, *rows])
+    for kernel in ("flash_attention", "maclaurin_attention"):
+        check(launches[kernel] > 0, f"{kernel} never launched on a head shard on path 11")
+    phase("eleventh_path_launches", **launches)
+    seconds["total"] = time.perf_counter() - t_path
+    phase("eleventh_path_seconds", peak_bytes=peak, **seconds)
+    entries = []
+    for name, case, (bh, t, d, dv), _ in SHARD_ATTN_CASES:
+        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
+        tm = timings[name, case]
+        entries.append(
+            {
+                "name": name,
+                "case": case,
+                "shape": [bh, t, d, dv],
+                "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}.cu",
+                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, case]["max_abs_err"],
+                "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1],
+                "library_ms": tm["library_ms"],
+            }
+        )
+    return entries, launches
 
 
 def serve_cell_checks(

@@ -46,19 +46,31 @@ class Attention(ParamModule):
             self.b_v = zeros_((n_kv * head_dim,), device)
 
 
-def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta):
-    B, T, _ = x.shape
+def qkv_columns(params, x):
+    """The q, k and v projections of x (B, T, d), biases added: (B, T, .)
+    each, heads still flat in the last dim."""
     q = x @ params["w_q"]
     k = x @ params["w_k"]
     v = x @ params["w_v"]
     if "b_q" in params:
         q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
+    return q, k, v
+
+
+def split_heads(q, k, v, n_heads, n_kv, head_dim, positions, rope_theta):
+    """Flat projections -> (B, T, H, hd) heads, q and k rotated."""
+    B, T = q.shape[:2]
     q = q.reshape(B, T, n_heads, head_dim)
     k = k.reshape(B, T, n_kv, head_dim)
     v = v.reshape(B, T, n_kv, head_dim)
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta):
+    q, k, v = qkv_columns(params, x)
+    return split_heads(q, k, v, n_heads, n_kv, head_dim, positions, rope_theta)
 
 
 def _gqa_scores_full(q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch.float32):
@@ -138,12 +150,23 @@ def decode_attention(params, x, cache_k, cache_v, pos, *, n_heads, n_kv, head_di
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, cache_v, k, v, pos)
+    out = decode_attend(q, cache_k, cache_v, pos, n_heads, head_dim)
+    return out @ params["w_o"], cache_k, cache_v
+
+
+def write_slot(cache_k, cache_v, k, v, slot: int) -> None:
+    """One token's k, v (B, 1, Hkv, hd) into cache slot ``slot``, in place."""
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+
+
+def decode_attend(q, cache_k, cache_v, pos, n_heads, head_dim):
+    """One query (B, 1, Hq, hd) over the cache's slots up to ``pos``:
+    (B, 1, Hq hd), before the output projection."""
     w = _decode_scores(q, cache_k, pos, n_heads, head_dim).to(q.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", w, cache_v.to(q.dtype))
-    out = out.reshape(B, 1, n_heads * head_dim) @ params["w_o"]
-    return out, cache_k, cache_v
+    return out.reshape(q.shape[0], 1, n_heads * head_dim)
 
 
 # int8 KV quantization granularity: symmetric scale per (token, head,

@@ -104,29 +104,48 @@ def _combine(y, meta, top_k: int, C: int):
     return unsorted.reshape(B, -1, top_k, d).sum(dim=2)
 
 
-def moe_forward(
-    params, x, *, top_k: int, capacity_factor: float = 1.25, return_aux: bool = True
-):
-    """x: (B, T, d) -> (out (B, T, d), aux_loss scalar f32).
-
-    Routing in f32 (softmax, top-k, gates renormalised), sort-based
-    dispatch per batch row, the experts' SwiGLU as batched products over
-    the expert axis, the combine, and the Switch load-balancing loss
-    (0 when ``return_aux`` is False)."""
-    B, T, d = x.shape
+def route(params, x, *, top_k: int, capacity_factor: float = 1.25):
+    """Routing in f32 (softmax, top-k, gates renormalised) and the sort-based
+    dispatch of every batch row. x: (B, T, d) -> (buf (B, E, C, d), combine
+    metadata, probs (B, T, E), expert_idx (B, T, k), C)."""
+    T = x.shape[1]
     E = params["router"].shape[1]
     logits = x @ params["router"]  # (B, T, E)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)  # (B, T, k)
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-
     C = capacity(T, top_k, E, capacity_factor)
-    buf, meta = _dispatch(x, expert_idx, gate_vals, E, top_k, C)  # (B, E, C, d)
-    buf = hint(buf, "batch", "experts", None, None)  # the experts' all-to-all
+    buf, meta = _dispatch(x, expert_idx, gate_vals, E, top_k, C)
+    return buf, meta, probs, expert_idx, C
 
+
+def experts(params, buf):
+    """The experts' SwiGLU as batched products over the expert axis:
+    buf (B, E, C, d) against E experts' weights -> (B, E, C, d)."""
     h = torch.nn.functional.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
-    y = torch.einsum("becf,efd->becd", h, params["w_down"])  # (B, E, C, d)
+    return torch.einsum("becf,efd->becd", h, params["w_down"])
+
+
+def load_counts(expert_idx, E: int):
+    """(B, T, E) f32: how many of each token's top-k picks name each expert."""
+    one_hot = torch.nn.functional.one_hot(expert_idx, E).to(torch.float32)
+    return torch.sum(one_hot, dim=2)
+
+
+def moe_forward(
+    params, x, *, top_k: int, capacity_factor: float = 1.25, return_aux: bool = True
+):
+    """x: (B, T, d) -> (out (B, T, d), aux_loss scalar f32).
+
+    ``route``, the experts' products (``experts``), the combine, and the
+    Switch load-balancing loss (0 when ``return_aux`` is False)."""
+    E = params["router"].shape[1]
+    buf, meta, probs, expert_idx, C = route(
+        params, x, top_k=top_k, capacity_factor=capacity_factor
+    )
+    buf = hint(buf, "batch", "experts", None, None)  # the experts' all-to-all
+    y = experts(params, buf)  # (B, E, C, d)
     y = hint(y, "batch", "experts", None, None)
 
     out = _combine(y, meta, top_k, C)
@@ -136,7 +155,6 @@ def moe_forward(
         return out, zero
     # Switch-style load-balancing aux loss (global over B*T tokens).
     me = torch.mean(probs, dim=(0, 1))  # (E,)
-    one_hot = torch.nn.functional.one_hot(expert_idx, E).to(torch.float32)
-    ce = torch.mean(torch.sum(one_hot, dim=2), dim=(0, 1))
+    ce = torch.mean(load_counts(expert_idx, E), dim=(0, 1))
     aux = E * torch.sum(me * ce)
     return out, aux

@@ -52,7 +52,6 @@ from repro_torch.models.attention import (
     decode_attention,
     decode_attention_quant,
     kv_quant_groups,
-    self_attention,
 )
 from repro_torch.models.layers import (
     Embedding,
@@ -253,30 +252,30 @@ def init_params(cfg: ModelConfig, seed: int = SEED, device=None) -> LMParams:
 
 
 def _attn_forward(cfg: ModelConfig, p_attn, x, positions):
-    """Self-attention dispatch over backends/implementations."""
-    B, T, _ = x.shape
+    """Self-attention: the projections, ``_attn_core``, the output
+    projection."""
+    q, k, v = _project_qkv(
+        p_attn, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta
+    )
+    return _attn_core(cfg, q, k, v) @ p_attn["w_o"]
+
+
+def _attn_core(cfg: ModelConfig, q, k, v):
+    """Causal attention of q (B, T, Hq, hd) over k, v (B, T, Hkv, hd),
+    dispatched over backends/implementations -> (B, T, Hq hd)."""
+    B, T = q.shape[:2]
     if cfg.attention_backend == "maclaurin":
-        q, k, v = _project_qkv(
-            p_attn, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta
-        )
         out = mac.maclaurin_attention_gqa(q, k, v)
-        return out.reshape(B, T, cfg.n_heads * cfg.hd) @ p_attn["w_o"]
-    if cfg.attention_impl == "flash":
-        q, k, v = _project_qkv(
-            p_attn, x, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta
-        )
+    elif cfg.attention_impl == "flash":
         g = cfg.n_heads // cfg.n_kv_heads
         kq = torch.repeat_interleave(k, g, dim=2).transpose(1, 2)
         vq = torch.repeat_interleave(v, g, dim=2).transpose(1, 2)
-        out = flash_attention(q.transpose(1, 2), kq, vq)
-        out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
-        return out @ p_attn["w_o"]
-    return self_attention(
-        p_attn, x,
-        n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-        positions=positions, rope_theta=cfg.rope_theta, causal=True,
-        scores_dtype=getattr(torch, cfg.attn_scores_dtype),
-    )
+        out = flash_attention(q.transpose(1, 2), kq, vq).transpose(1, 2)
+    else:
+        out = _gqa_scores_full(
+            q, k, v, causal=True, scores_dtype=getattr(torch, cfg.attn_scores_dtype)
+        )
+    return out.reshape(B, T, cfg.n_heads * cfg.hd)
 
 
 def _ffn(cfg: ModelConfig, p, h, return_aux: bool = True):
@@ -406,25 +405,25 @@ def _mac_attn_decode(cfg: ModelConfig, p_attn, x, pos, state: mac.MacState):
 def _dense_block_decode(cfg: ModelConfig, p, x, pos, attn_cache):
     """One-token dense block. attn_cache: (ck, cv) | int8 4-tuple | MacState."""
     h = rmsnorm(p["ln1"], x)
-    if cfg.attention_backend == "maclaurin":
-        attn_out, attn_cache = _mac_attn_decode(cfg, p["attn"], h, pos, attn_cache)
-    elif len(attn_cache) == 4:
-        ck, cv, ks, vs = attn_cache
-        attn_out, *attn_cache = decode_attention_quant(
-            p["attn"], h, ck, cv, ks, vs, pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            rope_theta=cfg.rope_theta,
-        )
-    else:
-        ck, cv = attn_cache
-        attn_out, *attn_cache = decode_attention(
-            p["attn"], h, ck, cv, pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
-            rope_theta=cfg.rope_theta,
-        )
+    attn_out, attn_cache = _attn_decode(cfg, p["attn"], h, pos, attn_cache)
     x = x + attn_out
     y, _ = _ffn(cfg, p, rmsnorm(p["ln2"], x), return_aux=False)
     return x + y, attn_cache
+
+
+def _attn_decode(cfg: ModelConfig, p_attn, h, pos, attn_cache):
+    """One-token self-attention through its cache: (B, 1, d), cache."""
+    if cfg.attention_backend == "maclaurin":
+        return _mac_attn_decode(cfg, p_attn, h, pos, attn_cache)
+    heads = dict(
+        n_heads=cfg.n_heads,
+        n_kv=cfg.n_kv_heads,
+        head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta,
+    )
+    attend = decode_attention_quant if len(attn_cache) == 4 else decode_attention
+    out, *attn_cache = attend(p_attn, h, *attn_cache, pos, **heads)
+    return out, attn_cache
 
 
 def _cross_block_decode(cfg: ModelConfig, pc, x, cross):

@@ -1,0 +1,156 @@
+"""Collectives over a group of mesh positions, as peer copies and adds.
+
+What GSPMD inserts into the reference's partitioned steps, written out for
+the port's single-controller mesh (``launch.mesh``): every function takes
+one tensor a member of a group, in the group's order (``partitioning.
+axis_groups``), each on its member's device, and returns one a member.
+
+Every reduction adds the members' tensors once, on the first member's
+device, in the group's order, and copies the result to each member, so
+that replicas come out bit for bit equal. Nothing goes through NCCL: it
+refuses a communicator in which one card appears twice, which a mesh of
+slots of one card is, and ``torch.cuda.nccl`` has no all-to-all. One
+route for every placement keeps the CPU and the card on the same code.
+
+Each collective with a gradient is an ``autograd.Function`` whose backward
+is its forward's conjugate (the exact vector-Jacobian product of the
+members' tensors): all-gather and reduce-scatter are each other's,
+all-to-all's is its inverse, and the all-reduce's is itself. The sharded
+steps count each data group's loss once and sum each parameter's gradient
+over its replicas afterwards, so a value replicated over a group carries
+a share of its gradient on each member, and the all-reduce's backward
+adds those shares: Megatron's pair of "g" (all-reduce, then identity) and
+"f" (identity, then all-reduce), which assumes every replica seeds the
+whole loss, composes to it. ``all_max`` and ``gather`` carry no custom
+backward: the max is taken on values a caller detaches, and ``gather`` is
+copies and a concatenation, which autograd differentiates itself.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.autograd import Function
+
+
+def sum_in_order(xs):
+    """The members' tensors added in order on the first member's device."""
+    total = xs[0]
+    for x in xs[1:]:
+        total = total + x.to(total.device)
+    return total
+
+
+def _copies(x, devices):
+    """``x`` copied to each device (a new tensor on each, ``x``'s own too)."""
+    return tuple(x.to(d, copy=True) for d in devices)
+
+
+def _split(x, sizes, dim, devices):
+    chunks = torch.split(x, sizes, dim)
+    return tuple(c.to(d, copy=True) for c, d in zip(chunks, devices))
+
+
+class _AllReduce(Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.devices = [x.device for x in xs]
+        return _copies(sum_in_order(xs), ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _copies(sum_in_order(grads), ctx.devices)
+
+
+class _AllGather(Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
+        return _copies(whole, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_split(sum_in_order(grads), ctx.sizes, ctx.dim, ctx.devices))
+
+
+class _ReduceScatter(Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        n, size = len(xs), xs[0].shape[dim]
+        if size % n:
+            raise ValueError(f"reduce_scatter: dim {dim} of {size} does not split {n}")
+        return _split(sum_in_order(xs), [size // n] * n, dim, ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        whole = torch.cat([g.to(grads[0].device) for g in grads], ctx.dim)
+        return (None, *_copies(whole, ctx.devices))
+
+
+def _exchange(xs, split_dim, concat_dim):
+    """Member j gets chunk j (along ``split_dim``) of every member's tensor,
+    concatenated along ``concat_dim`` in member order."""
+    n = len(xs)
+    for x in xs:
+        if x.shape[split_dim] % n:
+            shape = tuple(x.shape)
+            raise ValueError(f"all_to_all: dim {split_dim} of {shape} splits not {n}")
+    chunks = [torch.chunk(x, n, split_dim) for x in xs]
+    return tuple(
+        torch.cat([chunks[i][j].to(xs[j].device) for i in range(n)], concat_dim)
+        for j in range(n)
+    )
+
+
+class _AllToAll(Function):
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, *xs):
+        ctx.dims = split_dim, concat_dim
+        return _exchange(xs, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, *_exchange(grads, concat_dim, split_dim))
+
+
+def all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum of the members' tensors, on every member."""
+    return list(_AllReduce.apply(*xs)) if len(xs) > 1 else list(xs)
+
+
+def all_gather(xs: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+    """The members' tensors concatenated along ``dim``, on every member."""
+    return list(_AllGather.apply(dim, *xs)) if len(xs) > 1 else list(xs)
+
+
+def reduce_scatter(xs: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+    """The sum of the members' tensors cut into equal chunks along ``dim``:
+    chunk i on member i."""
+    return list(_ReduceScatter.apply(dim, *xs)) if len(xs) > 1 else list(xs)
+
+
+def all_to_all(xs: list[torch.Tensor], split_dim: int, concat_dim: int) -> list:
+    """Each member's tensor cut into one chunk a member along ``split_dim``;
+    member j gets every member's chunk j, concatenated along ``concat_dim``."""
+    if len(xs) == 1:
+        return list(xs)
+    return list(_AllToAll.apply(split_dim, concat_dim, *xs))
+
+
+@torch.no_grad()
+def all_max(xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The elementwise max of the members' tensors, on every member (no
+    gradient)."""
+    top = xs[0]
+    for x in xs[1:]:
+        top = torch.maximum(top, x.to(top.device))
+    return list(_copies(top, [x.device for x in xs]))
+
+
+def gather(xs: list[torch.Tensor], dim: int) -> torch.Tensor:
+    """The members' tensors concatenated along ``dim`` on the first
+    member's device only."""
+    return torch.cat([x.to(xs[0].device) for x in xs], dim)

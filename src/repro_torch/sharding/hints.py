@@ -12,9 +12,10 @@ extent downgraded to replication) and hands ``x`` with that sharding to
 That is all a hint can do here. A sharding constraint never changes a
 value; the reference's is an instruction to XLA's partitioner, and an
 eager PyTorch program on one controller has no compiler to give one to.
-The resolved specs are what a rule-sharded step over several cards would
-lay activations out by; tests watch ``constrain`` to hold them against
-the reference's.
+The rule-sharded steps (``sharding.spmd``) place their collectives
+themselves, from the parameters' layout, and run no hint; the one-device
+model keeps the reference's call sites, and tests watch ``constrain`` to
+hold the specs they resolve against the reference's.
 """
 
 from __future__ import annotations

@@ -20,8 +20,12 @@ reference's), ``NamedSharding`` pairs a ``Mesh`` with one.
 ``device_put`` is the counterpart of ``jax.device_put`` onto a
 ``NamedSharding`` in the single-controller idiom of ``core.backend``'s
 sharded primitives: a tensor becomes its shards, one a mesh position, each
-on its position's device. It places; no program here runs on the shards
-(a rule-sharded LM step over several cards is not ported).
+on its position's device (``Sharded``; ``local(p)`` is position p's
+block, ``replica_groups()`` the positions that hold the same one).
+``axis_groups`` lists the positions that a collective along some mesh
+axes joins. The rule-sharded LM steps run on those shards
+(``sharding.spmd``, ``sharding.step``), with the collectives of
+``sharding.collectives`` where the reference's GSPMD inserts its own.
 """
 
 from __future__ import annotations
@@ -73,7 +77,8 @@ class NamedSharding:
         (``launch.specs.sanitize`` drops such axes first)."""
         return tuple(size // parts for size, parts in zip(shape, self._parts(shape)))
 
-    def _axes(self, ndim: int) -> list[tuple[str, ...]]:
+    def dim_axes(self, ndim: int) -> list[tuple[str, ...]]:
+        """The mesh axes that cut each of ``ndim`` dims (() for none)."""
         if len(self.spec) > ndim:
             raise ValueError(f"spec {self.spec} has more entries than {ndim} dims")
         spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
@@ -81,7 +86,8 @@ class NamedSharding:
 
     def _parts(self, shape: tuple[int, ...]) -> list[int]:
         sizes = self.mesh.shape
-        parts = [math.prod(sizes[a] for a in axes) for axes in self._axes(len(shape))]
+        axes = self.dim_axes(len(shape))
+        parts = [math.prod(sizes[a] for a in dim_axes) for dim_axes in axes]
         for dim, (size, n) in enumerate(zip(shape, parts)):
             if size % n:
                 raise ValueError(
@@ -97,13 +103,30 @@ class NamedSharding:
         coords = dict(zip(self.mesh.axis_names, where))
         sizes = self.mesh.shape
         out = []
-        for size, axes, parts in zip(shape, self._axes(len(shape)), self._parts(shape)):
+        cuts = zip(shape, self.dim_axes(len(shape)), self._parts(shape))
+        for size, axes, parts in cuts:
             i = 0
             for a in axes:  # the first axis named is the major one
                 i = i * sizes[a] + int(coords[a])
             step = size // parts
             out.append(slice(i * step, (i + 1) * step))
         return tuple(out)
+
+
+def axis_groups(mesh: Mesh, axes) -> list[list[int]]:
+    """The positions of ``mesh`` (row-major) that differ only along
+    ``axes``: one list a group, its members ordered row-major over
+    ``axes`` in the order named, which is the order ``NamedSharding.index``
+    gives the blocks of a dim cut over them. No axes: each position alone."""
+    axes = _names(axes)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"mesh axis {a!r} is not in the mesh's {mesh.axis_names}")
+    others = [a for a in mesh.axis_names if a not in axes]
+    order = [mesh.axis_names.index(a) for a in others + list(axes)]
+    grid = np.arange(math.prod(mesh.sizes)).reshape(mesh.sizes).transpose(order)
+    members = math.prod(mesh.shape[a] for a in axes)
+    return [[int(p) for p in row] for row in grid.reshape(-1, members)]
 
 
 def abstract_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
@@ -254,6 +277,17 @@ def batch_pspec(mesh: Mesh, rules: AxisRules = DEFAULT_RULES) -> PartitionSpec:
     return PartitionSpec(usable if len(usable) > 1 else usable[0])
 
 
+def batch_sharding(mesh: Mesh, rules: AxisRules, global_batch: int) -> NamedSharding:
+    """The sharding of a step's batch inputs: ``batch_pspec``, or
+    replicated where ``global_batch`` does not divide over its axes (the
+    reference's ``build_cell``)."""
+    bspec = batch_pspec(mesh, rules)
+    ways = math.prod(mesh.shape[a] for a in _names(bspec[0]))
+    if global_batch % ways:
+        return NamedSharding(mesh, PartitionSpec(None))
+    return NamedSharding(mesh, bspec)
+
+
 def zero1_opt_sharding(
     param_sharding: NamedSharding, shape: tuple[int, ...], mesh: Mesh
 ):
@@ -284,6 +318,19 @@ class Sharded:
     sharding: NamedSharding
     shape: tuple[int, ...]
     dtype: torch.dtype
+
+    def local(self, position: int) -> torch.Tensor:
+        """The block mesh position ``position`` holds."""
+        return self.shards[position]
+
+    def replica_groups(self) -> list[list[int]]:
+        """The positions that hold each block, one list a block, in the
+        order of their first positions."""
+        groups: dict[tuple, list[int]] = {}
+        for p in range(len(self.shards)):
+            block = tuple((s.start, s.stop) for s in self.sharding.index(self.shape, p))
+            groups.setdefault(block, []).append(p)
+        return list(groups.values())
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (the mesh's first by default),
@@ -320,7 +367,7 @@ def _place(x, sharding: NamedSharding) -> Sharded:
     mesh = sharding.mesh
     if not mesh.devices:
         raise ValueError("device_put onto an abstract mesh, which has no devices")
-    x = torch.as_tensor(x)
+    x = torch.as_tensor(x).detach()  # placed blocks carry no autograd history
     shape = tuple(x.shape)
     shards = []
     for p, dev in enumerate(mesh.devices):

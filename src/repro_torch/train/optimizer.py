@@ -38,10 +38,19 @@ def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled so their global f32 norm is at most ``max_norm``, each
     leaf cast back to its dtype; the norm before clipping)."""
     grads = as_tree(grads)
-    ls = leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32))) for l in ls))
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    gnorm = torch.sqrt(sum(square_sum(l) for l in leaves(grads)))
+    scale = clip_scale(gnorm, max_norm)
     return tree_map(lambda l: (l * scale).to(l.dtype), grads), gnorm
+
+
+def square_sum(g) -> torch.Tensor:
+    """A gradient leaf's share of the squared global norm, in f32."""
+    return torch.sum(torch.square(g.to(torch.float32)))
+
+
+def clip_scale(gnorm, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm ``gnorm`` to at most ``max_norm``."""
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
 
 
 def _count(tree) -> torch.Tensor:

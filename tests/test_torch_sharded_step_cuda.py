@@ -1,0 +1,211 @@
+"""The rule-sharded LM steps over distinct cards: path 11 of
+``chip_smoke.py`` on a (data, model) mesh of (2, n/2) cards, and one
+full-width arctic-480b layer with its experts spread over four cards.
+
+Marked ``cuda``; each test skips inside its body unless the cards it needs
+are present (two, or four for arctic; one card repeated as the mesh's
+slots is driven by ``chip_smoke.py``'s path 11). On a machine with them:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sharded_step_cuda.py
+
+Each sharded step is held against the one-device step of the same weights
+on the first card, both at f32 (serving cells on the bf16 weights they
+hold): logits within REL of max|logit| (an MoE's on SHARE of the
+positions: its routing is discontinuous, and a near-tie token may move to
+another expert), loss within 1e-5, the gradient norm within 1e-4 and the
+updated parameters within 1e-6 + 1e-5 |p| but where the gradient's
+running RMS (AdamW's bias-corrected sqrt(v)) is below TINY_GRAD, and each
+within two learning rates (an AdamW step at a gradient near 0 moves by
+lr times its relative rounding; path 11 states the same limits).
+Arctic's one layer (13.4 B expert parameters, 53.5 GB at f32, 26.8 GB as
+the cell's bf16) fits no one card, so its prefill is held against the
+same prefill on the CPU, blockwise.
+"""
+
+import copy
+import dataclasses
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch import make_mesh  # noqa: E402
+from repro_torch.launch.specs import build_cell  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.serve import decode_step as ds  # noqa: E402
+from repro_torch.sharding import partitioning as part  # noqa: E402
+from repro_torch.sharding.partitioning import device_put  # noqa: E402
+from repro_torch.sharding.spmd import flat  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    OptimizerConfig,
+    init_opt_state,
+    make_train_step,
+)
+
+pytestmark = pytest.mark.cuda
+
+REL, SHARE = 1e-4, 0.999
+RTOL, ATOL, NORM_RTOL, TINY_GRAD = 1e-5, 1e-6, 1e-4, 1e-5
+OCFG = OptimizerConfig(warmup=2, total_steps=10)
+
+
+def _cards(n: int):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _mesh(cards):
+    n = len(cards) // 2 * 2
+    return make_mesh((2, n // 2), ("data", "model"), devices=cards[:n])
+
+
+def _cfg(name, layers, **changes):
+    return dataclasses.replace(ARCHS[name], n_layers=layers, dtype="float32", **changes)
+
+
+def _logits_close(got, want, share=None):
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = float(want.abs().max())
+    within = (got - want).abs().amax(-1) <= REL * scale
+    if share is None:
+        assert bool(within.all()), float((got - want).abs().max()) / scale
+    else:
+        assert float(within.float().mean()) >= share
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _bf16_weights(params):
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    return params
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "smollm-135m"])
+def test_prefill_and_decode_across_cards(name):
+    cards = _cards(2)
+    mesh = _mesh(cards)
+    layers = 2 if name.startswith("qwen3") else ARCHS[name].n_layers
+    cfg = _cfg(name, layers, attention_impl="flash")
+    params = _bf16_weights(tf.init_params(cfg, seed=0, device=cards[0]))
+    share = SHARE if cfg.moe_num_experts else None
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (2, 1024), generator=gen, device=cards[0], dtype=torch.int32
+    )
+    cell = build_cell(cfg, ShapeConfig("prefill", 1024, 2, "prefill"), mesh, params=params)
+    build.reset_counts()
+    got = cell.step_fn(cell.args[0], tokens)
+    ways = mesh.shape["model"]
+    whole = cfg.n_heads % ways == 0 and cfg.n_kv_heads % ways == 0  # else once a group
+    assert build.counts()["flash_attention"] == (mesh.size if whole else mesh.size // ways) * layers
+    _logits_close(got, ds.make_prefill_step(cfg)(params, tokens), share)
+    del cell, got
+    cell = build_cell(cfg, ShapeConfig("decode", 32, 2, "decode"), mesh, params=params)
+    f32_cache = tf.init_cache(cfg, 2, 32, dtype=torch.float32, device=cards[0])
+    cache = device_put(f32_cache, cell.in_shardings[3])
+    want_cache = tf.init_cache(cfg, 2, 32, dtype=torch.float32, device=cards[0])
+    tok = tokens[:, :1]
+    for pos in range(3):
+        logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+        want, want_cache = ds.make_serve_step(cfg)(params, tok, pos, want_cache)
+        _logits_close(logits, want, share)
+        tok = torch.argmax(want, -1).to(torch.int32)
+    for leaf in cache["kv"]:
+        assert {s.device for s in leaf.shards} == set(mesh.devices)
+
+
+@pytest.mark.parametrize(
+    "name, rules",
+    [
+        ("qwen3-moe-30b-a3b", "DEFAULT_RULES"),
+        ("qwen3-moe-30b-a3b", "EP_DATA_RULES"),
+        ("smollm-135m", "DP_ONLY_RULES"),
+        ("smollm-135m", "DEFAULT_RULES"),
+    ],
+)
+def test_train_step_across_cards(name, rules):
+    cards = _cards(2)
+    mesh = _mesh(cards)
+    moe = name.startswith("qwen3")
+    changes = {"attention_backend": "maclaurin"} if moe else {}
+    cfg = _cfg(name, 1 if moe else ARCHS[name].n_layers, **changes)
+    B, T = 4, 1024
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+
+    def batch():
+        return {
+            k: torch.randint(
+                0, cfg.vocab_size, (B, T), generator=gen, device=cards[0], dtype=torch.int32
+            )
+            for k in ("tokens", "labels")
+        }
+
+    params = tf.init_params(cfg, seed=0, device=cards[0])
+    step = make_train_step(cfg, OCFG)
+    state = init_opt_state(OCFG, params, device=cards[0])
+    params, state, _ = step(params, state, batch(), 2)
+    start, start_state = copy.deepcopy(params), _clone(state)
+    b3 = batch()
+    params, state, want = step(params, state, b3, 3)
+    del state
+    shape = ShapeConfig("train", T, B, "train")
+    cell = build_cell(cfg, shape, mesh, getattr(part, rules), OCFG, params=start)
+    placed_state = device_put(start_state, cell.in_shardings[1])
+    build.reset_counts()
+    got_p, got_state, got = cell.step_fn(cell.args[0], placed_state, b3, 3)
+    if moe:
+        assert build.counts()["maclaurin_attention"] >= mesh.size
+    for key in ("loss", "xent", "aux", "lr"):
+        assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
+    assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
+    unbias = 1 - 0.95 ** int(got_state["count"].local(0))  # AdamW's b2
+    v = flat(got_state["v"])
+    for path, leaf in flat(params.tree(lambda p: p.detach())).items():
+        delta = (flat(got_p)[path].gather(cards[0]) - leaf).abs()
+        off = delta > ATOL + RTOL * leaf.abs()
+        rms = (v[path].gather(cards[0])[off] / unbias).sqrt()
+        assert bool((rms < TINY_GRAD).all()), path
+        assert float(delta.max()) <= 2 * float(want["lr"]), path
+
+
+def test_arctic_layer_with_experts_over_four_cards():
+    """One full-width arctic-480b layer (its 128 experts of 7168 x 4864,
+    and the dense residual beside them) served as a prefill with the
+    experts cut four ways over ``model``: 32 experts, 6.7 GB of bf16, a
+    card. Held against the same prefill on the CPU."""
+    cards = _cards(4)
+    mesh = make_mesh((1, 4), ("data", "model"), devices=cards[:4])
+    cfg = _cfg("arctic-480b", 1, attention_impl="flash")
+    params = tf.init_params(cfg, seed=0, device=cards[0]).cpu()  # 56 GB at f32
+    torch.cuda.empty_cache()
+    params = _bf16_weights(params)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen, dtype=torch.int32)
+    shape = ShapeConfig("prefill", 256, 1, "prefill")
+    cell = build_cell(cfg, shape, mesh, part.TP_ONLY_RULES, params=params)
+    w_gate = flat(cell.args[0])[("layers", "moe", "w_gate")]
+    assert tuple(w_gate.sharding.spec)[1] == "model"
+    held = {dev: 0 for dev in mesh.devices}
+    for leaf in flat(cell.args[0]).values():
+        for dev, nbytes in leaf.device_bytes().items():
+            held[dev] += nbytes
+    experts = 3 * 128 * 7168 * 4864 * 2  # bytes of the bf16 experts
+    assert all(n >= experts // 4 for n in held.values()) and max(held.values()) < experts // 2
+    build.reset_counts()
+    got = cell.step_fn(cell.args[0], tokens.to(cards[0]))
+    assert build.counts()["flash_attention"] == 4
+    assert bool(torch.isfinite(got).all())
+    blockwise = dataclasses.replace(cfg, attention_impl="blockwise")
+    want = ds.make_prefill_step(blockwise)(params, tokens)
+    _logits_close(got, want, share=0.99)
