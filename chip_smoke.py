@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives ten paths: seven at the
+source, all started together) and drives twelve paths: seven at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
-8 and 9):
+8, 9, 11 and 12):
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -89,7 +89,18 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
    2 x 2 slots of the card under three rule sets
    (``repro_torch.sharding``), every leaf gathered back bit for bit, and
    its embedding, LM head and first layer checkpointed and restored onto
-   their shardings. Path 5's profile act runs after it.
+   their shardings;
+11. the rule-sharded LM steps (``launch.specs.build_cell``,
+   ``repro_torch.sharding``) on a (data, model) mesh of 2 x 2 slots of
+   the card at f32 (SHARD_*): qwen3-moe served and trained (B9 and B8 on
+   head shards), smollm-135m trained and decoded, each against the
+   one-device step;
+12. the same for the families past dense and MoE and the optimizer
+   options (SHARD12_*): rwkv6, zamba2 and llama-vision served (B9 on
+   zamba2's 16-head shards at d = 80 and llama-vision's 32-head shards at
+   d = 128, bf16), rwkv6, zamba2 (B8 on its head shards) and musicgen
+   trained, qwen3-moe trained with Adafactor, two microbatches and
+   compressed gradients. Path 5's profile act runs after it.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -109,7 +120,8 @@ nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero, printing no result, on any failed phase,
 without a card, or without the repo's ``src/`` beside it.
 ``python3 chip_smoke.py --eighth-path`` runs path 8 alone,
-``--ninth-path`` path 9, ``--tenth-path`` path 10.
+``--ninth-path`` path 9, ``--tenth-path`` path 10, ``--eleventh-path``
+path 11, ``--twelfth-path`` path 12.
 """
 
 from __future__ import annotations
@@ -454,6 +466,78 @@ SHARD_ATTN_CASES = (  # what one head shard gives B9 (prefill) and B8 (training)
 SHARD_REL, SHARD_GAP = 1e-4, 1e-3
 SHARD_RTOL, SHARD_ATOL, SHARD_NORM_RTOL = 1e-5, 1e-6, 1e-4
 SHARD_TINY_GRAD, SHARD_LR_STEPS = 1e-5, 2.0
+# Twelfth path: the sharded steps of the families past dense and MoE and
+# of the optimizer options, on path 11's 2 x 2 slots of the card, f32
+# compute at published widths with the depth cut (SHARD12_DEPTH: layers
+# run of the published depth), each held against the one-device step of
+# the same weights on the same card at path 11's gates. rwkv6 2 of 32
+# (0.97 B parameters); zamba2 6 of 54, one group of 6 Mamba2 layers and
+# the shared attention block (0.51 B); llama-3.2-vision 5 of 100, one
+# superblock of 4 self layers and 1 cross layer over 4096 random image
+# tokens a row (6.4 B, 25.7 GB f32); musicgen 4 of 48 (0.16 B); qwen3-moe
+# 2 of 48 (1.87 B). A cut model is small enough that ``choose_rules``
+# would pick other rules than for the published one, so each cell names
+# the published model's pick: DEFAULT for rwkv6, zamba2 and musicgen
+# training and llama-vision serving, TP_ONLY for rwkv6 and zamba2
+# serving; qwen3-moe trains under EP_DATA with Adafactor, two
+# microbatches and compressed gradients, the options of arctic-480b's
+# train cell.
+SHARD12_DEPTH = {
+    "rwkv6-7b": 2,
+    "zamba2-2.7b": 6,
+    "llama-3.2-vision-90b": 5,
+    "musicgen-medium": 4,
+    "qwen3-moe-30b-a3b": 2,
+}
+SHARD12_SERVE = (  # (model, rules, prefill dtype, batch, prefill tokens, decode slots, steps)
+    ("rwkv6-7b", "TP_ONLY_RULES", "float32", 2, 256, 64, 4),
+    ("zamba2-2.7b", "TP_ONLY_RULES", "float32", 2, 1024, 64, 4),
+    ("llama-3.2-vision-90b", "DEFAULT_RULES", "bfloat16", 2, 1024, 64, 4),
+)
+SHARD12_TRAIN = (  # (model, rules, optimizer options, batch, tokens, config changes)
+    ("rwkv6-7b", "DEFAULT_RULES", {}, 2, 256, {}),
+    ("zamba2-2.7b", "DEFAULT_RULES", {}, 2, 1024, {"attention_backend": "maclaurin"}),
+    ("musicgen-medium", "DEFAULT_RULES", {}, 4, 1024, {}),
+    (
+        "qwen3-moe-30b-a3b",
+        "EP_DATA_RULES",
+        {"name": "adafactor", "microbatches": 2, "compress_grads": True},
+        4,
+        512,
+        {},
+    ),
+)
+SHARD12_ATTN = {  # (B*Hq, T, hd, hd) one head shard gives B8/B9 on path 12
+    "zamba2 shard": (16, 1024, 80, 80),  # one row a data shard, 16 of 32 heads
+    "llama-vision shard": (32, 1024, 128, 128),  # one row, 32 of 64 heads
+}
+SHARD12_ATTN_CASES = tuple(
+    case
+    for label, shape in SHARD12_ATTN.items()
+    for case in (
+        ("flash_attention", f"{label} f32", shape, "float32"),
+        ("flash_attention", f"{label} bf16", shape, "bfloat16"),
+        ("maclaurin_attention", label, shape, "float32"),
+    )
+)
+# A step beyond these gates (the gradient norm beyond SHARD_NORM_RTOL, or
+# a parameter beyond the tolerance where its gradient is not tiny) is held
+# instead against the model's own sensitivity to rounding
+# (``one_device_f64``: the one-device step at float64 compute from the
+# same state, no compressed gradients): the sharded norm within twice the
+# one-device f32 norm's distance from it plus SHARD_NORM_RTOL, the
+# parameters' max|delta| within twice the one-device f32 step's from it
+# (plus SHARD_ATOL) and no more than twice as many beyond the tolerance.
+# rwkv6's gradient is ill-conditioned: an H100 80GB HBM3 at 700 W read its
+# one-device f32 norm 5.1e-4 of the norm off the float64-compute one, the
+# sharded norm 7e-5 off it, and 27781 of 0.97 B parameters beyond the
+# tolerance (up to 0.29 lr).
+# Adafactor's update is no lr-sized step (u / max(1, RMS(u))), and an
+# int8 code may flip at a rounding tie under compressed gradients (the
+# CPU tests find a handful of such elements a leaf), so under those
+# options at most SHARD12_OFF_SHARE of the parameters may lie beyond
+# SHARD_ATOL + SHARD_RTOL |p|; under AdamW path 11's rule holds.
+SHARD12_OFF_SHARE = 1e-4
 # PyTorch's caching allocator splits a cached block for a request only
 # where more than 1 MiB would remain, so a shard may take up to this much
 # more than its bytes: the card's allocated memory grows by the bytes
@@ -954,6 +1038,16 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
         kernels, _ = eleventh_path(torch.device("cuda"))
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--twelfth-path"]:
+        from repro_torch.kernels import build
+
+        print(card_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
+        kernels, _ = twelfth_path(torch.device("cuda"))
         print(json.dumps({"kernels": kernels}), flush=True)
         return 0
     if sys.argv[1:2] == ["--submit-deferral"]:
@@ -2507,6 +2601,8 @@ def run(dev) -> list[dict]:
     launches10 = tenth_path(dev)
     # ================================ eleventh path (the rule-sharded steps)
     kernels_shard, launches11 = eleventh_path(dev)
+    # ============ twelfth path (the sharded steps past dense and MoE, options)
+    kernels_shard12, launches12 = twelfth_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2516,6 +2612,7 @@ def run(dev) -> list[dict]:
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
     paths += (launches5, launches6, launches7, launches8, launches9, launches10, launches11)
+    paths += (launches12,)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -2551,6 +2648,7 @@ def run(dev) -> list[dict]:
         },
     ]
     kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train + kernels_shard
+    kernels += kernels_shard12
     for entry in kernels:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
@@ -4958,6 +5056,338 @@ def eleventh_path(dev) -> tuple[list, dict]:
     phase("eleventh_path_seconds", peak_bytes=peak, **seconds)
     entries = []
     for name, case, (bh, t, d, dv), _ in SHARD_ATTN_CASES:
+        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
+        tm = timings[name, case]
+        entries.append(
+            {
+                "name": name,
+                "case": case,
+                "shape": [bh, t, d, dv],
+                "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}.cu",
+                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, case]["max_abs_err"],
+                "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1],
+                "library_ms": tm["library_ms"],
+            }
+        )
+    return entries, launches
+
+
+def image_embeds(cfg, dev, batch: int):
+    """A VLM's random image embeddings (batch, N, d), f32, from SEED; ()
+    for the other families (the steps' extra argument)."""
+    import torch
+
+    if cfg.family != "vlm":
+        return ()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dims = (batch, cfg.n_image_tokens, cfg.d_model)
+    return (torch.randn(dims, generator=gen, device=dev),)
+
+
+def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, steps) -> dict:
+    """``name`` at full width, SHARD12_DEPTH deep, on the bf16 weights a
+    serving cell holds: a flash prefill cell at ``dtype`` and a decode cell
+    at f32 under ``rules``, each held against the one-device step on the
+    same card at f32 (a bf16 prefill within the larger of path 4's limit
+    and twice the one-device bf16 prefill's own distance from f32, as
+    path 8 holds its bf16 pairs). Returns the phase fields."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode_step as ds
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.sharding.partitioning import device_put
+    from repro_torch.sharding.spmd import flat
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    layers = SHARD12_DEPTH[name]
+    cfg = family_config(name, layers, dtype="float32", attention_impl="flash")
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(p.to(torch.bfloat16))  # the serving cell's weights, as f32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    extra = image_embeds(cfg, dev, B)
+    out = {"model": name, "layers": layers, "rules": rules, "prefill_dtype": dtype}
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
+    want = ds.make_prefill_step(cfg)(params, tokens, *extra)
+    cfg_p = dataclasses.replace(cfg, dtype=dtype)
+    if dtype == "float32":
+        limit = None
+    else:  # the model's own bf16 rounding sets the bf16 limit
+        own = ds.make_prefill_step(cfg_p)(params, tokens, *extra)
+        own_rel = logit_gate(own, want, PREFILL_REL, PREFILL_GAP)["rel"]
+        limit = max(PREFILL_REL, 2 * own_rel)
+        out.update(one_device_bf16_rel=own_rel, prefill_limit=limit)
+        del own
+    shape = ShapeConfig("path12_prefill", T, B, "prefill")
+    cell = build_cell(cfg_p, shape, mesh, getattr(part, rules), params=params)
+    out.update(prefill_batch=[B, T], **placed_bytes(cell.args[0]))
+    with Window(launches, calls) as w:
+        got = cell.step_fn(cell.args[0], tokens, *extra)
+    if limit is None:
+        gate = shard_gate(got, want, None, f"{name} sharded prefill")
+    else:
+        gate = logit_gate(got, want, limit, PREFILL_GAP, against="one_device_f32")
+        for ok, msg in hold(gate, None, f"{name} sharded bf16 prefill"):
+            check(ok, msg)
+    out.update(prefill_s=w.seconds, prefill=gate, prefill_twins=held_against_twins(calls, "prefill"))
+    del cell, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = ShapeConfig("path12_decode", S, B, "decode")
+    cell = build_cell(cfg, shape, mesh, getattr(part, rules), params=params)
+    opts = dict(dtype=torch.float32, device=dev)
+    if extra:
+        opts.update(image_embeds=extra[0], params=params)
+    cache = device_put(tf.init_cache(cfg, B, S, **opts), cell.in_shardings[3])
+    want_cache = tf.init_cache(cfg, B, S, **opts)
+    step = ds.make_serve_step(cfg)
+    tok = want_tok = tokens[:, :1]
+    rels, greedy, seconds = [], [], []
+    for pos in range(steps):
+        with Window(launches, calls) as w:
+            logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *extra)
+        seconds.append(w.seconds)
+        want, want_cache = step(params, want_tok, pos, want_cache, *extra)
+        rels.append(shard_gate(logits, want, None, f"{name} sharded decode at {pos}")["rel"])
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        want_tok = torch.argmax(want, -1).to(torch.int32)
+        check(torch.equal(tok, want_tok), f"{name} sharded decode at {pos}: greedy tokens differ")
+        greedy.append(tok[:, 0].tolist())
+    specs_ = {}
+    for path, leaf in flat(cache).items():
+        for i, x in enumerate(leaf if isinstance(leaf, tuple) else (leaf,)):
+            specs_["/".join(path) + f"[{i}]"] = list(x.sharding.spec)
+            for g in x.replica_groups():
+                same = all(torch.equal(x.local(p), x.local(g[0])) for p in g)
+                check(same, f"{name}: cache replicas differ")
+    out.update(cache_spec=specs_, decode_rel=rels, decode_tokens=greedy, decode_s=seconds)
+    out["decode_twins"] = held_against_twins(calls, "decode")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del cell, cache, want_cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_training(dev, mesh, launches, calls, name, rules, options, B, T, changes) -> dict:
+    """``name`` at full width, SHARD12_DEPTH deep, f32, remat on: one
+    one-device step leaves the state the compared step starts from; the
+    one-device step from it is the reference (kept on the host), then the
+    cell under ``rules`` with the optimizer ``options`` takes the same step
+    from the same state (copied into its placed arguments). Gates: path
+    11's for AdamW, SHARD12_OFF_SHARE under Adafactor or compressed
+    gradients. Returns the phase fields."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.sharding.spmd import flat
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import OptimizerConfig, init_opt_state, make_train_step
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    layers = SHARD12_DEPTH[name]
+    cfg = family_config(name, layers, dtype="float32", **changes)
+    ocfg = OptimizerConfig(warmup=2, total_steps=10, **options)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    extra = image_embeds(cfg, dev, B)
+
+    def batch():
+        out = {
+            k: torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
+            for k in ("tokens", "labels")
+        }
+        if extra:
+            out["image_embeds"] = extra[0]
+        return out
+
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    step = make_train_step(cfg, ocfg)
+    state = init_opt_state(ocfg, params, device=dev)
+    params, state, _ = step(params, state, batch(), 2)
+    start, start_state = to_host(params.tree(lambda p: p.detach())), to_host(state)
+    b3 = batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, want = step(params, state, b3, 3)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    want = {k: float(v) for k, v in want.items()}
+    ref = flat(to_host(params.tree(lambda p: p.detach())))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = ShapeConfig("path12_train", T, B, "train")
+    cell = build_cell(cfg, shape, mesh, getattr(part, rules), ocfg)
+    fill(cell.args[0], start)
+    fill(cell.args[1], start_state)
+    held = placed_bytes(cell.args[0])
+    state_bytes = placed_bytes(cell.args[1])["bytes_per_position"]
+    torch.cuda.synchronize()
+    with Window(launches, calls) as w:
+        got_p, got_state, got = cell.step_fn(cell.args[0], cell.args[1], b3, 3)
+    cell.args = ()
+    what = f"{name} {rules} {ocfg.name}"
+    fields = dict(
+        model=name, layers=layers, rules=rules, optimizer=ocfg.name,
+        microbatches=ocfg.microbatches, compress_grads=ocfg.compress_grads,
+        batch=[B, T], step_s=w.seconds, one_device_step_s=one_s, **held,
+        state_bytes_per_position=state_bytes,
+    )
+    fails = [(held["bytes_per_position"] == held["placement_bytes_per_position"], f"{what}: bytes")]
+    for key in ("loss", "xent", "aux", "lr"):
+        fields[key] = [float(got[key]), want[key]]
+        ok = math.isclose(*fields[key], rel_tol=SHARD_RTOL, abs_tol=SHARD_ATOL)
+        fails.append((ok, f"{what}: {key}"))
+    norms = [float(got["grad_norm"]), want["grad_norm"]]
+    fields["grad_norm"] = norms
+    adamw = ocfg.name == "adamw" and not ocfg.compress_grads
+    if adamw:
+        b2 = inspect.signature(opt.adamw_update).parameters["b2"].default
+        unbias = 1 - b2 ** int(got_state["count"].local(0))
+        v = flat(got_state["v"])
+    worst, beyond, total, beyond_rms = 0.0, 0, 0, 0.0
+    for path, leaf in flat(got_p).items():
+        want_leaf = ref[path].to(dev)
+        delta = (leaf.gather() - want_leaf).abs()
+        worst = max(worst, float(delta.max()))
+        off = delta > SHARD_ATOL + SHARD_RTOL * want_leaf.abs()
+        if adamw and off.any():
+            rms = (v[path].gather()[off] / unbias).sqrt()
+            beyond_rms = max(beyond_rms, float(rms.max()))
+        beyond += int(off.sum())
+        total += want_leaf.numel()
+        for g in leaf.replica_groups():
+            same = all(torch.equal(leaf.local(p), leaf.local(g[0])) for p in g)
+            fails.append((same, f"{what} {path}: replicas differ"))
+        del want_leaf, delta, off
+    lr = want["lr"]
+    fields.update(params_max_abs=worst, params_beyond=beyond, params_elements=total, lr_steps=worst / lr)
+    if adamw:
+        fields["beyond_max_grad_rms"] = beyond_rms
+    fields["twins"] = held_against_twins(calls, f"{what} train")
+    del cell, got_p, got_state, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    norm_ok = math.isclose(*norms, rel_tol=SHARD_NORM_RTOL)
+    params_ok = beyond_rms < SHARD_TINY_GRAD if adamw else beyond <= SHARD12_OFF_SHARE * total
+    if not (norm_ok and params_ok) and not ocfg.compress_grads:
+        # how far the model's own rounding moves the step: the one-device
+        # step at float64 compute from the same state (SHARD12_* above)
+        norm64, params64 = one_device_f64(cfg, ocfg, start, start_state, b3, dev)
+        own_max, own_beyond = 0.0, 0
+        for path, leaf in params64.items():
+            delta = (ref[path] - leaf).abs()
+            own_max = max(own_max, float(delta.max()))
+            own_beyond += int((delta > SHARD_ATOL + SHARD_RTOL * ref[path].abs()).sum())
+        fields.update(
+            grad_norm_f64=norm64,
+            one_device_from_f64=dict(
+                grad_norm=abs(norms[1] - norm64), params_max_abs=own_max, params_beyond=own_beyond
+            ),
+        )
+        if not norm_ok:
+            norm_ok = abs(norms[0] - norms[1]) <= 2 * abs(norms[1] - norm64) + SHARD_NORM_RTOL * norm64
+        if not params_ok:
+            params_ok = worst <= 2 * own_max + SHARD_ATOL and beyond <= 2 * own_beyond
+        del params64
+    fields["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    phase("shard12_train", **fields)
+    for ok, msg in fails:
+        check(ok, msg)
+    check(norm_ok, f"{what}: grad norm")
+    check(params_ok, f"{what}: {beyond} of {total} parameters beyond the tolerance, up to {worst}")
+    if adamw:
+        check(worst <= SHARD_LR_STEPS * lr, f"{what}: a parameter moved {worst / lr} lr from one device's")
+    del ref, start, start_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def one_device_f64(cfg, ocfg, start: dict, start_state: dict, batch: dict, dev):
+    """The one-device step 3 of ``cfg`` from the weights ``start`` (the
+    reference's tree) and the optimizer state ``start_state`` on
+    ``batch``, at float64 compute (the norms, the loss and the optimizer
+    stay f32 inside, as the port computes them): (its gradient norm, its
+    updated parameters as f32 on the host, flat)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.sharding.partitioning import map_tree
+    from repro_torch.sharding.spmd import flat
+    from repro_torch.train.train_step import make_train_step
+
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    params = tf.init_params(cfg, seed=SEED, device=dev).double().assign(start)
+    state = map_tree(lambda x: x.to(dev), start_state)
+    params, state, metrics = make_train_step(cfg64, ocfg)(params, state, batch, 3)
+    out = {k: x.float().cpu() for k, x in flat(params.tree(lambda p: p.detach())).items()}
+    return float(metrics["grad_norm"]), out
+
+
+def twelfth_path(dev) -> tuple[list, dict]:
+    """Path 12: the sharded steps of the families past dense and MoE and of
+    the optimizer options on path 11's 2 x 2 slots of the card (SHARD12_*
+    above): B8 and B9 checked and timed at the shapes one head shard of
+    zamba2 and of llama-vision gives them, then rwkv6, zamba2 and
+    llama-vision served (prefill and greedy decode), rwkv6, zamba2 and
+    musicgen trained, and qwen3-moe trained with Adafactor, microbatches
+    and compressed gradients, each against one device's step; every B8/B9
+    launch of the sharded steps held against its twin. The launch counts
+    are those of the sharded steps alone. Returns (the B8/B9 ``kernels``
+    entries at the new shard shapes, every kernel's launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import make_mesh
+
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    cuts = {n: f"{k} of {get_config(n).n_layers} layers" for n, k in SHARD12_DEPTH.items()}
+    phase("twelfth_path_cuts", **cuts)
+    checks, timings = attention_kernel_checks(dev, SHARD12_ATTN_CASES)
+    seconds = {"kernels": time.perf_counter() - t_path}
+    mesh = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
+    launches = {n: 0 for n in build.counts()}
+    calls: dict = {}
+    peaks = []
+    for name, rules, dtype, B, T, S, steps in SHARD12_SERVE:
+        t0 = time.perf_counter()
+        row = family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, steps)
+        phase("shard12_serve", **row)
+        peaks.append(row["peak_bytes"])
+        seconds[f"{name} serve"] = time.perf_counter() - t0
+    for name, rules, options, B, T, changes in SHARD12_TRAIN:
+        t0 = time.perf_counter()
+        row = family_training(dev, mesh, launches, calls, name, rules, options, B, T, changes)
+        peaks.append(row["peak_bytes"])
+        seconds[f"{name} train"] = time.perf_counter() - t0
+    for kernel in ("flash_attention", "maclaurin_attention"):
+        check(launches[kernel] > 0, f"{kernel} never launched on a head shard on path 12")
+    phase("twelfth_path_launches", **launches)
+    seconds["total"] = time.perf_counter() - t_path
+    phase("twelfth_path_seconds", peak_bytes=max(peaks), **seconds)
+    entries = []
+    for name, case, (bh, t, d, dv), _ in SHARD12_ATTN_CASES:
         source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
         tm = timings[name, case]
         entries.append(

@@ -52,6 +52,7 @@ from repro_torch.sharding.partitioning import (
     param_shardings,
     spec_to_pspec,
 )
+from repro_torch.train import compression
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import OptimizerConfig
 
@@ -240,18 +241,19 @@ def build_cell(
     """The reference's ``build_cell`` on ``mesh``'s devices: the layout
     policy, the parameters (``params``, else ``init_params`` on the mesh's
     first device; bf16 for serving, as the reference's) placed by their
-    shardings, and for a train cell the AdamW state, for a decode cell the
+    shardings, and for a train cell the optimizer's state (AdamW's or
+    Adafactor's, with ``ef`` under ``compress_grads``), for a decode cell the
     cache (``init_cache``, bf16), each placed by the reference's
     shardings, with zero tokens (and labels, position, step) of the cell's
-    shape. Families, rule sets and optimizer options the sharded steps do
-    not carry out raise ``NotImplementedError``."""
+    shape; a VLM's cells also take zero ``image_embeds`` (GB, N, d) in bf16,
+    placed by the batch sharding, and its decode cache's image K/V are
+    computed from them with the cell's weights. Rule sets and mesh axes the
+    sharded steps do not carry out raise ``NotImplementedError``."""
     cfg = pick_backend(cfg, shape)
     rules = choose_rules(cfg, shape, rules)
     dp_ways = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
     ocfg = ocfg or choose_optimizer(cfg, shape, dp_ways=dp_ways)
     spmd.check_supported(cfg, mesh, rules)
-    if shape.kind == "train":
-        sharded.refuse(ocfg)
     dev = mesh.devices[0]
     params = params if params is not None else init_params(cfg, seed=SEED, device=dev)
     spec, tree = params.spec(), params.tree()
@@ -268,12 +270,26 @@ def build_cell(
         return torch.zeros(dims, dtype=torch.int32, device=dev)
 
     placed = device_put(tree, p_sh)
+    vlm = cfg.family == "vlm"
+    images = None
+    if vlm:
+        dims = (GB, cfg.n_image_tokens, cfg.d_model)
+        images = torch.zeros(dims, dtype=torch.bfloat16, device=dev)
     if shape.kind == "train":
-        state = opt.adamw_init(tree)
+        if ocfg.name == "adafactor":
+            state = opt.adafactor_init(tree)
+        else:
+            state = opt.adamw_init(tree)
+        if ocfg.compress_grads:
+            state["ef"] = compression.init_error_feedback(tree)
         o_spec = _opt_spec_tree(ocfg, spec, tree)
         o_sh = sanitize(_named(o_spec, rules, mesh), state, mesh)
         b_sh = {"tokens": bsh, "labels": bsh}
-        batch = device_put({"tokens": zeros(GB, T), "labels": zeros(GB, T)}, b_sh)
+        whole = {"tokens": zeros(GB, T), "labels": zeros(GB, T)}
+        if vlm:
+            b_sh["image_embeds"] = bsh
+            whole["image_embeds"] = images
+        batch = device_put(whole, b_sh)
         args = (placed, device_put(state, o_sh), batch, device_put(zeros(), repl))
         in_sh = (p_sh, o_sh, b_sh, repl)
         out_sh = (p_sh, o_sh, None)
@@ -283,16 +299,22 @@ def build_cell(
     elif shape.kind == "prefill":
         args = (placed, device_put(zeros(GB, T), bsh))
         in_sh = (p_sh, bsh)
+        if vlm:
+            args += (device_put(images, bsh),)
+            in_sh += (bsh,)
         out_sh = None
         donate = ()
         meta = {"kind": "prefill"}
         step_fn = sharded.make_prefill_step(cfg, mesh, rules)
     else:  # decode
-        cache = init_cache(cfg, GB, T, device=dev)
+        cache = init_cache(cfg, GB, T, image_embeds=images, params=params, device=dev)
         c_sh = cache_shardings(cfg, cache, rules, mesh, GB, T)
         tokens, pos = device_put(zeros(GB, 1), bsh), device_put(zeros(), repl)
         args = (placed, tokens, pos, device_put(cache, c_sh))
         in_sh = (p_sh, bsh, repl, c_sh)
+        if vlm:
+            args += (device_put(images, bsh),)
+            in_sh += (bsh,)
         out_sh = (None, c_sh)
         donate = (3,)
         meta = {"kind": "decode", "backend": cfg.attention_backend}

@@ -129,9 +129,11 @@ def _decay(params, xw):
 
 def time_mix_forward(params, x, *, head_dim: int = 64, chunk: int = 32):
     """Training/prefill path. x: (B, T, d) -> (B, T, d). T must be a
-    multiple of ``chunk``, as the reference asserts."""
+    multiple of ``chunk``, as the reference asserts. The heads are those
+    ``w_r``'s columns hold (all d // head_dim, or a head shard's, whose
+    ``u`` rows and ``w_o`` rows are that shard's)."""
     B, T, d = x.shape
-    H = d // head_dim
+    H = params["w_r"].shape[1] // head_dim
     n_chunks = T // chunk
     if n_chunks * chunk != T:
         raise ValueError(f"time_mix_forward: T={T} is not a multiple of chunk={chunk}")
@@ -173,16 +175,17 @@ def time_mix_forward(params, x, *, head_dim: int = 64, chunk: int = 32):
             "bshk,bshv->bhkv", k_upd, vc
         )
         ys.append(y)
-    y = torch.cat(ys, dim=1).reshape(B, T, d)
+    y = torch.cat(ys, dim=1).reshape(B, T, H * head_dim)
     y = _group_norm(y, params["ln_scale"], H) * g
     return y @ params["w_o"]
 
 
 def time_mix_decode(params, x, state, *, head_dim: int = 64):
     """One-token decode. state = (S (B,H,K,V), x_prev (B,1,d)). Returns
-    (out (B,1,d), (S, x)); S in the promoted dtype of the state and x."""
-    B, _, d = x.shape
-    H = d // head_dim
+    (out (B,1,d), (S, x)); S in the promoted dtype of the state and x.
+    The heads are ``w_r``'s, as in ``time_mix_forward``."""
+    B = x.shape[0]
+    H = params["w_r"].shape[1] // head_dim
     S, x_prev = state
 
     def mix(i):
@@ -196,18 +199,26 @@ def time_mix_decode(params, x, state, *, head_dim: int = 64):
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
     y = _einsum("bhk,bhkv->bhv", r, S + params["u"][None, :, :, None] * kv)
     S = torch.exp(lw)[..., None] * S + kv
-    y = y.reshape(B, 1, d)
+    y = y.reshape(B, 1, H * head_dim)
     y = _group_norm(y, params["ln_scale"], H) * g
     return _mm(y, params["w_o"]), (S, x)
 
 
 def channel_mix(params, x, last=None):
     """RWKV6 FFN ('channel mixing'). Returns (out, x): x is the new shift."""
+    gate, value = channel_mix_parts(params, x, last)
+    return gate * value, x
+
+
+def channel_mix_parts(params, x, last=None):
+    """The channel mix's two factors: (sigmoid of the receptance, the value
+    projection ``relu(xk W_k)^2 W_v``). On an "ffn" shard of ``w_ffn_k``
+    and ``w_ffn_v`` the value is that shard's partial sum."""
     xs = _token_shift(x, last)
     xk = x + (xs - x) * params["mu_ffn"][0]
     xr = x + (xs - x) * params["mu_ffn"][1]
     kk = torch.square(torch.relu(xk @ params["w_ffn_k"]))
-    return torch.sigmoid(xr @ params["w_ffn_r"]) * (kk @ params["w_ffn_v"]), x
+    return torch.sigmoid(xr @ params["w_ffn_r"]), kk @ params["w_ffn_v"]
 
 
 def rwkv6_init_state(

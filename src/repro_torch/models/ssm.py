@@ -110,23 +110,12 @@ def _conv_inputs(params, x_in, d_state: int, carry=None):
     return z, x, Bm, Cm, dt, carry
 
 
-def mamba2_forward(
-    params, x_in, *, d_state: int = 64, head_dim: int = 64, chunk: int = 128
-):
-    """Training/prefill path. x_in: (B, T, d) -> (B, T, d). T must be a
-    multiple of ``chunk``, as the reference asserts."""
-    B, T, d = x_in.shape
-    d_inner = params["w_out"].shape[0]
-    n_heads = d_inner // head_dim
-    n_chunks = T // chunk
-    if n_chunks * chunk != T:
-        raise ValueError(f"mamba2_forward: T={T} is not divisible by chunk={chunk}")
-    z, x, Bm, Cm, dt, _ = _conv_inputs(params, x_in, d_state)
-    A = -torch.exp(params["A_log"])  # (H,) negative
-    xh = x.reshape(B, T, n_heads, head_dim)
-    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x_in.device).tril()
-
-    state = x_in.new_zeros((B, n_heads, d_state, head_dim))
+def ssd_scan(xh, Bm, Cm, dt, A, chunk: int):
+    """The chunked SSD over heads: xh (B, T, H, P), Bm/Cm (B, T, N), dt
+    (B, T, H), A (H,) -> y (B, T, H, P) before the D skip."""
+    B, T, H, P = xh.shape
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()
+    state = xh.new_zeros((B, H, Bm.shape[-1], P))
     ys = []
     for c0 in range(0, T, chunk):
         xc, bc, cc, dtc = (t[:, c0 : c0 + chunk] for t in (xh, Bm, Cm, dt))
@@ -145,7 +134,32 @@ def mamba2_forward(
         ds = torch.einsum("bsn,bsh,bshp->bhnp", bc, w_s, xc)
         state = torch.exp(l_end[:, 0, :])[:, :, None, None] * state + ds
         ys.append(y_intra + y_inter)
-    y = torch.cat(ys, dim=1)
+    return torch.cat(ys, dim=1)
+
+
+def ssd_step(ssm, xh, Bm, Cm, dt, A):
+    """One token of the SSD: ssm (B, H, N, P), xh (B, H, P), Bm/Cm (B, N),
+    dt (B, H) -> (y (B, H, P) before the D skip, the new ssm)."""
+    alpha = torch.exp(A[None, :] * dt)  # (B,H)
+    ssm = alpha[:, :, None, None] * ssm + _einsum("bn,bh,bhp->bhnp", Bm, dt, xh)
+    return _einsum("bn,bhnp->bhp", Cm, ssm), ssm
+
+
+def mamba2_forward(
+    params, x_in, *, d_state: int = 64, head_dim: int = 64, chunk: int = 128
+):
+    """Training/prefill path. x_in: (B, T, d) -> (B, T, d). T must be a
+    multiple of ``chunk``, as the reference asserts."""
+    B, T, d = x_in.shape
+    d_inner = params["w_out"].shape[0]
+    n_heads = d_inner // head_dim
+    n_chunks = T // chunk
+    if n_chunks * chunk != T:
+        raise ValueError(f"mamba2_forward: T={T} is not divisible by chunk={chunk}")
+    z, x, Bm, Cm, dt, _ = _conv_inputs(params, x_in, d_state)
+    A = -torch.exp(params["A_log"])  # (H,) negative
+    xh = x.reshape(B, T, n_heads, head_dim)
+    y = ssd_scan(xh, Bm, Cm, dt, A, chunk)
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(B, T, d_inner)
     y = rmsnorm(params["norm"], y) * torch.nn.functional.silu(z)
@@ -160,12 +174,9 @@ def mamba2_decode(params, x_in, state, *, d_state: int = 64, head_dim: int = 64)
     n_heads = d_inner // head_dim
     ssm, conv_carry = state
     z, x, Bm, Cm, dt, conv_carry = _conv_inputs(params, x_in, d_state, conv_carry)
-    dt = dt[:, 0]  # (B,H)
     A = -torch.exp(params["A_log"])
     xh = x.reshape(B, n_heads, head_dim)
-    alpha = torch.exp(A[None, :] * dt)  # (B,H)
-    ssm = alpha[:, :, None, None] * ssm + _einsum("bn,bh,bhp->bhnp", Bm[:, 0], dt, xh)
-    y = _einsum("bn,bhnp->bhp", Cm[:, 0], ssm)
+    y, ssm = ssd_step(ssm, xh, Bm[:, 0], Cm[:, 0], dt[:, 0], A)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(B, 1, d_inner)
     y = rmsnorm(params["norm"], y) * torch.nn.functional.silu(z)

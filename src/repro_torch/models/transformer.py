@@ -429,20 +429,25 @@ def _attn_decode(cfg: ModelConfig, p_attn, h, pos, attn_cache):
 def _cross_block_decode(cfg: ModelConfig, pc, x, cross):
     """One-token cross-attention block, its context read from the cache:
     the image K/V, or their ``MacState``."""
-    B = x.shape[0]
-    h = rmsnorm(pc["ln1"], x)
-    q = (h @ pc["xattn"]["w_q"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+    x = x + _cross_attn_decode(cfg, pc["xattn"], rmsnorm(pc["ln1"], x), cross)
+    return x + swiglu(pc["ffn"], rmsnorm(pc["ln2"], x))
+
+
+def _cross_attn_decode(cfg: ModelConfig, p_xattn, h, cross):
+    """One token's cross-attention over the cached context, through
+    ``w_o``: (B, 1, d)."""
+    B = h.shape[0]
+    q = (h @ p_xattn["w_q"]).reshape(B, 1, cfg.n_heads, cfg.hd)
     if cfg.attention_backend == "maclaurin":
         Hkv, gq = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
         q_bh = q.reshape(B, 1, Hkv, gq, cfg.hd)[:, 0].to(torch.float32)
         out, _ = mac.readout(cross, q_bh)
-        out = out.reshape(B, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+        out = out.reshape(B, 1, cfg.n_heads * cfg.hd).to(h.dtype)
     else:
         kx, vx = cross
         out = _gqa_scores_full(q, kx.to(q.dtype), vx.to(q.dtype), causal=False)
         out = out.reshape(B, 1, cfg.n_heads * cfg.hd)
-    x = x + out @ pc["xattn"]["w_o"]
-    return x + swiglu(pc["ffn"], rmsnorm(pc["ln2"], x))
+    return out @ p_xattn["w_o"]
 
 
 def _layer_cache(tree, i: int):

@@ -792,13 +792,10 @@ class MicroBatcher:
             step_ewma = self._step_time_s
             replica.flushes += 1
             replica.rows += rows
-        # resolve every future FIRST: clients can start materializing the
-        # (asynchronously computing) result — which drops the GIL while it
-        # waits for the card — while the span/telemetry bookkeeping below
-        # runs in Python
-        for p, s in zip(batch, slices):
-            if p.future.set_running_or_notify_cancel():
-                p.future.set_result(s)
+        # count the flush and its requests, and emit their spans, BEFORE
+        # any answer leaves: a client that reads the metrics (``/metrics``)
+        # or the tracer's conservation after its answer must find its
+        # request there
         self.telemetry.record_step_time(step_ewma)
         self.telemetry.record_flush(len(batch), rows, deadline=deadline,
                                     tightened=tightened)
@@ -845,6 +842,9 @@ class MicroBatcher:
                       "flush": flush_trace})
                 )
             tr.span_many(self.name, events)
+        for p, s in zip(batch, slices):
+            if p.future.set_running_or_notify_cancel():
+                p.future.set_result(s)
 
     def _execute_degraded(self, batch: list[_Pending], sizes, rows: int, *,
                           deadline: bool, tightened: bool) -> None:

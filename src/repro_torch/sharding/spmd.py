@@ -15,8 +15,8 @@ What the layout asks for, as GSPMD would insert it:
 
   * FSDP: each leaf's "embed"-cut dim gathered over its mesh axes right
     before its block (the gather's backward is the reduce-scatter of its
-    gradient), inside the layer's ``remat`` so that the backward gathers
-    again;
+    gradient), inside the layer's remat (``remat_lockstep``: one autograd
+    node over every position) so that the backward gathers again;
   * tensor parallelism over "model" (when the batch is not cut over it):
     column-cut q/k/v, ``w_gate``/``w_up`` and the experts' ``ffn``,
     row-cut ``w_o``/``w_down``, each product's partial sums all-reduced;
@@ -32,11 +32,31 @@ What the layout asks for, as GSPMD would insert it:
     all-reduced over the batch axes), the token loss a sum over the data
     shards over the global count, each counted once.
 
+  * RWKV6 (``ssm``): the time mix on head shards (``w_r``/``w_k``/``w_v``/
+    ``w_g``, ``w0``, ``w_lora_b``, ``ln_scale`` column-cut, the replicated
+    ``u`` sliced to the shard's heads, ``w_o`` row-cut and all-reduced),
+    the channel mix's value projection column- then row-cut and
+    all-reduced before its gate; decode on the head-cut state;
+  * Mamba2 (``hybrid``): the packed projection's column cut gathered
+    before it is split into z | x | B | C | dt (a cut ends mid-segment),
+    the depthwise conv on the channel block its weight (and the decode
+    carry) holds, then gathered; the SSD on the heads of ``w_out``'s row
+    block (``A_log``, ``D``, ``dt_bias`` sliced to them), the gated
+    RMSNorm's sum of squares all-reduced over the whole inner width,
+    ``w_out`` row-cut and all-reduced. The shared attention block is the
+    dense block under its own path prefix, its gradient summed over its
+    applications by autograd;
+  * cross-attention (``vlm``) on head shards over the batch block's
+    image tokens, no mask and no RoPE; decode from the cached image K/V
+    (or their ``MacState``), head-cut, sequence-cut or a replica.
+
 The blocks are the port's own functions (``transformer._attn_forward``,
-``_attn_core``, ``_attn_decode``, ``layers.swiglu``, ``moe.route``,
-``moe.experts``) on local shards. Families other than ``dense`` and
-``moe``, rule sets other than the four ``choose_rules`` picks, and mesh
-axes other than "pod", "data" and "model" raise ``NotImplementedError``.
+``_attn_core``, ``_attn_decode``, ``_cross_attn_decode``,
+``layers.swiglu``, ``moe.route``, ``moe.experts``, ``rwkv.time_mix_*``,
+``ssm.ssd_*``) on local shards, each block under the path prefix of its
+own leaves (``layers``, ``shared_attn``, ``cross_layers``). Rule sets
+other than the four ``choose_rules`` picks and mesh axes other than
+"pod", "data" and "model" raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,13 +69,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import (
+    _gqa_scores_full,
+    cross_attention,
     decode_attend,
     qkv_columns,
     split_heads,
     write_slot,
 )
-from repro_torch.models.layers import remat, rmsnorm, swiglu
+from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.moe import _combine, experts, load_counts, route
+from repro_torch.models.rwkv import _mm, channel_mix_parts, time_mix_decode, time_mix_forward
+from repro_torch.models.ssm import _causal_conv, _split_proj, ssd_scan, ssd_step
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding.partitioning import (
     DEFAULT_RULES,
@@ -68,7 +92,9 @@ from repro_torch.sharding.partitioning import (
     batch_sharding,
 )
 
-SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "audio", "ssm", "hybrid", "vlm")
+STACKS = ("layers", "cross_layers")  # leaves stacked along a layer axis
+BLOCKS = STACKS + ("shared_attn",)  # the prefixes of block leaves
 RULE_SETS = {
     "DEFAULT_RULES": DEFAULT_RULES,
     "TP_ONLY_RULES": TP_ONLY_RULES,
@@ -127,6 +153,86 @@ def nest(flat_tree: dict) -> dict:
     return out
 
 
+_LEAF = object()
+
+
+def _flatten(tree):
+    """(the tensors of nested dicts, lists and tuples in order, its shape
+    with ``_LEAF`` in their place)."""
+    leaves = []
+
+    def go(t):
+        if isinstance(t, torch.Tensor):
+            leaves.append(t)
+            return _LEAF
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(go(v) for v in t)
+        return t
+
+    return leaves, go(tree)
+
+
+def _unflatten(shape, leaves):
+    it = iter(leaves)
+
+    def go(s):
+        if s is _LEAF:
+            return next(it)
+        if isinstance(s, dict):
+            return {k: go(v) for k, v in s.items()}
+        if isinstance(s, (list, tuple)):
+            return type(s)(go(v) for v in s)
+        return s
+
+    return go(shape)
+
+
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` over every mesh position as one autograd node that keeps
+    only its inputs: the backward reruns ``fn`` and differentiates it in one
+    nested call. ``torch.utils.checkpoint``'s non-reentrant form unpacks
+    each saved tensor on its device's autograd thread, so a layer that
+    spans distinct cards is recomputed from several threads at once and
+    fails; this node runs on one thread and its nested backward reaches
+    every card."""
+
+    @staticmethod
+    def forward(ctx, fn, shape, box, *tensors):
+        ctx.fn, ctx.shape = fn, shape
+        ctx.save_for_backward(*tensors)
+        with torch.no_grad():
+            out, box["shape"] = _flatten(fn(*_unflatten(shape, tensors)))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out, _ = _flatten(ctx.fn(*_unflatten(ctx.shape, inputs)))
+        pairs = [(o, g) for o, g in zip(out, grads) if o.requires_grad and g is not None]
+        wrt = [t for t in inputs if t.requires_grad]
+        got = iter(
+            torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs], allow_unused=True)
+            if pairs and wrt
+            else ()
+        )
+        return (None, None, None, *(next(got) if t.requires_grad else None for t in inputs))
+
+
+def remat_lockstep(fn, *args):
+    """``fn(*args)`` recomputed in the backward pass (``_Remat``) while
+    autograd records a graph through a tensor of ``args``, a plain call
+    otherwise: the lockstep counterpart of ``models.layers.remat``."""
+    tensors, shape = _flatten(args)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return fn(*args)
+    box: dict = {}
+    out = _Remat.apply(fn, shape, box, *tensors)
+    return _unflatten(box["shape"], out)
+
+
 @dataclasses.dataclass(frozen=True)
 class Cut:
     """How one leaf is cut: the mesh axes of each dim, its logical names,
@@ -180,7 +286,7 @@ class Lockstep:
         spec = flat(logical_spec(cfg))
         self.cuts = {}
         for path, leaf in flat(params).items():
-            self.cuts[path] = _cut(leaf, spec[path], 1 if path[0] == "layers" else 0)
+            self.cuts[path] = _cut(leaf, spec[path], 1 if path[0] in STACKS else 0)
         self._check_layout()
 
     # ------------------------------------------------------------ layout
@@ -237,13 +343,20 @@ class Lockstep:
 
     # ------------------------------------------------------------ blocks
 
-    def layer_params(self, layers: list[dict], i: int) -> list[dict]:
-        """Layer ``i``'s parameters a position, cast to the compute dtype and
-        FSDP-gathered, as ``layer.tensors(dtype)`` nests them."""
+    def gather_tp(self, xs: list, dim: int) -> list:
+        """Each member's tensor concatenated along ``dim`` over its
+        tensor-parallel group."""
+        return self.over(self.tp_groups, xs, lambda m: coll.all_gather(m, dim))
+
+    def block_params(self, stacks: list[dict], prefix: str, i) -> list[dict]:
+        """Block ``prefix``'s parameters a position (layer ``i`` of a stack;
+        ``i`` None for the unstacked shared block), cast to the compute
+        dtype and FSDP-gathered, as ``layer.tensors(dtype)`` nests them."""
         out = [dict() for _ in range(self.n)]
-        for path in layers[0]:
-            xs = [layers[p][path][i].to(self.dtype) for p in range(self.n)]
-            xs = self.fsdp(("layers",) + path, xs)
+        for path in stacks[0][prefix]:
+            xs = [stacks[p][prefix][path] for p in range(self.n)]
+            xs = [(x if i is None else x[i]).to(self.dtype) for x in xs]
+            xs = self.fsdp((prefix,) + path, xs)
             for p in range(self.n):
                 out[p][path] = xs[p]
         return [nest(o) for o in out]
@@ -296,11 +409,11 @@ class Lockstep:
             torch.sum(top[p] + torch.log(total[p]) - gold[p]) for p in range(self.n)
         ]
 
-    def attention(self, lp: list[dict], h: list, pos: list) -> list:
+    def attention(self, lp: list[dict], h: list, pos: list, prefix: str) -> list:
         cfg = self.cfg
-        q_ax = self.cuts[("layers", "attn", "w_q")].axes[1]
-        kv_ax = self.cuts[("layers", "attn", "w_k")].axes[1]
-        o_ax = self.cuts[("layers", "attn", "w_o")].axes[0]
+        q_ax = self.cuts[(prefix, "attn", "w_q")].axes[1]
+        kv_ax = self.cuts[(prefix, "attn", "w_k")].axes[1]
+        o_ax = self.cuts[(prefix, "attn", "w_o")].axes[0]
         parts = self.tp_parts(q_ax)
         whole = cfg.n_heads % parts == 0 and cfg.n_kv_heads % parts == 0
         if q_ax == kv_ax == o_ax and whole:
@@ -322,11 +435,54 @@ class Lockstep:
             )
             o = tf._attn_core(cfg, *heads)
             for p in g:
-                rows = self.block(("layers", "attn", "w_o"), p, 0)
+                rows = self.block((prefix, "attn", "w_o"), p, 0)
                 out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["attn"]["w_o"]
         return self.tp_reduce(out) if o_ax else out
 
-    def ffn(self, lp: list[dict], h: list, want_aux: bool):
+    def cross(self, lp: list[dict], h: list, ctx: list) -> list:
+        """The VLM's cross-attention of each position's rows over its image
+        tokens ``ctx``: on head shards where the q and kv cuts hold whole
+        heads, else q, k and v gathered over the group."""
+        cfg = self.cfg
+        key = ("cross_layers", "xattn")
+        q_ax = self.cuts[key + ("w_q",)].axes[1]
+        kv_ax = self.cuts[key + ("w_k",)].axes[1]
+        o_ax = self.cuts[key + ("w_o",)].axes[0]
+        parts = self.tp_parts(q_ax)
+        whole = cfg.n_heads % parts == 0 and cfg.n_kv_heads % parts == 0
+        if q_ax == kv_ax == o_ax and whole:
+            local = self.heads_cfg(parts)
+            heads = dict(n_heads=local.n_heads, n_kv=local.n_kv_heads, head_dim=cfg.hd)
+            out = [
+                cross_attention(lp[p]["xattn"], h[p], ctx[p], **heads)
+                for p in range(self.n)
+            ]
+            return self.tp_reduce(out) if q_ax else out
+        out = [None] * self.n
+        for g in self.tp_groups:
+            w = [lp[p]["xattn"] for p in g]
+            parts_ = (
+                [h[p] @ wp["w_q"] for p, wp in zip(g, w)],
+                [ctx[p] @ wp["w_k"] for p, wp in zip(g, w)],
+                [ctx[p] @ wp["w_v"] for p, wp in zip(g, w)],
+            )
+            q, k, v = (
+                coll.gather(xs, -1) if ax else xs[0]
+                for xs, ax in zip(parts_, (q_ax, kv_ax, kv_ax))
+            )
+            B, T, N = q.shape[0], q.shape[1], k.shape[1]
+            o = _gqa_scores_full(
+                q.reshape(B, T, cfg.n_heads, cfg.hd),
+                k.reshape(B, N, cfg.n_kv_heads, cfg.hd),
+                v.reshape(B, N, cfg.n_kv_heads, cfg.hd),
+                causal=False,
+            ).reshape(B, T, cfg.n_heads * cfg.hd)
+            for p in g:
+                rows = self.block(key + ("w_o",), p, 0)
+                out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["xattn"]["w_o"]
+        return self.tp_reduce(out) if o_ax else out
+
+    def ffn(self, lp: list[dict], h: list, want_aux: bool, prefix: str = "layers"):
         """(y a position, aux a position or None)."""
         cfg = self.cfg
         aux = None
@@ -334,7 +490,7 @@ class Lockstep:
             y, aux = self.moe(lp, h, want_aux)
         if not cfg.moe_num_experts or cfg.moe_dense_residual:
             dense = [swiglu(lp[p]["ffn"], h[p]) for p in range(self.n)]
-            if self.cuts[("layers", "ffn", "w_down")].axes[0]:
+            if self.cuts[(prefix, "ffn", "w_down")].axes[0]:
                 dense = self.tp_reduce(dense)
             y = dense if not cfg.moe_num_experts else [a + b for a, b in zip(y, dense)]
         return y, aux
@@ -377,39 +533,245 @@ class Lockstep:
         ce = self.over(self.batch_groups, ce, coll.all_reduce)
         return out, [E * torch.sum((m / tokens) * (c / tokens)) for m, c in zip(me, ce)]
 
-    def layer(self, i: int, layers: list[dict], x: list, pos: list):
-        """Dense block ``i`` (the one-device ``_dense_block``): (x, aux)."""
-        lp = self.layer_params(layers, i)
+    def layer(self, i, stacks: list[dict], x: list, pos: list, prefix: str = "layers"):
+        """Dense block ``i`` of ``prefix`` (the one-device ``_dense_block``):
+        (x, aux)."""
+        lp = self.block_params(stacks, prefix, i)
         h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
-        a = self.attention(lp, h, pos)
+        a = self.attention(lp, h, pos, prefix)
         x = [xi + ai for xi, ai in zip(x, a)]
         h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
-        y, aux = self.ffn(lp, h, want_aux=True)
+        y, aux = self.ffn(lp, h, want_aux=True, prefix=prefix)
         return [xi + yi for xi, yi in zip(x, y)], aux
+
+    def cross_layer(self, g: int, stacks: list[dict], x: list, ctx: list) -> list:
+        """Cross block ``g`` (the one-device ``_cross_block``)."""
+        lp = self.block_params(stacks, "cross_layers", g)
+        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        x = [xi + ai for xi, ai in zip(x, self.cross(lp, h, ctx))]
+        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        y, _ = self.ffn(lp, h, want_aux=False, prefix="cross_layers")
+        return [xi + yi for xi, yi in zip(x, y)]
+
+    # ------------------------------------------------------------- RWKV6
+
+    def rwkv_params(self, lp: list[dict]):
+        """(each position's time-mix parameters, whether its output is a
+        partial sum). Where the "heads" cut holds whole heads: the shard's
+        columns and ``u``'s rows of its heads; otherwise every head-cut
+        leaf gathered (each member computes all heads)."""
+        hd = self.cfg.rwkv_head_dim
+        cut = self.cuts[("layers", "w_r")].axes[1]
+        cols = [self.block(("layers", "w_r"), p, 1) for p in range(self.n)]
+        if all(c.start % hd == 0 and c.stop % hd == 0 for c in cols):
+            out = []
+            for p in range(self.n):
+                mine = dict(lp[p])
+                mine["u"] = lp[p]["u"][cols[p].start // hd : cols[p].stop // hd]
+                out.append(mine)
+            return out, bool(cut)
+        out = [dict(d) for d in lp]
+        for name, dim in (("w_r", 1), ("w_k", 1), ("w_v", 1), ("w_g", 1), ("w0", 0),
+                          ("w_lora_b", 1), ("ln_scale", 0), ("w_o", 0)):
+            if self.cuts[("layers", name)].axes[dim]:
+                whole = self.gather_tp([d[name] for d in out], dim)
+                for d, w in zip(out, whole):
+                    d[name] = w
+        return out, False
+
+    def channel_mix(self, lp: list[dict], h: list, last=None) -> list:
+        """The channel mix a position: the value projection's partial sums
+        reduced over the "ffn" cut before its gate."""
+        parts = [
+            channel_mix_parts(lp[p], h[p], None if last is None else last[p])
+            for p in range(self.n)
+        ]
+        value = [v for _, v in parts]
+        if self.cuts[("layers", "w_ffn_v")].axes[0]:
+            value = self.tp_reduce(value)
+        return [gate * v for (gate, _), v in zip(parts, value)]
+
+    def rwkv_layer(self, i: int, stacks: list[dict], x: list) -> list:
+        """RWKV6 block ``i`` (the one-device ``_rwkv_block``)."""
+        cfg = self.cfg
+        lp = self.block_params(stacks, "layers", i)
+        h = [rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)]
+        tm, partial = self.rwkv_params(lp)
+        opts = dict(head_dim=cfg.rwkv_head_dim, chunk=cfg.scan_chunk)
+        out = [time_mix_forward(tm[p], h[p], **opts) for p in range(self.n)]
+        x = [xi + oi for xi, oi in zip(x, self.tp_reduce(out) if partial else out)]
+        h = [rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)]
+        return [xi + oi for xi, oi in zip(x, self.channel_mix(lp, h))]
+
+    def rwkv_decode(self, i: int, stacks: list[dict], x: list, cache: list) -> list:
+        """One token through RWKV6 block ``i``, each position's blocks of
+        the cache's states written in place."""
+        f32 = torch.float32
+        lp = self.block_params(stacks, "layers", i)
+        h = [rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)]
+        tm, partial = self.rwkv_params(lp)
+        out, new = [], []
+        for p in range(self.n):
+            state = (cache[p]["S"][i], cache[p]["x_tm"][i].to(h[p].dtype))
+            o, st = time_mix_decode(tm[p], h[p], state, head_dim=self.cfg.rwkv_head_dim)
+            out.append(o)
+            new.append(st)
+        out = self.tp_reduce(out) if partial else out
+        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, out)]
+        h2 = [rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)]
+        last = [cache[p]["x_cm"][i].to(h2[p].dtype) for p in range(self.n)]
+        out2 = self.channel_mix(lp, h2, last)
+        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, out2)]
+        for p in range(self.n):
+            S_, x_tm = new[p]
+            for key, value in (("S", S_), ("x_tm", x_tm), ("x_cm", h2[p])):
+                cache[p][key][i] = value.to(f32)
+        return x
+
+    # ------------------------------------------------------------ Mamba2
+
+    def mamba(self, lp: list[dict], x: list, states=None, heads=None):
+        """Mamba2 over each position's rows (``states``: each position's
+        (ssm, conv carry) blocks for one decode token, ``heads`` the slice of
+        heads its ssm block holds; else None): (out a position, each
+        position's new (ssm, carry) or None)."""
+        cfg = self.cfg
+        P, N = cfg.ssm_head_dim, cfg.ssm_state
+        d_inner = cfg.ssm_expand * cfg.d_model
+        H = d_inner // P
+        key = lambda name: ("layers",) + name  # noqa: E731
+        w_in, conv, w_out = key(("w_in",)), key(("conv",)), key(("w_out",))
+        # the packed projection's columns gathered before they are split
+        proj = [x[p] @ lp[p]["w_in"] for p in range(self.n)]
+        if self.cuts[w_in].axes[1]:
+            proj = self.gather_tp(proj, -1)
+        split = [_split_proj(pr, d_inner, N, H) for pr in proj]
+        # the conv on the channel block of x | B | C its weight holds
+        conved, carries = [], []
+        for p in range(self.n):
+            z, xs, Bm, Cm, dt = split[p]
+            ch = self.block(conv, p, 1)
+            xbc = torch.cat([xs, Bm, Cm], dim=-1)[..., ch]
+            carry = states[p][1] if states else None
+            out, carry = _causal_conv(xbc, lp[p]["conv"], carry)
+            conved.append(out)
+            carries.append(carry)
+        if self.cuts[conv].axes[1]:
+            conved = self.gather_tp(conved, -1)
+        y, ss, new = [], [], []
+        for p in range(self.n):
+            z, _, _, _, dt = split[p]
+            xs = conved[p][..., :d_inner]
+            Bm = conved[p][..., d_inner : d_inner + N]
+            Cm = conved[p][..., d_inner + N :]
+            dt = torch.nn.functional.softplus(dt + lp[p]["dt_bias"])
+            rows = self.block(w_out, p, 0)
+            if states:  # the heads of the cache's ssm block (all, or w_out's)
+                h0, h1 = heads[p].start, heads[p].stop
+            else:  # the whole heads that cover w_out's rows
+                h0, h1 = rows.start // P, -(-rows.stop // P)
+            A = -torch.exp(lp[p]["A_log"][h0:h1])
+            B, T = xs.shape[:2]
+            xh = xs[..., h0 * P : h1 * P].reshape(B, T, h1 - h0, P)
+            if states:
+                yh, ssm = ssd_step(states[p][0], xh[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0, h0:h1], A)
+                yh = (yh + lp[p]["D"][h0:h1][None, :, None] * xh[:, 0])[:, None]
+                new.append((ssm, carries[p]))
+            else:
+                yh = ssd_scan(xh, Bm, Cm, dt[..., h0:h1], A, cfg.scan_chunk)
+                yh = yh + lp[p]["D"][h0:h1][None, None, :, None] * xh
+            yp = yh.reshape(B, T, (h1 - h0) * P)[..., rows.start - h0 * P : rows.stop - h0 * P]
+            y.append((yp, z[..., rows]))
+            y32 = yp.to(torch.float32)
+            ss.append(torch.sum(y32 * y32, dim=-1, keepdim=True))
+        if self.cuts[w_out].axes[0]:
+            ss = self.tp_reduce(ss)
+        out = []
+        for p in range(self.n):
+            yp, zp = y[p]
+            var = ss[p] / d_inner
+            normed = yp.to(torch.float32) * torch.rsqrt(var + 1e-5) * lp[p]["norm"]["scale"]
+            gated = normed.to(yp.dtype) * torch.nn.functional.silu(zp)
+            out.append(_mm(gated, lp[p]["w_out"]))
+        if self.cuts[w_out].axes[0]:
+            out = self.tp_reduce(out)
+        return out, (new if states else None)
+
+    def mamba_layer(self, i: int, stacks: list[dict], x: list) -> list:
+        """Mamba2 block ``i`` (the one-device ``_mamba_block``)."""
+        out, _ = self.mamba(self.block_params(stacks, "layers", i), x)
+        return [xi + oi for xi, oi in zip(x, out)]
+
+    def mamba_decode(self, i, stacks: list[dict], x: list, cache: list, layouts: dict) -> list:
+        """One token through Mamba2 block ``i``, each position's blocks of
+        the ssm state and the conv carry written in place."""
+        f32 = torch.float32
+        lp = self.block_params(stacks, "layers", i)
+        states = [(c["ssm"][i], c["conv"][i]) for c in cache]
+        out, new = self.mamba(lp, x, states, layouts["ssm"])
+        for p in range(self.n):
+            cache[p]["ssm"][i], cache[p]["conv"][i] = (t.to(f32) for t in new[p])
+        return [xi + oi.to(xi.dtype) for xi, oi in zip(x, out)]
 
     # ----------------------------------------------------------- programs
 
     def split(self, local: list[dict]):
-        """(top-level leaves, layer leaves) a position, flat."""
-        top = [{k: v for k, v in t.items() if k[0] != "layers"} for t in local]
-        layers = [{k[1:]: v for k, v in t.items() if k[0] == "layers"} for t in local]
-        return top, layers
+        """(top-level leaves, {block prefix: its leaves}) a position, flat."""
+        top = [{k: v for k, v in t.items() if k[0] not in BLOCKS} for t in local]
+        stacks = [
+            {b: {k[1:]: v for k, v in t.items() if k[0] == b} for b in BLOCKS}
+            for t in local
+        ]
+        return top, stacks
 
-    def forward(self, local: list[dict], tokens: list):
+    def scanned(self, fn, i: int, stacks: list[dict], x: list, *extra):
+        """Layer ``i`` of the scanned stack, under ``remat_lockstep`` where
+        ``cfg.remat`` (``transformer._layer``): its inputs are its own
+        slices of the stacked leaves, so the node keeps no whole stack."""
+        if not self.cfg.remat:
+            return fn(i, stacks, x, *extra)
+        own = [{"layers": {k: v[i] for k, v in s["layers"].items()}} for s in stacks]
+        return remat_lockstep(fn, None, own, x, *extra)
+
+    def forward(self, local: list[dict], tokens: list, image_embeds: list | None = None):
         """``transformer.forward`` over the mesh: (logits a position, each
-        (B, T, its vocab), the aux loss summed over layers a position)."""
-        top, layers = self.split(local)
+        (B, T, its vocab), the aux loss summed over layers a position). A
+        VLM takes each position's block of ``image_embeds``."""
+        cfg = self.cfg
+        top, stacks = self.split(local)
         T = tokens[0].shape[1]
         x = self.embed(top, tokens)
         pos = [torch.arange(T, dtype=torch.int32, device=d) for d in self.devices]
         aux = [torch.zeros((), dtype=torch.float32, device=d) for d in self.devices]
-        for i in range(self.cfg.n_layers):
-            if self.cfg.remat:
-                x, a = remat(self.layer, i, layers, x, pos)
-            else:
-                x, a = self.layer(i, layers, x, pos)
+
+        def add(a):
             if a is not None:
-                aux = [s + ai for s, ai in zip(aux, a)]
+                aux[:] = [s + ai for s, ai in zip(aux, a)]
+
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = self.scanned(self.rwkv_layer, i, stacks, x)
+        elif cfg.family == "hybrid":
+            k = cfg.hybrid_attn_every
+            for g in range(cfg.n_layers // k):
+                for i in range(g * k, (g + 1) * k):
+                    x = self.scanned(self.mamba_layer, i, stacks, x)
+                x, a = self.layer(None, stacks, x, pos, "shared_attn")
+                add(a)
+        elif cfg.family == "vlm":
+            if image_embeds is None:
+                raise ValueError(f"{cfg.name}: the vlm family's forward needs image_embeds")
+            ctx = [e.to(self.dtype) for e in image_embeds]
+            n_cross, _, per_block = tf.vlm_layout(cfg)
+            for g in range(n_cross):
+                for i in range(g * per_block, (g + 1) * per_block):
+                    x, a = self.scanned(self.layer, i, stacks, x, pos)
+                    add(a)
+                x = self.cross_layer(g, stacks, x, ctx)
+        else:
+            for i in range(cfg.n_layers):
+                x, a = self.scanned(self.layer, i, stacks, x, pos)
+                add(a)
         return self.head(top, x), aux
 
     def gather_logits(self, logits: list) -> torch.Tensor:
@@ -424,8 +786,8 @@ class Lockstep:
 
     def cache_layout(self, kv) -> tuple:
         """(the axes that cut the kv heads, each position's block of slots
-        where the sequence is cut, else None) of a placed ``kv`` stack: a
-        KV tuple of (L, B, S, Hkv, hd) leaves or a ``MacState``."""
+        where the sequence is cut, else None) of a placed attention cache
+        stack: a KV tuple of (L, B, S, Hkv, hd) leaves or a ``MacState``."""
         first = kv[0]
         axes = first.sharding.dim_axes(len(first.shape))
         mac_state = isinstance(kv, tf.mac.MacState)
@@ -435,35 +797,90 @@ class Lockstep:
                 raise NotImplementedError(
                     f"no sharded decode cuts the cache's {what} dim over {ax}"
                 )
+        self.check_batch(first)
+        if not seq:
+            return heads, None
+        return heads, [first.sharding.index(first.shape, p)[2] for p in range(self.n)]
+
+    def check_batch(self, leaf) -> None:
+        """A cache leaf's batch dim (its second) cut as the batch is, and
+        any other cut over the tensor-parallel axis."""
+        axes = leaf.sharding.dim_axes(len(leaf.shape))
         if tuple(axes[1]) != self.batch_axes:
             raise ValueError(
                 f"the cache's batch dim is cut over {axes[1]}, "
                 f"the batch over {self.batch_axes}"
             )
-        if not seq:
-            return heads, None
-        return heads, [first.sharding.index(first.shape, p)[2] for p in range(self.n)]
+        for dim, ax in enumerate(axes):
+            if dim != 1 and ax and ax != (self.tp,):
+                raise NotImplementedError(f"no sharded decode cuts a cache's dim {dim} over {ax}")
+
+    def cache_layouts(self, cache: dict) -> dict:
+        """``cache_layout`` of each attention stack of a placed cache; its
+        recurrent states checked by ``check_batch``, and of Mamba2's ssm
+        state, each position's slice of the heads it holds. (The conv
+        carry's channels are cut as the conv weight's: both "ffn".)"""
+        out = {}
+        for key, value in cache.items():
+            if key in ("kv", "attn", "self", "cross"):
+                out[key] = self.cache_layout(value)
+                continue
+            self.check_batch(value)
+            if key == "ssm":
+                out[key] = [value.sharding.index(value.shape, p)[2] for p in range(self.n)]
+        return out
 
     def decode(
-        self, local: list[dict], tokens: list, pos: int, cache: list, layout: tuple
+        self,
+        local: list[dict],
+        tokens: list,
+        pos: int,
+        cache: list,
+        layouts: dict,
     ) -> list:
-        """``transformer.decode`` over the mesh (dense and MoE stacks):
-        logits a position. ``cache``: each position's blocks of the kv stack
-        (written in place), laid out as ``cache_layout`` says."""
-        top, layers = self.split(local)
+        """``transformer.decode`` over the mesh: logits a position.
+        ``cache``: each position's blocks of the cache tree (written in
+        place), its attention stacks laid out as ``layouts`` says."""
+        cfg = self.cfg
+        top, stacks = self.split(local)
         x = self.embed(top, tokens)
-        for i in range(self.cfg.n_layers):
-            lp = self.layer_params(layers, i)
-            h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
-            a = self.attention_decode(lp, h, pos, cache, layout, i)
-            x = [xi + ai for xi, ai in zip(x, a)]
-            h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
-            y, _ = self.ffn(lp, h, want_aux=False)
-            x = [xi + yi for xi, yi in zip(x, y)]
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = self.rwkv_decode(i, stacks, x, cache)
+        elif cfg.family == "hybrid":
+            k = cfg.hybrid_attn_every
+            attn = [c["attn"] for c in cache]
+            for g in range(cfg.n_layers // k):
+                for i in range(g * k, (g + 1) * k):
+                    x = self.mamba_decode(i, stacks, x, cache, layouts)
+                x = self.block_decode("shared_attn", None, stacks, x, pos, attn, layouts["attn"], g)
+        elif cfg.family == "vlm":
+            n_cross, _, per_block = tf.vlm_layout(cfg)
+            own = [c["self"] for c in cache]
+            cross = [c["cross"] for c in cache]
+            for g in range(n_cross):
+                for i in range(g * per_block, (g + 1) * per_block):
+                    x = self.block_decode("layers", i, stacks, x, pos, own, layouts["self"], i)
+                x = self.cross_decode(g, stacks, x, cross, layouts["cross"])
+        else:
+            kv = [c["kv"] for c in cache]
+            for i in range(cfg.n_layers):
+                x = self.block_decode("layers", i, stacks, x, pos, kv, layouts["kv"], i)
         return self.head(top, x)
 
+    def block_decode(self, prefix, i, stacks, x, pos, kv, layout, slot) -> list:
+        """One token through dense block ``i`` of ``prefix``, its attention
+        through slot ``slot`` of the ``kv`` stacks."""
+        lp = self.block_params(stacks, prefix, i)
+        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        a = self.attention_decode(lp, h, pos, kv, layout, slot, prefix)
+        x = [xi + ai for xi, ai in zip(x, a)]
+        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        y, _ = self.ffn(lp, h, want_aux=False, prefix=prefix)
+        return [xi + yi for xi, yi in zip(x, y)]
+
     def attention_decode(
-        self, lp, h, pos: int, cache: list, layout: tuple, i: int
+        self, lp, h, pos: int, cache: list, layout: tuple, i: int, prefix: str = "layers"
     ) -> list:
         """One token's self-attention through the cache. Where the cache's
         kv heads are cut over the tensor-parallel axis (or there is none),
@@ -483,56 +900,104 @@ class Lockstep:
                 tf._store(cache[p], i, new)
                 out.append(o)
             return self.tp_reduce(out) if heads_ax else out
-        if cfg.attention_backend == "maclaurin" or len(layer_cache[0]) != 2:
-            raise NotImplementedError(
-                f"{cfg.name}: a cache whose kv heads do not divide the model axis "
-                "is only sharded for the softmax backend's bf16/f32 KV cache"
-            )
+        self.refuse_gathered(layer_cache)
         cols = [qkv_columns(lp[p]["attn"], h[p]) for p in range(self.n)]
-        q_ax = self.cuts[("layers", "attn", "w_q")].axes[1]
-        kv_ax = self.cuts[("layers", "attn", "w_k")].axes[1]
+        q_ax = self.cuts[(prefix, "attn", "w_q")].axes[1]
+        kv_ax = self.cuts[(prefix, "attn", "w_k")].axes[1]
         full = []
         for j, ax in enumerate((q_ax, kv_ax, kv_ax)):
             xs = [c[j] for c in cols]
             if ax:
-                xs = self.over(self.tp_groups, xs, lambda m: coll.all_gather(m, -1))
+                xs = self.gather_tp(xs, -1)
             full.append(xs)
-        out = self.attend_gathered(full, pos, layer_cache, seq_blocks)
-        o_ax = self.cuts[("layers", "attn", "w_o")].axes[0]
+        q, kv = [], []
+        for p in range(self.n):
+            B = full[0][p].shape[0]
+            positions = torch.full((B, 1), pos, dtype=torch.int32, device=self.devices[p])
+            qkv = (full[0][p], full[1][p], full[2][p])
+            qh, kh, vh = split_heads(
+                *qkv, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta
+            )
+            q.append(qh)
+            kv.append((kh, vh))
+        out = self.attend_gathered(q, layer_cache, seq_blocks, pos, kv)
+        return self.rows_out(out, lp, (prefix, "attn"))
+
+    def refuse_gathered(self, layer_cache) -> None:
+        if self.cfg.attention_backend == "maclaurin" or len(layer_cache[0]) != 2:
+            raise NotImplementedError(
+                f"{self.cfg.name}: a cache whose kv heads do not divide the model axis "
+                "is only sharded for the softmax backend's bf16/f32 KV cache"
+            )
+
+    def rows_out(self, out: list, lp: list[dict], key: tuple) -> list:
+        """Each member's rows of the whole attention output through its
+        ``w_o`` block, the partial sums reduced where ``w_o`` is row-cut."""
         res = []
         for p in range(self.n):
-            rows = self.block(("layers", "attn", "w_o"), p, 0)
-            res.append(out[p][..., rows] @ lp[p]["attn"]["w_o"])
-        return self.tp_reduce(res) if o_ax else res
+            rows = self.block(key + ("w_o",), p, 0)
+            res.append(out[p][..., rows] @ lp[p][key[-1]]["w_o"])
+        return self.tp_reduce(res) if self.cuts[key + ("w_o",)].axes[0] else res
 
-    def attend_gathered(self, full, pos: int, layer_cache, seq_blocks) -> list:
-        """Each member's whole q, k, v -> its (B, 1, Hq hd) attention output.
-        A replicated cache: the slot written and read whole on each member.
-        A sequence-cut cache: the slot's owner writes it, each member its
-        scores over its slots, and one combine over the group (the max,
-        then the sums of exponentials and of weighted values)."""
+    def cross_decode(self, g: int, stacks, x: list, cross: list, layout: tuple) -> list:
+        """One token through cross block ``g``, reading the cached image
+        K/V (or their ``MacState``) at slot ``g``."""
+        cfg = self.cfg
+        lp = self.block_params(stacks, "cross_layers", g)
+        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        layer = [tf._layer_cache(c, g) for c in cross]
+        heads_ax, seq_blocks = layout
+        if not self.tp or heads_ax:
+            local = self.heads_cfg(self.tp_parts(heads_ax))
+            a = [
+                tf._cross_attn_decode(local, lp[p]["xattn"], h[p], layer[p])
+                for p in range(self.n)
+            ]
+            a = self.tp_reduce(a) if heads_ax else a
+        else:
+            self.refuse_gathered(layer)
+            q = [h[p] @ lp[p]["xattn"]["w_q"] for p in range(self.n)]
+            if self.cuts[("cross_layers", "xattn", "w_q")].axes[1]:
+                q = self.gather_tp(q, -1)
+            B = q[0].shape[0]
+            q = [qi.reshape(B, 1, cfg.n_heads, cfg.hd) for qi in q]
+            out = self.attend_gathered(q, layer, seq_blocks, None, None)
+            a = self.rows_out(out, lp, ("cross_layers", "xattn"))
+        x = [xi + ai for xi, ai in zip(x, a)]
+        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        y, _ = self.ffn(lp, h, want_aux=False, prefix="cross_layers")
+        return [xi + yi for xi, yi in zip(x, y)]
+
+    def attend_gathered(self, q: list, layer_cache, seq_blocks, pos, kv) -> list:
+        """Each member's whole query (B, 1, Hq, hd) -> its (B, 1, Hq hd)
+        attention output over its cache blocks. ``kv``: each member's whole
+        new (k, v) heads, written at slot ``pos`` and read causally; None
+        for the image context (no write, no mask). A replicated cache: the
+        slot written and read whole on each member. A sequence-cut cache:
+        the slot's owner writes it, each member its scores over its slots,
+        and one combine over the group (the max, then the sums of
+        exponentials and of weighted values)."""
         cfg = self.cfg
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         f32 = torch.float32
         heads, scores, tops = [], [], []
         for p in range(self.n):
-            B = full[0][p].shape[0]
-            dev = self.devices[p]
-            positions = torch.full((B, 1), pos, dtype=torch.int32, device=dev)
-            qkv = (full[0][p], full[1][p], full[2][p])
-            q, k, v = split_heads(*qkv, Hq, Hkv, hd, positions, cfg.rope_theta)
+            B = q[p].shape[0]
             ck, cv = layer_cache[p]
             if seq_blocks is None:
-                write_slot(ck, cv, k, v, pos)
-                heads.append(decode_attend(q, ck, cv, pos, Hq, hd))
+                if kv is not None:
+                    write_slot(ck, cv, *kv[p], pos)
+                last = pos if kv is not None else ck.shape[1] - 1
+                heads.append(decode_attend(q[p], ck, cv, last, Hq, hd))
                 continue
             sl = seq_blocks[p]
-            if sl.start <= pos < sl.stop:
-                write_slot(ck, cv, k, v, pos - sl.start)
-            qh = q.reshape(B, 1, Hkv, Hq // Hkv, hd).to(f32)
+            if kv is not None and sl.start <= pos < sl.stop:
+                write_slot(ck, cv, *kv[p], pos - sl.start)
+            qh = q[p].reshape(B, 1, Hkv, Hq // Hkv, hd).to(f32)
             u = torch.einsum("bthgd,bshd->bhgts", qh, ck.to(f32)) * (1.0 / hd**0.5)
-            slots = sl.start + torch.arange(ck.shape[1], device=u.device)
-            u = u.masked_fill(slots > pos, -torch.inf)
+            if kv is not None:
+                slots = sl.start + torch.arange(ck.shape[1], device=u.device)
+                u = u.masked_fill(slots > pos, -torch.inf)
             scores.append(u)
             tops.append(torch.amax(u, dim=-1, keepdim=True))
         if seq_blocks is None:

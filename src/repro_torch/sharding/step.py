@@ -4,20 +4,30 @@ The counterparts of ``train.train_step.make_train_step`` and
 ``serve.decode_step.make_prefill_step``/``make_serve_step`` for the
 reference's sharded cells (``launch.specs.build_cell``): the same
 signatures, on placed trees (``partitioning.Sharded`` leaves) instead of
-one device's tensors. The batch inputs may come placed by the batch
-sharding or whole (they are then placed by it). Each step runs through
+one device's tensors; a VLM's steps take ``image_embeds`` as the
+reference's do. The batch inputs may come placed by the batch sharding or
+whole (they are then placed by it). Each step runs through
 ``spmd.Lockstep``.
 
 The train step: ``loss = xent + aux_weight * aux`` over the mesh, one
 autograd graph, then each parameter block's gradient summed over the
 positions that hold a replica of it (in position order, on the first
-one's device, copied to each), the global norm over the distinct blocks
-of every leaf (never over their replicas), the clip, the cosine schedule
-and ``optimizer.adamw_update`` on each distinct block, the result copied
-to its replicas. The parameters and the optimizer state are updated in
-place and returned (the reference's cell donates both): they keep their
-shardings, replicas bit for bit equal. Microbatches, compressed gradients
-and Adafactor raise ``NotImplementedError``.
+one's device). With ``microbatches`` n > 1, microbatch i is the global
+rows [i GB/n, (i+1) GB/n) placed by the batch sharding (as GSPMD would
+reshard the reference's slice), each block's gradient summed over the
+microbatches and divided by n, the loss their mean, the other metrics the
+last one's. Then, in the reference's order: the int8 error-feedback
+compression (``compress_grads``; the per-tensor scale the max over a
+leaf's distinct blocks), the global norm over the distinct blocks of
+every leaf (never over their replicas), the clip, the cosine schedule and
+the update: AdamW on each distinct block; Adafactor with its row and
+column means, the mean of ``vr`` and the RMS update clip each reduced
+over the whole leaf (the partial sums of the blocks that cut a dim added
+in position order, then divided by the global count), ``vr``/``vc``
+updated whole and written into their own placement. Each result is
+copied to the block's replicas. The parameters and the optimizer state
+are updated in place and returned (the reference's cell donates both):
+they keep their shardings, replicas bit for bit equal.
 
 The prefill step returns the whole logits on the mesh's first device. The
 decode step writes each position's blocks of the cache in place and
@@ -26,6 +36,7 @@ returns the whole logits and the cache.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -35,6 +46,7 @@ from repro_torch.launch.mesh import Mesh
 from repro_torch.sharding import collectives as coll
 from repro_torch.sharding import spmd
 from repro_torch.sharding.partitioning import AxisRules, Sharded, device_put, map_tree
+from repro_torch.train import compression
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import OptimizerConfig
 
@@ -61,59 +73,149 @@ def _locals(ctx: spmd.Lockstep, leaves: dict, grad: bool) -> list[dict]:
     return [{path: own(s, p) for path, s in leaves.items()} for p in range(ctx.n)]
 
 
-def refuse(ocfg: OptimizerConfig) -> None:
-    """Raise for the options this sharded step does not carry out."""
-    if ocfg.name != "adamw":
-        raise NotImplementedError(f"the sharded train step runs AdamW, not {ocfg.name}")
-    if ocfg.microbatches > 1:
-        raise NotImplementedError("the sharded train step takes no microbatches")
-    if ocfg.compress_grads:
-        raise NotImplementedError("the sharded train step does not compress gradients")
+def _images(ctx: spmd.Lockstep, x) -> list | None:
+    return None if x is None else _place(ctx, x)
+
+
+def _microbatches(batch: dict, n: int) -> list[dict]:
+    """The batch as n microbatches of consecutive global rows, whole."""
+    if n == 1:
+        return [batch]
+    whole = {k: v.gather() if isinstance(v, Sharded) else v for k, v in batch.items()}
+    rows = whole["tokens"].shape[0] // n
+    return [{k: v[i * rows : (i + 1) * rows] for k, v in whole.items()} for i in range(n)]
+
+
+def _block_grads(cfg, mesh, rules, ocfg, params, leaves, paths, groups, batch):
+    """One (micro)batch's loss over the mesh and each distinct block's
+    gradient (summed over its replicas, on its first position's device):
+    (loss, xent, aux, {path: [a gradient a replica group]})."""
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    ctx = spmd.Lockstep(cfg, mesh, rules, params, B)
+    local = _locals(ctx, leaves, grad=True)
+    with torch.enable_grad():
+        images = _images(ctx, batch.get("image_embeds"))
+        logits, aux = ctx.forward(local, _place(ctx, tokens), images)
+        sums = ctx.xent_sums(logits, _place(ctx, batch["labels"]))
+        del logits
+        xent = coll.sum_in_order([sums[r] for r in ctx.reps]) / (B * T)
+        loss = xent + ocfg.aux_loss_weight * aux[0].to(xent.device)
+        wrt = [local[p][path] for path in paths for p in range(ctx.n)]
+        got = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
+    del local, wrt
+    n = ctx.n
+    blocks = {}
+    for i, path in enumerate(paths):
+        per = got[i * n : (i + 1) * n]
+        blocks[path] = [coll.sum_in_order([per[p] for p in g]) for g in groups[path]]
+    del got
+    aux0 = aux[0].detach().to(ctx.devices[0])
+    return loss.detach(), xent.detach(), aux0, blocks
+
+
+def _write(target: Sharded, group: list[int], value) -> None:
+    for p in group:  # computed once, copied to each replica
+        target.local(p).copy_(value)
+
+
+def _compress(leaf: Sharded, blocks: list, groups: list, ef: Sharded) -> list:
+    """The int8 round trip of one leaf's gradient blocks with error
+    feedback: the scale is the whole leaf's (the max over its distinct
+    blocks); ``ef`` (placed as the leaf) is written in place."""
+    g32 = [g.to(torch.float32) + ef.local(grp[0]) for g, grp in zip(blocks, groups)]
+    peak = coll.all_max([torch.amax(torch.abs(x)) for x in g32])
+    out = []
+    for x, grp, top in zip(g32, groups, peak):
+        scale = compression.q8_scale(top)
+        deq = compression.q8_codes(x, scale).to(torch.float32) * scale
+        _write(ef, grp, x - deq)
+        out.append(deq)
+    return out
+
+
+def _scatter(target: Sharded, whole: torch.Tensor) -> None:
+    """Each shard of ``target`` set to its block of ``whole``."""
+    for p, shard in enumerate(target.shards):
+        shard.copy_(whole[target.sharding.index(target.shape, p)])
+
+
+def _adafactor(leaf: Sharded, blocks: list, groups: list, state: dict, lr, wd: float):
+    """``optimizer.adafactor_update`` of one placed leaf from its clipped
+    gradient blocks: its reductions over the whole leaf, the state written
+    in place."""
+    b2, eps, clip = opt.ADAFACTOR_B2, opt.ADAFACTOR_EPS, opt.ADAFACTOR_CLIP
+    f32 = torch.float32
+    shape = leaf.shape
+    dev0 = leaf.sharding.mesh.devices[0]
+    index = [leaf.sharding.index(shape, grp[0]) for grp in groups]
+    g32 = [g.to(f32) for g in blocks]
+    if len(shape) >= 2:
+        row = torch.zeros(shape[:-1], dtype=f32, device=dev0)
+        col = torch.zeros(shape[:-2] + shape[-1:], dtype=f32, device=dev0)
+        for g, idx in zip(g32, index):  # each block's partial sums, in order
+            g2 = g * g + eps
+            row[idx[:-1]] += torch.sum(g2, dim=-1).to(dev0)
+            col[idx[:-2] + idx[-1:]] += torch.sum(g2, dim=-2).to(dev0)
+        vr = b2 * state["vr"].gather() + (1 - b2) * (row / shape[-1])
+        vc = b2 * state["vc"].gather() + (1 - b2) * (col / shape[-2])
+        denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+        _scatter(state["vr"], vr)
+        _scatter(state["vc"], vc)
+        u = []
+        for g, idx in zip(g32, index):
+            r = vr[idx[:-1]][..., None]
+            c = vc[idx[:-2] + idx[-1:]][..., None, :]
+            vhat = (r * c / denom[idx[:-2]][..., None]).to(g.device)
+            u.append(g * torch.rsqrt(vhat + eps))
+    else:
+        u = []
+        for g, grp in zip(g32, groups):
+            v = b2 * state["v"].local(grp[0]) + (1 - b2) * (g * g + eps)
+            _write(state["v"], grp, v)
+            u.append(g * torch.rsqrt(v + eps))
+    squares = coll.sum_in_order([torch.sum(x * x).to(dev0) for x in u])
+    rms = torch.sqrt(squares / math.prod(shape) + eps)  # the update clip
+    denom = torch.clamp(rms / clip, min=1.0)
+    for x, grp in zip(u, groups):
+        p32 = leaf.local(grp[0]).to(f32)
+        new = p32 - lr.to(x.device) * (x / denom.to(x.device) + wd * p32)
+        _write(leaf, grp, new.to(leaf.dtype))
 
 
 def make_train_step(
     cfg: ModelConfig, ocfg: OptimizerConfig, mesh: Mesh, rules: AxisRules
 ) -> Callable:
     """(params, opt_state, batch, step) -> (params, opt_state, metrics),
-    every tree of ``Sharded``; ``opt_state`` is ``{"m", "v", "count"}``
-    placed by the reference's ``_opt_spec_tree`` (``launch.specs``)."""
+    every tree of ``Sharded``; ``opt_state`` is AdamW's ``{"m", "v",
+    "count"}`` or Adafactor's ``{"v", "count"}`` (with ``"ef"`` when
+    ``compress_grads``), placed by the reference's ``_opt_spec_tree``
+    (``launch.specs``)."""
     spmd.check_supported(cfg, mesh, rules)
-    refuse(ocfg)
+    n_micro = ocfg.microbatches
 
     def train_step(params, opt_state, batch, step):
-        tokens = batch["tokens"]
-        B, T = tokens.shape
-        ctx = spmd.Lockstep(cfg, mesh, rules, params, B)
         leaves = spmd.flat(params)
         paths = sorted(leaves)
-        local = _locals(ctx, leaves, grad=True)
-        with torch.enable_grad():
-            logits, aux = ctx.forward(local, _place(ctx, tokens))
-            sums = ctx.xent_sums(logits, _place(ctx, batch["labels"]))
-            del logits
-            xent = coll.sum_in_order([sums[r] for r in ctx.reps]) / (B * T)
-            loss = xent + ocfg.aux_loss_weight * aux[0].to(xent.device)
-            wrt = [local[p][path] for path in paths for p in range(ctx.n)]
-            got = torch.autograd.grad(
-                loss, wrt, allow_unused=True, materialize_grads=True
-            )
-        del local, wrt
-        n = ctx.n
-        grads = {path: list(got[i * n : (i + 1) * n]) for i, path in enumerate(paths)}
-        del got
         groups = {path: leaves[path].replica_groups() for path in paths}
-        for path in paths:  # each block's gradient: the sum over its replicas
-            for g in groups[path]:
-                if len(g) > 1:
-                    total = coll.sum_in_order([grads[path][p] for p in g])
-                    for p in g:
-                        grads[path][p] = total.to(ctx.devices[p], copy=True)
-        dev0 = ctx.devices[0]
-        squares = [
-            opt.square_sum(grads[path][g[0]]).to(dev0)
-            for path in paths
-            for g in groups[path]
-        ]
+        acc, loss = None, 0.0
+        for mb in _microbatches(batch, n_micro):
+            args = (cfg, mesh, rules, ocfg, params, leaves, paths, groups, mb)
+            l, xent, aux0, grads = _block_grads(*args)
+            if acc is None:
+                acc = grads
+            else:
+                acc = {k: [a + g for a, g in zip(acc[k], grads[k])] for k in paths}
+            loss = loss + l / n_micro if n_micro > 1 else l
+            del grads
+        grads = acc if n_micro == 1 else {k: [g / n_micro for g in v] for k, v in acc.items()}
+        del acc
+        if ocfg.compress_grads:
+            ef = spmd.flat(opt_state["ef"])
+            for path in paths:
+                grads[path] = _compress(leaves[path], grads[path], groups[path], ef[path])
+        dev0 = mesh.devices[0]
+        squares = [opt.square_sum(g).to(dev0) for path in paths for g in grads[path]]
         gnorm = torch.sqrt(coll.sum_in_order(squares))
         scale = opt.clip_scale(gnorm, ocfg.clip_norm)
         lr = opt.cosine_schedule(
@@ -122,66 +224,69 @@ def make_train_step(
             warmup=ocfg.warmup,
             total=ocfg.total_steps,
         )
-        m_in, v_in = spmd.flat(opt_state["m"]), spmd.flat(opt_state["v"])
         for path in paths:
-            targets = (leaves[path], m_in[path], v_in[path])
-            for g in groups[path]:
-                p0 = g[0]
-                gr = grads[path][p0]
-                gr = (gr * scale.to(gr.device)).to(gr.dtype)
-                state = {
-                    "m": {"x": m_in[path].local(p0)},
-                    "v": {"x": v_in[path].local(p0)},
-                    "count": opt_state["count"].local(p0),
-                }
-                upd, st = opt.adamw_update(
-                    {"x": leaves[path].local(p0)}, {"x": gr}, state, lr,
-                    weight_decay=ocfg.weight_decay,
-                )
-                done = (upd["x"], st["m"]["x"], st["v"]["x"])
-                for target, value in zip(targets, done):
-                    for p in g:  # computed once, copied to each replica
-                        target.local(p).copy_(value)
+            clipped = [(g * scale.to(g.device)).to(g.dtype) for g in grads[path]]
+            if ocfg.name == "adafactor":
+                state = {k[-1]: v for k, v in spmd.flat(opt_state["v"]).items() if k[:-1] == path}
+                _adafactor(leaves[path], clipped, groups[path], state, lr, ocfg.weight_decay)
+            else:
+                _adamw(leaves[path], clipped, groups[path], opt_state, path, lr, ocfg)
             del grads[path]
         for c in opt_state["count"].shards:
             c.add_(1)
-        aux0 = aux[0].detach().to(dev0)
-        metrics = dict(
-            xent=xent.detach(), aux=aux0, loss=loss.detach(), grad_norm=gnorm, lr=lr
-        )
+        metrics = dict(xent=xent, aux=aux0, loss=loss, grad_norm=gnorm, lr=lr)
         return params, opt_state, metrics
 
     return train_step
 
 
+def _adamw(leaf: Sharded, blocks: list, groups: list, opt_state, path, lr, ocfg) -> None:
+    """``optimizer.adamw_update`` on each distinct block of one leaf."""
+    m_in, v_in = spmd.flat(opt_state["m"])[path], spmd.flat(opt_state["v"])[path]
+    for gr, g in zip(blocks, groups):
+        p0 = g[0]
+        state = {
+            "m": {"x": m_in.local(p0)},
+            "v": {"x": v_in.local(p0)},
+            "count": opt_state["count"].local(p0),
+        }
+        upd, st = opt.adamw_update(
+            {"x": leaf.local(p0)}, {"x": gr}, state, lr, weight_decay=ocfg.weight_decay
+        )
+        for target, value in zip((leaf, m_in, v_in), (upd["x"], st["m"]["x"], st["v"]["x"])):
+            _write(target, g, value)
+
+
 def make_prefill_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
-    """(params, tokens (GB, T)) -> the whole logits (GB, T, V)."""
+    """(params, tokens (GB, T)[, image_embeds (GB, N, d)]) -> the whole
+    logits (GB, T, V)."""
     spmd.check_supported(cfg, mesh, rules)
 
     @torch.inference_mode()
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, image_embeds=None):
         ctx = spmd.Lockstep(cfg, mesh, rules, params, tokens.shape[0])
         local = _locals(ctx, spmd.flat(params), grad=False)
-        logits, _ = ctx.forward(local, _place(ctx, tokens))
+        logits, _ = ctx.forward(local, _place(ctx, tokens), _images(ctx, image_embeds))
         return ctx.gather_logits(logits)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
-    """(params, tokens (GB, 1), pos, cache) -> (the whole logits (GB, 1, V),
-    cache): ``cache`` is ``init_cache``'s tree placed by the cell's cache
-    shardings, its blocks written in place."""
+    """(params, tokens (GB, 1), pos, cache[, image_embeds]) -> (the whole
+    logits (GB, 1, V), cache): ``cache`` is ``init_cache``'s tree placed by
+    the cell's cache shardings, its blocks written in place. A VLM takes
+    ``image_embeds`` and reads its image context from the cache, as the
+    reference does."""
     spmd.check_supported(cfg, mesh, rules)
 
     @torch.inference_mode()
-    def serve_step(params, tokens, pos, cache):
+    def serve_step(params, tokens, pos, cache, image_embeds=None):
         ctx = spmd.Lockstep(cfg, mesh, rules, params, tokens.shape[0])
         local = _locals(ctx, spmd.flat(params), grad=False)
-        kv = cache["kv"]
-        layout = ctx.cache_layout(kv)
-        blocks = [map_tree(lambda s, p=p: s.local(p), kv) for p in range(ctx.n)]
-        logits = ctx.decode(local, _place(ctx, tokens), _scalar(pos), blocks, layout)
+        layouts = ctx.cache_layouts(cache)
+        blocks = [map_tree(lambda s, p=p: s.local(p), cache) for p in range(ctx.n)]
+        logits = ctx.decode(local, _place(ctx, tokens), _scalar(pos), blocks, layouts)
         return ctx.gather_logits(logits), cache
 
     return serve_step

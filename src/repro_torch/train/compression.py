@@ -25,9 +25,19 @@ def init_error_feedback(params):
 def _q8(x):
     """(int8 codes, f32 scale): scale max|x| / 127 (at least 1e-12 / 127),
     round half to even as ``jnp.round``, clipped to +-127."""
-    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
-    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
-    return q, scale
+    scale = q8_scale(torch.max(torch.abs(x)))
+    return q8_codes(x, scale), scale
+
+
+def q8_scale(peak):
+    """The per-tensor scale of a tensor whose max|x| is ``peak``."""
+    return torch.clamp(peak, min=1e-12) / 127.0
+
+
+def q8_codes(x, scale):
+    """``x``'s int8 codes at ``scale`` (a whole tensor's, where ``x`` is one
+    block of it)."""
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
 
 
 @torch.no_grad()

@@ -117,8 +117,21 @@ def adafactor_init(params):
     return {"v": tree_map(init, params), "count": _count(params)}
 
 
+ADAFACTOR_B2, ADAFACTOR_EPS, ADAFACTOR_CLIP = 0.999, 1e-30, 1.0
+
+
 @torch.no_grad()
-def adafactor_update(params, grads, state, lr, *, b2=0.999, eps=1e-30, weight_decay=0.0, clip=1.0):
+def adafactor_update(
+    params,
+    grads,
+    state,
+    lr,
+    *,
+    b2=ADAFACTOR_B2,
+    eps=ADAFACTOR_EPS,
+    weight_decay=0.0,
+    clip=ADAFACTOR_CLIP,
+):
     """One Adafactor step: factored second moments over the last two axes
     (a full one for vectors), Adafactor's RMS update clip over each leaf.
     Returns (new params, new state)."""

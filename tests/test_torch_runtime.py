@@ -274,6 +274,33 @@ def test_runtime_eviction_retires_idle_batcher():
         np.testing.assert_allclose(rt.predict("m0", Z)[0], v0, rtol=1e-6, atol=1e-6)
 
 
+def test_served_request_counted_before_its_answer():
+    """A flush and its requests are counted, and their spans emitted,
+    before any of its futures resolves, so whatever reads the metrics
+    (the HTTP front door's ``/metrics``) or the tracer's conservation after
+    its answer finds the request there. The callbacks run on the flush
+    thread at the moment each future resolves (a lone request waits its
+    50 ms deadline, so each is attached before)."""
+    with Runtime(max_wait_us=50_000, warmup_on_load=False, engine_opts=ENGINE_OPTS) as rt:
+        digest = rt.publish("m", maclaurin.compile(_svm(3)))
+        tel = rt.telemetry("m")
+        tracer = rt.obs.tracer
+        Z = np.random.default_rng(14).standard_normal((2, 8)).astype(np.float32)
+        seen = []
+
+        def read(_):
+            seen.append((tel.snapshot(), tracer.conservation(digest[:12])))
+
+        for _ in range(3):
+            fut = rt.submit("m", Z)
+            fut.add_done_callback(read)
+            fut.result()
+        assert [s["served_requests"] for s, _ in seen] == [1, 2, 3]
+        assert [s["flushes"] for s, _ in seen] == [1, 2, 3]
+        assert [c["served"] for _, c in seen] == [1, 2, 3]
+        assert all(c["unaccounted"] == 0 for _, c in seen)
+
+
 def test_runtime_warmup_without_warmup_on_load():
     with Runtime(warmup_on_load=False, engine_opts=ENGINE_OPTS) as rt:
         rt.publish("m", maclaurin.compile(_svm(4)))

@@ -297,41 +297,11 @@ def test_moe_aux_loss_is_the_global_one():
 # --------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize(
-    "name", ["rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-90b", "musicgen-medium"]
-)
-def test_families_without_a_sharded_step_raise(name):
-    cfg = ARCHS[name].reduced()
-    mesh = _mesh()
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        specs.build_cell(cfg, ShapeConfig("t", T, B, "train"), mesh, part.DEFAULT_RULES)
-    for make in (sharded.make_prefill_step, sharded.make_serve_step):
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            make(cfg, mesh, part.TP_ONLY_RULES)
-
-
 @pytest.mark.parametrize("rules", ["SP_RULES", "EP_DP_RULES"])
 def test_rule_sets_without_a_sharded_step_raise(rules):
     cfg = ARCHS["qwen3-moe-30b-a3b"].reduced()
     with pytest.raises(NotImplementedError, match="rules"):
         specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), _mesh(), getattr(part, rules))
-
-
-@pytest.mark.parametrize(
-    "ocfg",
-    [
-        OptimizerConfig(name="adafactor"),
-        OptimizerConfig(microbatches=2),
-        OptimizerConfig(compress_grads=True),
-    ],
-    ids=["adafactor", "microbatches", "compress_grads"],
-)
-def test_optimizer_options_without_a_sharded_step_raise(ocfg):
-    cfg = ARCHS["smollm-135m"].reduced()
-    with pytest.raises(NotImplementedError):
-        specs.build_cell(cfg, ShapeConfig("t", T, B, "train"), _mesh(), part.DP_ONLY_RULES, ocfg)
-    with pytest.raises(NotImplementedError):
-        sharded.make_train_step(cfg, ocfg, _mesh(), part.DP_ONLY_RULES)
 
 
 def test_other_meshes_and_caches_raise():

@@ -1,6 +1,8 @@
-"""The rule-sharded LM steps over distinct cards: path 11 of
-``chip_smoke.py`` on a (data, model) mesh of (2, n/2) cards, and one
-full-width arctic-480b layer with its experts spread over four cards.
+"""The rule-sharded LM steps over distinct cards: paths 11 and 12 of
+``chip_smoke.py`` on a (data, model) mesh of (2, n/2) cards (the dense
+and MoE models; rwkv6, zamba2, llama-vision and musicgen at a cut depth;
+Adafactor, microbatches and compressed gradients), and one full-width
+arctic-480b layer with its experts spread over four cards.
 
 Marked ``cuda``; each test skips inside its body unless the cards it needs
 are present (two, or four for arctic; one card repeated as the mesh's
@@ -16,7 +18,10 @@ another expert), loss within 1e-5, the gradient norm within 1e-4 and the
 updated parameters within 1e-6 + 1e-5 |p| but where the gradient's
 running RMS (AdamW's bias-corrected sqrt(v)) is below TINY_GRAD, and each
 within two learning rates (an AdamW step at a gradient near 0 moves by
-lr times its relative rounding; path 11 states the same limits).
+lr times its relative rounding; path 11 states the same limits). Under
+Adafactor and compressed gradients (whose int8 code of an element may
+flip at a rounding tie) at most OFF_SHARE of the parameters may lie
+beyond 1e-6 + 1e-5 |p|.
 Arctic's one layer (13.4 B expert parameters, 53.5 GB at f32, 26.8 GB as
 the cell's bf16) fits no one card, so its prefill is held against the
 same prefill on the CPU, blockwise.
@@ -50,6 +55,13 @@ pytestmark = pytest.mark.cuda
 
 REL, SHARE = 1e-4, 0.999
 RTOL, ATOL, NORM_RTOL, TINY_GRAD = 1e-5, 1e-6, 1e-4, 1e-5
+OFF_SHARE = 1e-4
+FAMILY_DEPTH = {  # layers: two RWKV6 blocks, one zamba2 group, one superblock
+    "rwkv6-7b": 2,
+    "zamba2-2.7b": 6,
+    "llama-3.2-vision-90b": 5,
+    "musicgen-medium": 4,
+}
 OCFG = OptimizerConfig(warmup=2, total_steps=10)
 
 
@@ -209,3 +221,111 @@ def test_arctic_layer_with_experts_over_four_cards():
     blockwise = dataclasses.replace(cfg, attention_impl="blockwise")
     want = ds.make_prefill_step(blockwise)(params, tokens)
     _logits_close(got, want, share=0.99)
+
+
+def _images(cfg, card, batch):
+    if cfg.family != "vlm":
+        return ()
+    gen = torch.Generator(device=card).manual_seed(1)
+    dims = (batch, cfg.n_image_tokens, cfg.d_model)
+    return (torch.randn(dims, generator=gen, device=card),)
+
+
+@pytest.mark.parametrize("name", list(FAMILY_DEPTH))
+def test_family_prefill_and_decode_across_cards(name):
+    """Each family past dense and MoE at full width and a cut depth: a
+    flash prefill (B9 on the head shards of every self-attention) and
+    three decode steps through an f32 cache, under ``choose_rules``."""
+    cards = _cards(2)
+    mesh = _mesh(cards)
+    cfg = _cfg(name, FAMILY_DEPTH[name], attention_impl="flash")
+    params = _bf16_weights(tf.init_params(cfg, seed=0, device=cards[0]))
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    T = 256
+    tokens = torch.randint(0, cfg.vocab_size, (2, T), generator=gen, device=cards[0], dtype=torch.int32)
+    images = _images(cfg, cards[0], 2)
+    cell = build_cell(cfg, ShapeConfig("prefill", T, 2, "prefill"), mesh, params=params)
+    build.reset_counts()
+    got = cell.step_fn(cell.args[0], tokens, *images)
+    if cfg.family != "ssm":
+        assert build.counts()["flash_attention"] > 0
+    _logits_close(got, ds.make_prefill_step(cfg)(params, tokens, *images))
+    del cell, got
+    cell = build_cell(cfg, ShapeConfig("decode", 32, 2, "decode"), mesh, params=params)
+    opts = dict(dtype=torch.float32, device=cards[0])
+    if images:
+        opts.update(image_embeds=images[0], params=params)
+    cache = device_put(tf.init_cache(cfg, 2, 32, **opts), cell.in_shardings[3])
+    want_cache = tf.init_cache(cfg, 2, 32, **opts)
+    tok = tokens[:, :1]
+    for pos in range(3):
+        logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *images)
+        want, want_cache = ds.make_serve_step(cfg)(params, tok, pos, want_cache, *images)
+        _logits_close(logits, want)
+        tok = torch.argmax(want, -1).to(torch.int32)
+
+
+def _train_against_one_device(cfg, mesh, rules, ocfg, cards, B=4, T=256):
+    """One sharded train step from the state one one-device step leaves,
+    against the one-device step: (got metrics, want metrics, the share of
+    parameters beyond 1e-6 + 1e-5 |p|, the largest difference)."""
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    images = _images(cfg, cards[0], B)
+
+    def batch():
+        out = {
+            k: torch.randint(
+                0, cfg.vocab_size, (B, T), generator=gen, device=cards[0], dtype=torch.int32
+            )
+            for k in ("tokens", "labels")
+        }
+        if images:
+            out["image_embeds"] = images[0]
+        return out
+
+    params = tf.init_params(cfg, seed=0, device=cards[0])
+    step = make_train_step(cfg, ocfg)
+    state = init_opt_state(ocfg, params, device=cards[0])
+    params, state, _ = step(params, state, batch(), 2)
+    start, start_state = copy.deepcopy(params), _clone(state)
+    b3 = batch()
+    params, state, want = step(params, state, b3, 3)
+    del state
+    cell = build_cell(cfg, ShapeConfig("train", T, B, "train"), mesh, getattr(part, rules), ocfg, params=start)
+    placed_state = device_put(start_state, cell.in_shardings[1])
+    got_p, _, got = cell.step_fn(cell.args[0], placed_state, b3, 3)
+    off, total, worst = 0, 0, 0.0
+    for path, leaf in flat(params.tree(lambda p: p.detach())).items():
+        delta = (flat(got_p)[path].gather(cards[0]) - leaf).abs()
+        off += int((delta > ATOL + RTOL * leaf.abs()).sum())
+        total += leaf.numel()
+        worst = max(worst, float(delta.max()))
+    return got, want, off / total, worst
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "zamba2-2.7b", "musicgen-medium"])
+def test_family_train_step_across_cards(name):
+    """Trained as path 12 trains them (llama-vision's one superblock, 25.5
+    GB of f32 weights, needs 102 GB with its gradients and moments for the
+    one-device reference, so it is served only)."""
+    cards = _cards(2)
+    changes = {"attention_backend": "maclaurin"} if name == "zamba2-2.7b" else {}
+    cfg = _cfg(name, FAMILY_DEPTH[name], **changes)
+    got, want, off, worst = _train_against_one_device(cfg, _mesh(cards), "DEFAULT_RULES", OCFG, cards)
+    for key in ("loss", "xent", "aux", "lr"):
+        assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
+    assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
+    assert off <= OFF_SHARE and worst <= 2 * float(want["lr"])
+
+
+def test_optimizer_options_across_cards():
+    """qwen3-moe, one layer, under EP_DATA with Adafactor, two microbatches
+    and compressed gradients: the options arctic-480b's train cell uses."""
+    cards = _cards(2)
+    cfg = _cfg("qwen3-moe-30b-a3b", 1, attention_backend="maclaurin")
+    ocfg = dataclasses.replace(OCFG, name="adafactor", microbatches=2, compress_grads=True)
+    got, want, off, _ = _train_against_one_device(cfg, _mesh(cards), "EP_DATA_RULES", ocfg, cards, T=1024)
+    for key in ("loss", "xent", "aux", "lr"):
+        assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
+    assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
+    assert off <= OFF_SHARE

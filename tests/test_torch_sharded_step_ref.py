@@ -7,10 +7,19 @@ kind, the rules ``choose_rules`` picks and EP_DATA, and the decode cells'
 two special layouts (a batch that does not divide over ``data``; kv heads
 that do not divide ``model``, whose cache is cut along its sequence).
 
+The families past dense and MoE (musicgen-medium, rwkv6-7b, zamba2-2.7b,
+llama-3.2-vision-90b: a train, a prefill and a decode cell each under
+``choose_rules``, the VLM's with its image embeddings and its image
+cache) and the optimizer options (an Adafactor cell's ``vr``/``vc``
+shardings, a compressed cell's ``ef``, a microbatched one).
+
 Then one case a model held against the reference's one-device steps on the
 same weights (``convert``) and batch: smollm-135m under DEFAULT_RULES (FSDP
 and tensor parallelism) and qwen3-moe under EP_DATA_RULES (the experts'
-all-to-all), each a train step at steps 0 and 3 on two batches (as
+all-to-all), and one a family past them (musicgen-medium, rwkv6-7b and
+zamba2-2.7b under DEFAULT_RULES, llama-3.2-vision-90b under its serving
+rules, TP_ONLY, with its image embeddings), each a train step at steps 0
+and 3 on two batches (as
 ``tests/test_torch_train.py`` takes them), a prefill and two decode steps
 through an f32 cache. The reference's sharded step computes its
 one-device step's function, so this pins the port's sharded step to it.
@@ -61,6 +70,10 @@ CELLS = [  # (model, kind, rules (None: choose_rules), batch, config changes)
     ("qwen3-moe-30b-a3b", "train", "EP_DATA_RULES", B, ()),
     ("qwen3-moe-30b-a3b", "prefill", None, B, ()),
     ("qwen3-moe-30b-a3b", "decode", "DEFAULT_RULES", 1, ()),
+] + [
+    (name, kind, None, B, ())
+    for name in ("musicgen-medium", "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-90b")
+    for kind in ("train", "prefill", "decode")
 ]
 
 
@@ -193,3 +206,140 @@ def test_sharded_steps_match_the_reference(name, rules):
         _close(logits, jlogits, f"decode logits at {pos}")
     for got, want in zip(cache["kv"], jcache["kv"]):
         _close(got.gather(), want, "cache")
+
+
+TINY_GRAD = 1e-6  # a gradient RMS far below the ~1e-4 typical of these models
+
+
+def _params_close(placed, jparams, v, lr):
+    """Updated parameters at STEP_TOL, but where the gradient's running RMS
+    (AdamW's bias-corrected sqrt(v), after steps 0 and 3) is below
+    TINY_GRAD: there the update lr m / (sqrt(v) + eps) divides two
+    cancellation residues (llama-vision reduced: one embedding element
+    whose gradient RMS is 6e-11), which the port's own one-device step
+    moves 2.8e-4 from the reference's there, and the sharded one 5.6e-5.
+    Such an element is held within 2 lr."""
+    b2 = 0.95
+    unbias = 1 - b2**2
+    jflat, vflat = spmd.flat(jparams), spmd.flat(v)
+    for path, leaf in spmd.flat(placed).items():
+        got, want = leaf.gather().double().numpy(), np.asarray(jflat[path], np.float64)
+        tol = STEP_TOL * max(1.0, float(np.abs(want).max()))
+        off = np.abs(got - want) > tol
+        rms = np.sqrt(vflat[path].gather().double().numpy() / unbias)
+        assert (rms[off] < TINY_GRAD).all(), (path, float(np.abs(got - want).max()))
+        assert float(np.abs(got - want).max()) <= 2 * lr, path
+
+
+OPTION_CELLS = [  # (model, rules, optimizer options)
+    ("qwen3-moe-30b-a3b", "DEFAULT_RULES", dict(name="adafactor")),
+    ("qwen3-moe-30b-a3b", "EP_DATA_RULES", dict(name="adafactor", microbatches=2, compress_grads=True)),
+    ("smollm-135m", "DEFAULT_RULES", dict(compress_grads=True)),
+    ("rwkv6-7b", "DEFAULT_RULES", dict(microbatches=2)),
+]
+
+
+@pytest.mark.parametrize("name, rules, options", OPTION_CELLS)
+def test_optimizer_cells_equal_the_reference(name, rules, options):
+    """Adafactor's factored ``vr``/``vc`` and the compressed cells' ``ef``
+    placed as the reference's ``_opt_spec_tree`` places them."""
+    cfg, jcfg = ARCHS[name].reduced(), JARCHS[name].reduced()
+    ocfg = OptimizerConfig(**options)
+    jocfg = jts.OptimizerConfig(**dataclasses.asdict(ocfg))
+    shape, jshape = ShapeConfig("t", T, B, "train"), JShapeConfig("t", T, B, "train")
+    cell = specs.build_cell(cfg, shape, _mesh(), getattr(part, rules), ocfg)
+    jmesh = jpart.abstract_mesh((2, 2), ("data", "model"))
+    jcell = jspecs.build_cell(jcfg, jshape, jmesh, getattr(jpart, rules), jocfg)
+    assert cell.meta == jcell.meta
+    assert _specs(cell.in_shardings) == _specs(jcell.in_shardings)
+    assert _specs(cell.out_shardings) == _specs(jcell.out_shardings)
+    state = cell.args[1]
+    assert set(state) == set(jcell.args[1])
+    for path, leaf in spmd.flat(state).items():
+        assert leaf.sharding == spmd.flat(cell.in_shardings[1])[path]
+        assert leaf.shape == tuple(spmd.flat(jcell.args[1])[path].shape)
+
+
+@functools.cache
+def _family_weights(name):
+    jcfg = JARCHS[name].reduced()
+    jparams, _ = jtf.init_params(jcfg, jax.random.PRNGKey(1))
+    return jax.tree.map(np.asarray, jparams)
+
+
+def _images(cfg, seed=5):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "name, rules",
+    [
+        ("musicgen-medium", "DEFAULT_RULES"),
+        ("rwkv6-7b", "DEFAULT_RULES"),
+        ("zamba2-2.7b", "DEFAULT_RULES"),
+        ("llama-3.2-vision-90b", "TP_ONLY_RULES"),
+    ],
+)
+def test_family_steps_match_the_reference(name, rules):
+    cfg, jcfg = ARCHS[name].reduced(), JARCHS[name].reduced()
+    rules_ = getattr(part, rules)
+    np_params = _family_weights(name)
+    params = convert.lm_params_from_numpy(cfg, np_params, device="cpu")
+    tokens, _ = _batch(cfg)
+    vlm = cfg.family == "vlm"
+    images = _images(cfg) if vlm else None
+    extra = (torch.from_numpy(images),) if vlm else ()
+    jextra = (jnp.asarray(images),) if vlm else ()
+    mesh = _mesh()
+
+    # train: steps 0 and 3 from zero moments, a batch a step
+    jocfg = jts.OptimizerConfig(**dataclasses.asdict(OCFG))
+    cell = specs.build_cell(cfg, ShapeConfig("t", T, B, "train"), mesh, rules_, OCFG, params=params)
+    placed, state = cell.args[0], cell.args[1]
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    jstate = jts.init_opt_state(jocfg, jparams)
+    jstep = jax.jit(jts.make_train_step(jcfg, jocfg))
+    for s in (0, 3):
+        b = dict(zip(("tokens", "labels"), _batch(cfg, seed=s)))
+        if vlm:
+            b["image_embeds"] = images
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        jbatch = {k: jnp.asarray(v) for k, v in b.items()}
+        placed, state, metrics = cell.step_fn(placed, state, batch, s)
+        jparams, jstate, jmetrics = jstep(jparams, jstate, jbatch, jnp.int32(s))
+    assert set(metrics) == set(jmetrics)
+    for key in jmetrics:
+        _close(metrics[key], jmetrics[key], key)
+    for key in ("m", "v"):
+        _trees_close(state[key], jstate[key], key)
+    _params_close(placed, jparams, state["v"], float(jmetrics["lr"]))
+
+    # serving: the cell's bf16 weights, as the reference's
+    rounded = jax.tree.map(
+        lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)), np_params
+    )
+    cell = specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), mesh, rules_, params=params)
+    logits = cell.step_fn(cell.args[0], torch.from_numpy(tokens), *extra)
+    want = jds.make_prefill_step(jcfg)(rounded, jnp.asarray(tokens), *jextra)
+    _close(logits, want, "prefill logits")
+
+    cell = specs.build_cell(cfg, ShapeConfig("d", T, B, "decode"), mesh, rules_, params=params)
+    opts = dict(dtype=torch.float32, device="cpu")
+    if vlm:
+        opts.update(image_embeds=extra[0], params=convert.lm_params_from_numpy(cfg, rounded, device="cpu"))
+    cache = device_put(tf.init_cache(cfg, B, T, **opts), cell.in_shardings[3])
+    jopts = dict(image_embeds=jextra[0], params=rounded) if vlm else {}
+    jcache = jtf.init_cache(jcfg, B, T, dtype=jnp.float32, **jopts)
+    jserve = jax.jit(jds.make_serve_step(jcfg))
+    for pos in range(2):
+        tok = tokens[:, pos : pos + 1]
+        logits, cache = cell.step_fn(cell.args[0], torch.from_numpy(tok), pos, cache, *extra)
+        jlogits, jcache = jserve(rounded, jnp.asarray(tok), jnp.int32(pos), jcache, *jextra)
+        _close(logits, jlogits, f"decode logits at {pos}")
+    jflat = spmd.flat(jcache)
+    for path, leaf in spmd.flat(cache).items():
+        leaves = leaf if isinstance(leaf, tuple) else (leaf,)
+        jleaves = jflat[path] if isinstance(leaf, tuple) else (jflat[path],)
+        for got, want in zip(leaves, jleaves):
+            _close(got.gather(), want, ("cache",) + path)
