@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives twelve paths: seven at the
+source, all started together) and drives thirteen paths: seven at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
-8, 9, 11 and 12):
+8, 9, 11, 12 and 13):
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -100,7 +100,14 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
    zamba2's 16-head shards at d = 80 and llama-vision's 32-head shards at
    d = 128, bf16), rwkv6, zamba2 (B8 on its head shards) and musicgen
    trained, qwen3-moe trained with Adafactor, two microbatches and
-   compressed gradients. Path 5's profile act runs after it.
+   compressed gradients;
+13. the same under the last two rule sets (SHARD13_*): SP_RULES (the
+   residual cut along the sequence between blocks) for qwen3-moe's prefill
+   (B9 on head shards; against DEFAULT_RULES' residual and peak) and
+   training (B8), zamba2's and smollm-135m's training; EP_DP_RULES (the
+   batch over both axes, the ffn dims gathered) for qwen3-moe's training
+   (B8 on a position's row), prefill (B9) and decode. Path 5's profile act
+   runs after it.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -121,7 +128,7 @@ nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
 without a card, or without the repo's ``src/`` beside it.
 ``python3 chip_smoke.py --eighth-path`` runs path 8 alone,
 ``--ninth-path`` path 9, ``--tenth-path`` path 10, ``--eleventh-path``
-path 11, ``--twelfth-path`` path 12.
+path 11, ``--twelfth-path`` path 12, ``--thirteenth-path`` path 13.
 """
 
 from __future__ import annotations
@@ -538,6 +545,43 @@ SHARD12_ATTN_CASES = tuple(
 # options at most SHARD12_OFF_SHARE of the parameters may lie beyond
 # SHARD_ATOL + SHARD_RTOL |p|; under AdamW path 11's rule holds.
 SHARD12_OFF_SHARE = 1e-4
+# Thirteenth path: the last two rule sets on path 11's 2 x 2 slots, f32
+# compute at published widths, each step held against the one-device step
+# at path 11's gates. SP_RULES (DEFAULT with the residual cut along the
+# sequence over "model" between blocks): qwen3-moe (2 of 48 layers) served
+# as a 2 x 2048 flash prefill (B9 on 16-head shards), beside the same cell
+# under DEFAULT_RULES for the residual a position and the peak, and
+# trained at 2 x 1024 with the maclaurin backend (B8 on 16-head shards);
+# zamba2 (6 of 54, one group) and smollm-135m (all 30 layers, 9 heads: the
+# gathered-q/k/v route) trained. EP_DP_RULES (the batch over data and
+# model, the experts over data, every ffn dim over model and gathered
+# before its block): qwen3-moe trained at 4 x 1024, maclaurin (B8 on all
+# 32 heads of one position's row), served as a 4 x 1024 flash prefill (B9
+# there) and 4 greedy decode steps. Path 13's peak stays within
+# SHARD13_PEAK, path 11's highest: EP_DP replicates the embedding and the
+# LM head (2.5 GB at f32) with their moments and gradients on all four
+# positions, and its training at 2 of 48 layers peaked at 73.7 GB (an
+# H100 80GB HBM3 at 700 W), so it trains 1 of 48. Each prefill cell runs
+# once before the timed one (the first sharded prefill of a process took
+# 11.4 s there, the same cell again 0.18).
+SHARD13_SERVE = ("qwen3-moe-30b-a3b", 2)  # model, layers
+SHARD13_PREFILL = (  # (batch, tokens, rule sets)
+    (2, 2048, ("SP_RULES", "DEFAULT_RULES")),
+    (4, 1024, ("EP_DP_RULES",)),
+)
+SHARD13_DECODE = ("EP_DP_RULES", 4, 64, 4)  # rules, batch, cache slots, greedy steps
+MACLAURIN = {"attention_backend": "maclaurin"}
+SHARD13_TRAIN = (  # (model, layers, rules, batch, tokens, config changes)
+    ("qwen3-moe-30b-a3b", 2, "SP_RULES", 2, 1024, MACLAURIN),
+    ("qwen3-moe-30b-a3b", 1, "EP_DP_RULES", 4, 1024, MACLAURIN),
+    ("zamba2-2.7b", 6, "SP_RULES", 2, 1024, MACLAURIN),
+    (LM_NAME, 30, "SP_RULES", 4, 1024, {}),
+)
+SHARD13_ATTN_CASES = (  # what one EP_DP position gives B9 and B8: 32 heads of its row
+    ("flash_attention", "EP_DP batch block f32", (32, 1024, 128, 128), "float32"),
+    ("maclaurin_attention", "EP_DP batch block", (32, 1024, 128, 128), "float32"),
+)
+SHARD13_PEAK = 72e9
 # PyTorch's caching allocator splits a cached block for a request only
 # where more than 1 MiB would remain, so a shard may take up to this much
 # more than its bytes: the card's allocated memory grows by the bytes
@@ -1001,54 +1045,26 @@ def main() -> int:
     if sys.argv[1:2] == ["--route-sweep"]:
         route_sweep(torch.device("cuda"), Path(sys.argv[2]))
         return 0
-    if sys.argv[1:2] == ["--eighth-path"]:
+    attn = ("flash_attn.cu", "maclaurin_attn.cu")
+    single = {  # flag: (the path, the sources it builds)
+        "--eighth-path": (eighth_path, attn),
+        "--ninth-path": (ninth_path, ("maclaurin_attn.cu",)),
+        "--tenth-path": (tenth_path, ("quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu")),
+        "--eleventh-path": (eleventh_path, attn),
+        "--twelfth-path": (twelfth_path, attn),
+        "--thirteenth-path": (thirteenth_path, attn),
+    }
+    if sys.argv[1:2] and sys.argv[1] in single:
         from repro_torch.kernels import build
 
+        path, sources = single[sys.argv[1]]
         print(card_line(), flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
-        kernels, _ = eighth_path(torch.device("cuda"))
-        print(json.dumps({"kernels": kernels}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--ninth-path"]:
-        from repro_torch.kernels import build
-
-        print(card_line(), flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build_all(["maclaurin_attn.cu"])
-        kernels, _ = ninth_path(torch.device("cuda"))
-        print(json.dumps({"kernels": kernels}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--tenth-path"]:
-        from repro_torch.kernels import build
-
-        print(card_line(), flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build_all(["quadform.cu", "rbf_pred.cu", "rff_score.cu", "fastfood.cu"])
-        print(json.dumps({"launches": tenth_path(torch.device("cuda"))}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--eleventh-path"]:
-        from repro_torch.kernels import build
-
-        print(card_line(), flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
-        kernels, _ = eleventh_path(torch.device("cuda"))
-        print(json.dumps({"kernels": kernels}), flush=True)
-        return 0
-    if sys.argv[1:2] == ["--twelfth-path"]:
-        from repro_torch.kernels import build
-
-        print(card_line(), flush=True)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        build.build_all(["flash_attn.cu", "maclaurin_attn.cu"])
-        kernels, _ = twelfth_path(torch.device("cuda"))
-        print(json.dumps({"kernels": kernels}), flush=True)
+        build.build_all(list(sources))
+        got = path(torch.device("cuda"))
+        # path 10 returns its launches; the others (kernels, launches)
+        print(json.dumps({"kernels": got[0]} if isinstance(got, tuple) else {"launches": got}), flush=True)
         return 0
     if sys.argv[1:2] == ["--submit-deferral"]:
         from repro_torch.core import families
@@ -2603,6 +2619,8 @@ def run(dev) -> list[dict]:
     kernels_shard, launches11 = eleventh_path(dev)
     # ============ twelfth path (the sharded steps past dense and MoE, options)
     kernels_shard12, launches12 = twelfth_path(dev)
+    # ============== thirteenth path (the sharded steps under SP and EP_DP)
+    kernels_shard13, launches13 = thirteenth_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2612,7 +2630,7 @@ def run(dev) -> list[dict]:
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
     paths += (launches5, launches6, launches7, launches8, launches9, launches10, launches11)
-    paths += (launches12,)
+    paths += (launches12, launches13)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -2648,7 +2666,7 @@ def run(dev) -> list[dict]:
         },
     ]
     kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train + kernels_shard
-    kernels += kernels_shard12
+    kernels += kernels_shard12 + kernels_shard13
     for entry in kernels:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
@@ -4791,7 +4809,8 @@ class Window:
         torch.cuda.synchronize()
         self.seconds = time.perf_counter() - self.t0
         self.spy.__exit__(*exc)
-        for name, n in build.counts().items():
+        self.counts = build.counts()
+        for name, n in self.counts.items():
             self.launches[name] += n
 
 
@@ -5096,7 +5115,8 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
     at f32 under ``rules``, each held against the one-device step on the
     same card at f32 (a bf16 prefill within the larger of path 4's limit
     and twice the one-device bf16 prefill's own distance from f32, as
-    path 8 holds its bf16 pairs). Returns the phase fields."""
+    path 8 holds its bf16 pairs; an MoE's logits on MOE_F32_SHARE of the
+    positions). Returns the phase fields."""
     import dataclasses
     import gc
 
@@ -5104,19 +5124,13 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.specs import build_cell
-    from repro_torch.models import transformer as tf
     from repro_torch.serve import decode_step as ds
     from repro_torch.sharding import partitioning as part
-    from repro_torch.sharding.partitioning import device_put
-    from repro_torch.sharding.spmd import flat
 
     torch.cuda.reset_peak_memory_stats(dev)
     layers = SHARD12_DEPTH[name]
-    cfg = family_config(name, layers, dtype="float32", attention_impl="flash")
-    params = tf.init_params(cfg, seed=SEED, device=dev)
-    with torch.no_grad():
-        for p in params.parameters():
-            p.copy_(p.to(torch.bfloat16))  # the serving cell's weights, as f32
+    cfg, params = serving_weights(name, layers, dev)
+    share = MOE_F32_SHARE if cfg.moe_num_experts else None
     gen = torch.Generator(device=dev).manual_seed(SEED)
     extra = image_embeds(cfg, dev, B)
     out = {"model": name, "layers": layers, "rules": rules, "prefill_dtype": dtype}
@@ -5137,16 +5151,62 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
     with Window(launches, calls) as w:
         got = cell.step_fn(cell.args[0], tokens, *extra)
     if limit is None:
-        gate = shard_gate(got, want, None, f"{name} sharded prefill")
+        gate = shard_gate(got, want, share, f"{name} sharded prefill")
     else:
         gate = logit_gate(got, want, limit, PREFILL_GAP, against="one_device_f32")
-        for ok, msg in hold(gate, None, f"{name} sharded bf16 prefill"):
+        for ok, msg in hold(gate, share, f"{name} sharded bf16 prefill"):
             check(ok, msg)
     out.update(prefill_s=w.seconds, prefill=gate, prefill_twins=held_against_twins(calls, "prefill"))
     del cell, got, want
     gc.collect()
     torch.cuda.empty_cache()
-    shape = ShapeConfig("path12_decode", S, B, "decode")
+    out.update(decode_cell(dev, mesh, launches, calls, cfg, params, rules, tokens, S, steps))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_weights(name: str, layers: int, dev):
+    """(config, weights): ``name`` at full width, ``layers`` deep, f32
+    compute, flash prefill, its weights random from SEED and rounded to
+    the bf16 values a serving cell holds."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cfg = family_config(name, layers, dtype="float32", attention_impl="flash")
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(p.to(torch.bfloat16))  # the serving cell's weights, as f32
+    return cfg, params
+
+
+def decode_cell(dev, mesh, launches, calls, cfg, params, rules, tokens, S, steps) -> dict:
+    """A decode cell of ``cfg`` under ``rules`` (batch ``tokens.shape[0]``,
+    ``S`` cache slots): ``steps`` greedy steps from ``tokens[:, :1]``
+    through an f32 cache placed by the cell's shardings, each held against
+    the one-device step (logits at SHARD_REL, an MoE's on MOE_F32_SHARE of
+    the positions; greedy tokens equal), the cache's replicas bit-equal.
+    Returns the phase fields."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import decode_step as ds
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.sharding.partitioning import device_put
+    from repro_torch.sharding.spmd import flat
+
+    name, B = cfg.name, tokens.shape[0]
+    share = MOE_F32_SHARE if cfg.moe_num_experts else None
+    extra = image_embeds(cfg, dev, B)
+    shape = ShapeConfig("decode", S, B, "decode")
     cell = build_cell(cfg, shape, mesh, getattr(part, rules), params=params)
     opts = dict(dtype=torch.float32, device=dev)
     if extra:
@@ -5156,12 +5216,14 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
     step = ds.make_serve_step(cfg)
     tok = want_tok = tokens[:, :1]
     rels, greedy, seconds = [], [], []
+    counts = {}
     for pos in range(steps):
         with Window(launches, calls) as w:
             logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *extra)
         seconds.append(w.seconds)
+        counts = {k: counts.get(k, 0) + n for k, n in w.counts.items()}
         want, want_cache = step(params, want_tok, pos, want_cache, *extra)
-        rels.append(shard_gate(logits, want, None, f"{name} sharded decode at {pos}")["rel"])
+        rels.append(shard_gate(logits, want, share, f"{name} sharded decode at {pos}")["rel"])
         tok = torch.argmax(logits, -1).to(torch.int32)
         want_tok = torch.argmax(want, -1).to(torch.int32)
         check(torch.equal(tok, want_tok), f"{name} sharded decode at {pos}: greedy tokens differ")
@@ -5173,17 +5235,18 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
             for g in x.replica_groups():
                 same = all(torch.equal(x.local(p), x.local(g[0])) for p in g)
                 check(same, f"{name}: cache replicas differ")
-    out.update(cache_spec=specs_, decode_rel=rels, decode_tokens=greedy, decode_s=seconds)
-    out["decode_twins"] = held_against_twins(calls, "decode")
-    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    del cell, cache, want_cache, params
+    out = dict(cache_spec=specs_, decode_rel=rels, decode_tokens=greedy, decode_s=seconds)
+    out.update(decode_launches=counts, decode_twins=held_against_twins(calls, "decode"))
+    del cell, cache, want_cache
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def family_training(dev, mesh, launches, calls, name, rules, options, B, T, changes) -> dict:
-    """``name`` at full width, SHARD12_DEPTH deep, f32, remat on: one
+def family_training(
+    dev, mesh, launches, calls, name, rules, options, B, T, changes, layers=None, label="shard12_train"
+) -> dict:
+    """``name`` at full width, ``layers`` (SHARD12_DEPTH's) deep, f32, remat on: one
     one-device step leaves the state the compared step starts from; the
     one-device step from it is the reference (kept on the host), then the
     cell under ``rules`` with the optimizer ``options`` takes the same step
@@ -5203,7 +5266,7 @@ def family_training(dev, mesh, launches, calls, name, rules, options, B, T, chan
     from repro_torch.train.train_step import OptimizerConfig, init_opt_state, make_train_step
 
     torch.cuda.reset_peak_memory_stats(dev)
-    layers = SHARD12_DEPTH[name]
+    layers = layers or SHARD12_DEPTH[name]
     cfg = family_config(name, layers, dtype="float32", **changes)
     ocfg = OptimizerConfig(warmup=2, total_steps=10, **options)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -5249,7 +5312,7 @@ def family_training(dev, mesh, launches, calls, name, rules, options, B, T, chan
         model=name, layers=layers, rules=rules, optimizer=ocfg.name,
         microbatches=ocfg.microbatches, compress_grads=ocfg.compress_grads,
         batch=[B, T], step_s=w.seconds, one_device_step_s=one_s, **held,
-        state_bytes_per_position=state_bytes,
+        state_bytes_per_position=state_bytes, launches=w.counts,
     )
     fails = [(held["bytes_per_position"] == held["placement_bytes_per_position"], f"{what}: bytes")]
     for key in ("loss", "xent", "aux", "lr"):
@@ -5309,7 +5372,7 @@ def family_training(dev, mesh, launches, calls, name, rules, options, B, T, chan
             params_ok = worst <= 2 * own_max + SHARD_ATOL and beyond <= 2 * own_beyond
         del params64
     fields["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    phase("shard12_train", **fields)
+    phase(label, **fields)
     for ok, msg in fails:
         check(ok, msg)
     check(norm_ok, f"{what}: grad norm")
@@ -5388,6 +5451,161 @@ def twelfth_path(dev) -> tuple[list, dict]:
     phase("twelfth_path_seconds", peak_bytes=max(peaks), **seconds)
     entries = []
     for name, case, (bh, t, d, dv), _ in SHARD12_ATTN_CASES:
+        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
+        tm = timings[name, case]
+        entries.append(
+            {
+                "name": name,
+                "case": case,
+                "shape": [bh, t, d, dv],
+                "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}.cu",
+                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, case]["max_abs_err"],
+                "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1],
+                "library_ms": tm["library_ms"],
+            }
+        )
+    return entries, launches
+
+
+class residual_blocks:
+    """Within it, the (shape, bytes) of the largest residual block a mesh
+    position holds entering a dense block of the sharded steps
+    (``spmd.Lockstep.layer``)."""
+
+    def __enter__(self):
+        from repro_torch.sharding import spmd
+
+        self.real, self.shape, self.bytes = spmd.Lockstep.layer, None, 0
+
+        def layer(ctx, i, stacks, x, *rest, **kw):
+            for xi in x:
+                if xi.numel() * xi.element_size() > self.bytes:
+                    self.shape, self.bytes = list(xi.shape), xi.numel() * xi.element_size()
+            return self.real(ctx, i, stacks, x, *rest, **kw)
+
+        spmd.Lockstep.layer = layer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sharding import spmd
+
+        spmd.Lockstep.layer = self.real
+
+
+def rule_serving(dev, mesh, launches, calls) -> list[dict]:
+    """Path 13's serving cells (SHARD13_SERVE at f32 on its bf16 weights):
+    each of SHARD13_PREFILL's flash prefills under each of its rule sets,
+    held against the one-device prefill (timed once), with the residual
+    block a position holds and the peak; then SHARD13_DECODE's greedy
+    steps. Returns one phase's fields a cell."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.serve import decode_step as ds
+    from repro_torch.sharding import partitioning as part
+
+    name, layers = SHARD13_SERVE
+    cfg, params = serving_weights(name, layers, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for B, T, rule_sets in SHARD13_PREFILL:
+        tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ds.make_prefill_step(cfg)(params, tokens)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        for rules in rule_sets:
+            torch.cuda.reset_peak_memory_stats(dev)
+            shape = ShapeConfig("path13_prefill", T, B, "prefill")
+            cell = build_cell(cfg, shape, mesh, getattr(part, rules), params=params)
+            cell.step_fn(cell.args[0], tokens)  # warm, outside the counted window
+            with residual_blocks() as res, Window(launches, calls) as w:
+                got = cell.step_fn(cell.args[0], tokens)
+            what = f"{name} {rules} prefill"
+            row = dict(model=name, layers=layers, rules=rules, prefill_batch=[B, T])
+            row.update(prefill_s=w.seconds, one_device_prefill_s=one_s, launches=w.counts)
+            row.update(residual_block=res.shape, residual_bytes_per_position=res.bytes)
+            row.update(prefill=shard_gate(got, want, MOE_F32_SHARE, what), **placed_bytes(cell.args[0]))
+            row.update(twins=held_against_twins(calls, what), peak_bytes=torch.cuda.max_memory_allocated(dev))
+            rows.append(row)
+            phase("shard13_serve", **row)
+            del cell, got
+            gc.collect()
+            torch.cuda.empty_cache()
+        del want
+    rules, B, S, steps = SHARD13_DECODE
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    row = dict(model=name, layers=layers, rules=rules, decode_batch=[B, S])
+    row.update(decode_cell(dev, mesh, launches, calls, cfg, params, rules, tokens, S, steps))
+    row.update(launches=row["decode_launches"], peak_bytes=torch.cuda.max_memory_allocated(dev))
+    rows.append(row)
+    phase("shard13_serve", **row)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def thirteenth_path(dev) -> tuple[list, dict]:
+    """Path 13: the sharded steps under SP_RULES and EP_DP_RULES on path
+    11's 2 x 2 slots of the card (SHARD13_* above): B8 and B9 checked and
+    timed at the shape one EP_DP position gives them, then qwen3-moe served
+    and trained under both sets, zamba2 and smollm-135m trained under SP,
+    each against one device's step; every B8/B9 launch of the sharded
+    steps held against its twin, and each kernel launched under each set.
+    The launch counts are those of the sharded steps alone. Returns (the
+    B8/B9 ``kernels`` entries at the new shape, every kernel's launches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.launch import make_mesh
+
+    t_path = time.perf_counter()
+    torch.cuda.empty_cache()
+    cuts = {f"{SHARD13_SERVE[0]} serve": f"{SHARD13_SERVE[1]} of {get_config(SHARD13_SERVE[0]).n_layers} layers"}
+    for name, layers, rules, *_ in SHARD13_TRAIN:
+        cuts[f"{name} {rules} train"] = f"{layers} of {get_config(name).n_layers} layers"
+    phase("thirteenth_path_cuts", **cuts)
+    checks, timings = attention_kernel_checks(dev, SHARD13_ATTN_CASES)
+    seconds = {"kernels": time.perf_counter() - t_path}
+    mesh = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
+    launches = {n: 0 for n in build.counts()}
+    calls: dict = {}
+    t0 = time.perf_counter()
+    rows = rule_serving(dev, mesh, launches, calls)
+    seconds["qwen3-moe serve"] = time.perf_counter() - t0
+    for name, layers, rules, B, T, changes in SHARD13_TRAIN:
+        t0 = time.perf_counter()
+        args = (dev, mesh, launches, calls, name, rules, {}, B, T, changes)
+        rows.append(family_training(*args, layers=layers, label="shard13_train"))
+        seconds[f"{name} {rules} train"] = time.perf_counter() - t0
+    by_rules = {}
+    for row in rows:
+        got = by_rules.setdefault(row["rules"], {})
+        for kernel, n in row["launches"].items():
+            got[kernel] = got.get(kernel, 0) + n
+    for rules in ("SP_RULES", "EP_DP_RULES"):
+        for kernel in ("flash_attention", "maclaurin_attention"):
+            check(by_rules[rules][kernel] > 0, f"{kernel} never launched under {rules} on path 13")
+    phase("thirteenth_path_launches", **launches, by_rules=by_rules)
+    peak = max(row["peak_bytes"] for row in rows)
+    check(peak <= SHARD13_PEAK, f"path 13's peak {peak} B > {SHARD13_PEAK}")
+    seconds["total"] = time.perf_counter() - t_path
+    phase("thirteenth_path_seconds", peak_bytes=peak, **seconds)
+    entries = []
+    for name, case, (bh, t, d, dv), _ in SHARD13_ATTN_CASES:
         source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
         tm = timings[name, case]
         entries.append(

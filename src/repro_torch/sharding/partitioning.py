@@ -63,13 +63,15 @@ class NamedSharding:
     spec: PartitionSpec
 
     def __post_init__(self):
-        for s in self.spec:
-            for a in _names(s):
-                if a not in self.mesh.axis_names:
-                    raise ValueError(
-                        f"mesh axis {a!r} of {self.spec} is not in the mesh's "
-                        f"axes {self.mesh.axis_names}"
-                    )
+        named = [a for s in self.spec for a in _names(s)]
+        for a in named:
+            if a not in self.mesh.axis_names:
+                raise ValueError(
+                    f"mesh axis {a!r} of {self.spec} is not in the mesh's "
+                    f"axes {self.mesh.axis_names}"
+                )
+        if len(set(named)) != len(named):  # as jax's DuplicateSpecError
+            raise ValueError(f"{self.spec} names a mesh axis twice")
 
     def shard_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The shape of each shard of a ``shape`` tensor; raises

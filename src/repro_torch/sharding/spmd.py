@@ -13,10 +13,15 @@ one worker thread, and a card repeated in the mesh would wait on itself).
 
 What the layout asks for, as GSPMD would insert it:
 
-  * FSDP: each leaf's "embed"-cut dim gathered over its mesh axes right
-    before its block (the gather's backward is the reduce-scatter of its
-    gradient), inside the layer's remat (``remat_lockstep``: one autograd
-    node over every position) so that the backward gathers again;
+  * FSDP: each leaf's "embed"-cut dim, and any other dim cut over axes
+    that are not the tensor-parallel axis (but "experts"), gathered over
+    its mesh axes right before its block (the gather's backward is the
+    reduce-scatter of its gradient), inside the layer's remat
+    (``remat_lockstep``: one autograd node over every position) so that
+    the backward gathers again. Under ``EP_DP_RULES`` the batch takes
+    "model", so every "ffn" dim (the dense and expert FFNs, RWKV6's
+    channel mix, Mamba2's weights) is gathered so, each position computing
+    its own rows on whole weights, and nothing is all-reduced;
   * tensor parallelism over "model" (when the batch is not cut over it):
     column-cut q/k/v, ``w_gate``/``w_up`` and the experts' ``ffn``,
     row-cut ``w_o``/``w_down``, each product's partial sums all-reduced;
@@ -26,8 +31,19 @@ What the layout asks for, as GSPMD would insert it:
     shard p's heads then read kv shard p's); otherwise q, k and v gathered
     over the group, attention once a group, each member its ``w_o`` rows;
   * experts over "model": each member's experts on the replicated
-    dispatch buffer, then the all-reduce; over "data" (``EP_DATA_RULES``):
-    the buffer all-to-all'd to the experts' owners and back;
+    dispatch buffer, then the all-reduce; over "data" (``EP_DATA_RULES``,
+    ``EP_DP_RULES``): the buffer all-to-all'd to the experts' owners and
+    back over each "data" group;
+  * sequence parallelism (``SP_RULES``, where the sequence divides the
+    tensor-parallel axis): the residual between blocks cut along the
+    sequence over it, each position its (B, T/m, d) block in group order;
+    a block's norm on that block, then the sequence all-gathered, and its
+    partial sums reduce-scattered back to the blocks (``finish``) where
+    the all-reduce would stand, a whole output sliced to the member's
+    rows; the vocab-cut embedding reduce-scattered, the LM head on the
+    gathered sequence. Recurrences, convolutions, routing and attention
+    see the whole sequence, so the values are DEFAULT's. Decode is
+    DEFAULT's;
   * the MoE aux loss from the global ``me`` and ``ce`` (their sums
     all-reduced over the batch axes), the token loss a sum over the data
     shards over the global count, each counted once.
@@ -55,7 +71,7 @@ The blocks are the port's own functions (``transformer._attn_forward``,
 ``layers.swiglu``, ``moe.route``, ``moe.experts``, ``rwkv.time_mix_*``,
 ``ssm.ssd_*``) on local shards, each block under the path prefix of its
 own leaves (``layers``, ``shared_attn``, ``cross_layers``). Rule sets
-other than the four ``choose_rules`` picks and mesh axes other than
+other than the reference's six (``RULE_SETS``) and mesh axes other than
 "pod", "data" and "model" raise ``NotImplementedError``.
 """
 
@@ -85,6 +101,8 @@ from repro_torch.sharding.partitioning import (
     DEFAULT_RULES,
     DP_ONLY_RULES,
     EP_DATA_RULES,
+    EP_DP_RULES,
+    SP_RULES,
     TP_ONLY_RULES,
     AxisRules,
     Sharded,
@@ -100,6 +118,8 @@ RULE_SETS = {
     "TP_ONLY_RULES": TP_ONLY_RULES,
     "EP_DATA_RULES": EP_DATA_RULES,
     "DP_ONLY_RULES": DP_ONLY_RULES,
+    "SP_RULES": SP_RULES,
+    "EP_DP_RULES": EP_DP_RULES,
 }
 MESH_AXES = ("pod", "data", "model")
 
@@ -235,21 +255,34 @@ def remat_lockstep(fn, *args):
 
 @dataclasses.dataclass(frozen=True)
 class Cut:
-    """How one leaf is cut: the mesh axes of each dim, its logical names,
-    and the index of each position's block (the stacked layer axis dropped
-    for layer leaves)."""
+    """How one leaf is cut as its block sees it: ``gathered`` lists the
+    (dim, mesh axes) gathered right before the block; ``axes`` gives the
+    mesh axes that still cut each dim after that, and ``blocks`` each
+    position's block (a gathered dim whole). The stacked layer axis is
+    dropped for layer leaves."""
 
     axes: tuple[tuple[str, ...], ...]
-    logical: tuple
     blocks: tuple[tuple[slice, ...], ...]
+    gathered: tuple[tuple[int, tuple[str, ...]], ...]
 
 
-def _cut(leaf: Sharded, logical: tuple, drop: int) -> Cut:
+def _cut(leaf: Sharded, logical: tuple, drop: int, tp: str | None) -> Cut:
+    """A leaf's ``Cut``: its "embed" dim, and any other dim cut over axes
+    that are not the tensor-parallel axis (``tp``), gathered, but
+    "experts", which the experts' exchange carries out."""
     sh = leaf.sharding
-    axes = tuple(sh.dim_axes(len(leaf.shape)))[drop:]
-    logical = tuple(logical) + (None,) * (len(leaf.shape) - len(logical))
-    blocks = tuple(sh.index(leaf.shape, p)[drop:] for p in range(len(leaf.shards)))
-    return Cut(axes, logical[drop:], blocks)
+    shape = leaf.shape[drop:]
+    axes = list(sh.dim_axes(len(leaf.shape)))[drop:]
+    logical = (tuple(logical) + (None,) * (len(leaf.shape) - len(logical)))[drop:]
+    blocks = [list(sh.index(leaf.shape, p)[drop:]) for p in range(len(leaf.shards))]
+    gathered = []
+    for dim, (name, ax) in enumerate(zip(logical, axes)):
+        if ax and (name == "embed" or (name != "experts" and ax != (tp,))):
+            gathered.append((dim, ax))
+            axes[dim] = ()
+            for b in blocks:
+                b[dim] = slice(0, shape[dim])
+    return Cut(tuple(axes), tuple(tuple(b) for b in blocks), tuple(gathered))
 
 
 class Lockstep:
@@ -278,6 +311,11 @@ class Lockstep:
         model = mesh.shape.get("model", 1)
         self.tp = "model" if model > 1 and "model" not in self.batch_axes else None
         self.tp_groups = axis_groups(mesh, (self.tp,) if self.tp else ())
+        self.member = {p: i for g in self.tp_groups for i, p in enumerate(g)}
+        # sequence parallelism: the residual cut along the sequence over the
+        # tensor-parallel axis between blocks, where ``forward``'s T divides it
+        self.sp = self.tp is not None and rules.lookup("seq") == self.tp
+        self.seq_cut = False
         self.batch_groups = axis_groups(mesh, self.batch_axes)
         off_batch = [a for a in mesh.axis_names if a not in self.batch_axes]
         reps = [g[0] for g in axis_groups(mesh, off_batch)]
@@ -286,23 +324,9 @@ class Lockstep:
         spec = flat(logical_spec(cfg))
         self.cuts = {}
         for path, leaf in flat(params).items():
-            self.cuts[path] = _cut(leaf, spec[path], 1 if path[0] in STACKS else 0)
-        self._check_layout()
+            self.cuts[path] = _cut(leaf, spec[path], 1 if path[0] in STACKS else 0, self.tp)
 
     # ------------------------------------------------------------ layout
-
-    def _check_layout(self) -> None:
-        """Each cut is one this executor carries out: "embed" gathered and
-        "experts" exchanged over any axes, any other dim over the
-        tensor-parallel axis."""
-        for path, cut in self.cuts.items():
-            for logical, axes in zip(cut.logical, cut.axes):
-                if not axes or logical in ("embed", "experts") or axes == (self.tp,):
-                    continue
-                raise NotImplementedError(
-                    f"{'/'.join(path)}: no sharded step cuts its {logical!r} dim "
-                    f"over {axes}"
-                )
 
     def over(self, groups, xs: list, fn) -> list:
         """``fn`` on each group's members of ``xs`` (one a position)."""
@@ -316,14 +340,36 @@ class Lockstep:
     def tp_reduce(self, xs: list) -> list:
         return self.over(self.tp_groups, xs, coll.all_reduce)
 
+    def finish(self, xs: list, partial: bool) -> list:
+        """A block's (B, T, ...) outputs a position, in the residual's
+        layout: partial sums reduced over the tensor-parallel group
+        (reduce-scattered along the sequence where the residual is cut
+        along it, else all-reduced); whole outputs kept, or sliced to the
+        member's rows where the residual is cut."""
+        if not self.seq_cut:
+            return self.tp_reduce(xs) if partial else xs
+        if partial:
+            return self.over(self.tp_groups, xs, lambda m: coll.reduce_scatter(m, 1))
+        return [x[:, self.seq_rows(p, x.shape[1])] for p, x in enumerate(xs)]
+
+    def seq_rows(self, p: int, T: int) -> slice:
+        """The rows of a T-token sequence position ``p``'s residual holds."""
+        rows = T // self.mesh.shape[self.tp]
+        return slice(self.member[p] * rows, (self.member[p] + 1) * rows)
+
+    def whole_seq(self, xs: list) -> list:
+        """Each position's residual block gathered along the sequence over
+        its tensor-parallel group (as it is where not cut)."""
+        if not self.seq_cut:
+            return xs
+        return self.over(self.tp_groups, xs, lambda m: coll.all_gather(m, 1))
+
     def fsdp(self, path, xs: list) -> list:
-        """Leaf ``path``'s blocks (a layer leaf's, one layer's) with their
-        "embed" dim gathered over the axes that cut it."""
-        cut = self.cuts[path]
-        for dim, (logical, axes) in enumerate(zip(cut.logical, cut.axes)):
-            if logical == "embed" and axes:
-                groups = axis_groups(self.mesh, axes)
-                xs = self.over(groups, xs, lambda m, d=dim: coll.all_gather(m, d))
+        """Leaf ``path``'s blocks (a layer leaf's, one layer's) with the
+        dims its ``Cut`` gathers gathered over the axes that cut them."""
+        for dim, axes in self.cuts[path].gathered:
+            groups = axis_groups(self.mesh, axes)
+            xs = self.over(groups, xs, lambda m, d=dim: coll.all_gather(m, d))
         return xs
 
     def block(self, path, p: int, dim: int) -> slice:
@@ -364,25 +410,26 @@ class Lockstep:
     def embed(self, top: list[dict], tokens: list) -> list:
         path = ("embed", "table")
         table = self.fsdp(path, [t[path] for t in top])
-        if not self.cuts[path].axes[0]:
-            return [table[p][tokens[p]].to(self.dtype) for p in range(self.n)]
-        x = []
-        for p in range(self.n):
-            rows = table[p].shape[0]
-            t = tokens[p].long() - self.block(path, p, 0).start
-            inside = (t >= 0) & (t < rows)
-            got = table[p][t.clamp(0, rows - 1)]
-            x.append(torch.where(inside[..., None], got, 0.0))
-        return [xi.to(self.dtype) for xi in self.tp_reduce(x)]
+        cut = bool(self.cuts[path].axes[0])
+        if not cut:
+            x = [table[p][tokens[p]] for p in range(self.n)]
+        else:
+            x = []
+            for p in range(self.n):
+                rows = table[p].shape[0]
+                t = tokens[p].long() - self.block(path, p, 0).start
+                inside = (t >= 0) & (t < rows)
+                got = table[p][t.clamp(0, rows - 1)]
+                x.append(torch.where(inside[..., None], got, 0.0))
+        return [xi.to(self.dtype) for xi in self.finish(x, cut)]
 
     def head(self, top: list[dict], x: list) -> list:
         """Final norm and LM head: each position's (B, T, its vocab) logits."""
         ln, head = ("final_ln", "scale"), ("lm_head", "w")
         scale = self.fsdp(ln, [t[ln] for t in top])
         w = self.fsdp(head, [t[head].to(self.dtype) for t in top])
-        return [
-            rmsnorm({"scale": scale[p]}, x[p]) @ w[p] for p in range(self.n)
-        ]
+        h = self.whole_seq([rmsnorm({"scale": scale[p]}, x[p]) for p in range(self.n)])
+        return [h[p] @ w[p] for p in range(self.n)]
 
     def xent_sums(self, logits: list, labels: list) -> list:
         """Each position's sum of token losses over its rows: a
@@ -422,7 +469,7 @@ class Lockstep:
                 tf._attn_forward(local, lp[p]["attn"], h[p], pos[p])
                 for p in range(self.n)
             ]
-            return self.tp_reduce(out) if q_ax else out
+            return self.finish(out, bool(q_ax))
         cols = [qkv_columns(lp[p]["attn"], h[p]) for p in range(self.n)]
         out = [None] * self.n
         for g in self.tp_groups:
@@ -437,7 +484,7 @@ class Lockstep:
             for p in g:
                 rows = self.block((prefix, "attn", "w_o"), p, 0)
                 out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["attn"]["w_o"]
-        return self.tp_reduce(out) if o_ax else out
+        return self.finish(out, bool(o_ax))
 
     def cross(self, lp: list[dict], h: list, ctx: list) -> list:
         """The VLM's cross-attention of each position's rows over its image
@@ -457,7 +504,7 @@ class Lockstep:
                 cross_attention(lp[p]["xattn"], h[p], ctx[p], **heads)
                 for p in range(self.n)
             ]
-            return self.tp_reduce(out) if q_ax else out
+            return self.finish(out, bool(q_ax))
         out = [None] * self.n
         for g in self.tp_groups:
             w = [lp[p]["xattn"] for p in g]
@@ -480,7 +527,7 @@ class Lockstep:
             for p in g:
                 rows = self.block(key + ("w_o",), p, 0)
                 out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["xattn"]["w_o"]
-        return self.tp_reduce(out) if o_ax else out
+        return self.finish(out, bool(o_ax))
 
     def ffn(self, lp: list[dict], h: list, want_aux: bool, prefix: str = "layers"):
         """(y a position, aux a position or None)."""
@@ -490,8 +537,7 @@ class Lockstep:
             y, aux = self.moe(lp, h, want_aux)
         if not cfg.moe_num_experts or cfg.moe_dense_residual:
             dense = [swiglu(lp[p]["ffn"], h[p]) for p in range(self.n)]
-            if self.cuts[(prefix, "ffn", "w_down")].axes[0]:
-                dense = self.tp_reduce(dense)
+            dense = self.finish(dense, bool(self.cuts[(prefix, "ffn", "w_down")].axes[0]))
             y = dense if not cfg.moe_num_experts else [a + b for a, b in zip(y, dense)]
         return y, aux
 
@@ -522,8 +568,7 @@ class Lockstep:
             _combine(y[p], routed[p][1], cfg.moe_top_k, routed[p][4])
             for p in range(self.n)
         ]
-        if e_ax == (self.tp,) or f_ax:
-            out = self.tp_reduce(out)
+        out = self.finish(out, e_ax == (self.tp,) or bool(f_ax))
         if not want_aux:
             return out, None
         tokens = self.global_batch * h[0].shape[1]
@@ -537,19 +582,19 @@ class Lockstep:
         """Dense block ``i`` of ``prefix`` (the one-device ``_dense_block``):
         (x, aux)."""
         lp = self.block_params(stacks, prefix, i)
-        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        h = self.whole_seq([rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)])
         a = self.attention(lp, h, pos, prefix)
         x = [xi + ai for xi, ai in zip(x, a)]
-        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        h = self.whole_seq([rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)])
         y, aux = self.ffn(lp, h, want_aux=True, prefix=prefix)
         return [xi + yi for xi, yi in zip(x, y)], aux
 
     def cross_layer(self, g: int, stacks: list[dict], x: list, ctx: list) -> list:
         """Cross block ``g`` (the one-device ``_cross_block``)."""
         lp = self.block_params(stacks, "cross_layers", g)
-        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        h = self.whole_seq([rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)])
         x = [xi + ai for xi, ai in zip(x, self.cross(lp, h, ctx))]
-        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        h = self.whole_seq([rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)])
         y, _ = self.ffn(lp, h, want_aux=False, prefix="cross_layers")
         return [xi + yi for xi, yi in zip(x, y)]
 
@@ -581,26 +626,27 @@ class Lockstep:
 
     def channel_mix(self, lp: list[dict], h: list, last=None) -> list:
         """The channel mix a position: the value projection's partial sums
-        reduced over the "ffn" cut before its gate."""
+        reduced over the "ffn" cut before its gate (both in the residual's
+        layout)."""
         parts = [
             channel_mix_parts(lp[p], h[p], None if last is None else last[p])
             for p in range(self.n)
         ]
-        value = [v for _, v in parts]
-        if self.cuts[("layers", "w_ffn_v")].axes[0]:
-            value = self.tp_reduce(value)
-        return [gate * v for (gate, _), v in zip(parts, value)]
+        partial = bool(self.cuts[("layers", "w_ffn_v")].axes[0])
+        value = self.finish([v for _, v in parts], partial)
+        gate = self.finish([g for g, _ in parts], False)
+        return [g * v for g, v in zip(gate, value)]
 
     def rwkv_layer(self, i: int, stacks: list[dict], x: list) -> list:
         """RWKV6 block ``i`` (the one-device ``_rwkv_block``)."""
         cfg = self.cfg
         lp = self.block_params(stacks, "layers", i)
-        h = [rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)]
+        h = self.whole_seq([rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)])
         tm, partial = self.rwkv_params(lp)
         opts = dict(head_dim=cfg.rwkv_head_dim, chunk=cfg.scan_chunk)
         out = [time_mix_forward(tm[p], h[p], **opts) for p in range(self.n)]
-        x = [xi + oi for xi, oi in zip(x, self.tp_reduce(out) if partial else out)]
-        h = [rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)]
+        x = [xi + oi for xi, oi in zip(x, self.finish(out, partial))]
+        h = self.whole_seq([rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)])
         return [xi + oi for xi, oi in zip(x, self.channel_mix(lp, h))]
 
     def rwkv_decode(self, i: int, stacks: list[dict], x: list, cache: list) -> list:
@@ -616,8 +662,7 @@ class Lockstep:
             o, st = time_mix_decode(tm[p], h[p], state, head_dim=self.cfg.rwkv_head_dim)
             out.append(o)
             new.append(st)
-        out = self.tp_reduce(out) if partial else out
-        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, out)]
+        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, self.finish(out, partial))]
         h2 = [rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)]
         last = [cache[p]["x_cm"][i].to(h2[p].dtype) for p in range(self.n)]
         out2 = self.channel_mix(lp, h2, last)
@@ -693,13 +738,12 @@ class Lockstep:
             normed = yp.to(torch.float32) * torch.rsqrt(var + 1e-5) * lp[p]["norm"]["scale"]
             gated = normed.to(yp.dtype) * torch.nn.functional.silu(zp)
             out.append(_mm(gated, lp[p]["w_out"]))
-        if self.cuts[w_out].axes[0]:
-            out = self.tp_reduce(out)
+        out = self.finish(out, bool(self.cuts[w_out].axes[0]))
         return out, (new if states else None)
 
     def mamba_layer(self, i: int, stacks: list[dict], x: list) -> list:
         """Mamba2 block ``i`` (the one-device ``_mamba_block``)."""
-        out, _ = self.mamba(self.block_params(stacks, "layers", i), x)
+        out, _ = self.mamba(self.block_params(stacks, "layers", i), self.whole_seq(x))
         return [xi + oi for xi, oi in zip(x, out)]
 
     def mamba_decode(self, i, stacks: list[dict], x: list, cache: list, layouts: dict) -> list:
@@ -740,6 +784,7 @@ class Lockstep:
         cfg = self.cfg
         top, stacks = self.split(local)
         T = tokens[0].shape[1]
+        self.seq_cut = self.sp and T % self.mesh.shape[self.tp] == 0
         x = self.embed(top, tokens)
         pos = [torch.arange(T, dtype=torch.int32, device=d) for d in self.devices]
         aux = [torch.zeros((), dtype=torch.float32, device=d) for d in self.devices]
@@ -843,6 +888,7 @@ class Lockstep:
         place), its attention stacks laid out as ``layouts`` says."""
         cfg = self.cfg
         top, stacks = self.split(local)
+        self.seq_cut = False
         x = self.embed(top, tokens)
         if cfg.family == "ssm":
             for i in range(cfg.n_layers):
@@ -899,7 +945,7 @@ class Lockstep:
                 o, new = tf._attn_decode(local, attn, h[p], pos, layer_cache[p])
                 tf._store(cache[p], i, new)
                 out.append(o)
-            return self.tp_reduce(out) if heads_ax else out
+            return self.finish(out, bool(heads_ax))
         self.refuse_gathered(layer_cache)
         cols = [qkv_columns(lp[p]["attn"], h[p]) for p in range(self.n)]
         q_ax = self.cuts[(prefix, "attn", "w_q")].axes[1]
@@ -937,7 +983,7 @@ class Lockstep:
         for p in range(self.n):
             rows = self.block(key + ("w_o",), p, 0)
             res.append(out[p][..., rows] @ lp[p][key[-1]]["w_o"])
-        return self.tp_reduce(res) if self.cuts[key + ("w_o",)].axes[0] else res
+        return self.finish(res, bool(self.cuts[key + ("w_o",)].axes[0]))
 
     def cross_decode(self, g: int, stacks, x: list, cross: list, layout: tuple) -> list:
         """One token through cross block ``g``, reading the cached image
@@ -953,7 +999,7 @@ class Lockstep:
                 tf._cross_attn_decode(local, lp[p]["xattn"], h[p], layer[p])
                 for p in range(self.n)
             ]
-            a = self.tp_reduce(a) if heads_ax else a
+            a = self.finish(a, bool(heads_ax))
         else:
             self.refuse_gathered(layer)
             q = [h[p] @ lp[p]["xattn"]["w_q"] for p in range(self.n)]

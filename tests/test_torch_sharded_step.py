@@ -13,7 +13,8 @@ along its sequence), with remat; a decode batch that does not divide over
 ``data`` (the cache's batch replicated); qwen3-moe's maclaurin backend at
 T = 1024 (the chunked route, B8's dispatch, on each head shard). Then the
 MoE aux loss under data sharding, which must be the global one, and what
-the sharded steps refuse.
+the sharded steps refuse. (SP_RULES and EP_DP_RULES:
+``tests/test_torch_sharded_rules.py``.)
 
 Tolerance: logits, loss and its parts, the gradient norm, the learning
 rate and the updated parameters and moments within RTOL = 1e-5 and ATOL
@@ -255,15 +256,18 @@ def test_dense_residual_beside_the_experts():
     _decode("arctic-480b", "DEFAULT_RULES")
 
 
-@pytest.mark.parametrize("rules", ["DEFAULT_RULES", "EP_DATA_RULES"])
+@pytest.mark.parametrize("rules", ["DEFAULT_RULES", "EP_DATA_RULES", "EP_DP_RULES"])
 def test_decode_batch_that_does_not_divide(rules):
     """One row over two data shards: tokens and the cache's batch dim are
-    replicated, as the reference's cell replicates them (under EP_DATA the
-    replicas' buffers still go to the experts' owners and back)."""
+    replicated, as the reference's cell replicates them (under EP_DATA and
+    EP_DP the replicas' buffers still go to the experts' owners and back;
+    under EP_DP "model", freed of the batch, cuts the ffn dims as tensor
+    parallelism does)."""
     cell = _decode("qwen3-moe-30b-a3b", rules, batch=1)
     assert tuple(cell.in_shardings[1].spec) == (None,)
+    heads = None if rules == "EP_DP_RULES" else "model"  # EP_DP cuts no kv heads
     for sh in cell.in_shardings[3]["kv"]:
-        assert tuple(sh.spec) == (None, None, None, "model", None)
+        assert tuple(sh.spec) == (None, None, None, heads, None)
 
 
 def test_maclaurin_train_step_on_head_shards():
@@ -297,11 +301,13 @@ def test_moe_aux_loss_is_the_global_one():
 # --------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("rules", ["SP_RULES", "EP_DP_RULES"])
-def test_rule_sets_without_a_sharded_step_raise(rules):
+def test_rule_sets_without_a_sharded_step_raise():
+    """Only the reference's six rule sets have a sharded step: heads cut
+    over "data" is none of them."""
     cfg = ARCHS["qwen3-moe-30b-a3b"].reduced()
+    odd = part.DEFAULT_RULES.replace(heads="data")
     with pytest.raises(NotImplementedError, match="rules"):
-        specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), _mesh(), getattr(part, rules))
+        specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), _mesh(), odd)
 
 
 def test_other_meshes_and_caches_raise():

@@ -1,8 +1,9 @@
 """The rule-sharded LM steps over distinct cards: paths 11 and 12 of
 ``chip_smoke.py`` on a (data, model) mesh of (2, n/2) cards (the dense
 and MoE models; rwkv6, zamba2, llama-vision and musicgen at a cut depth;
-Adafactor, microbatches and compressed gradients), and one full-width
-arctic-480b layer with its experts spread over four cards.
+Adafactor, microbatches and compressed gradients; qwen3-moe and zamba2
+under SP_RULES and EP_DP_RULES, path 13), and one full-width arctic-480b
+layer with its experts spread over four cards.
 
 Marked ``cuda``; each test skips inside its body unless the cards it needs
 are present (two, or four for arctic; one card repeated as the mesh's
@@ -144,6 +145,8 @@ def test_prefill_and_decode_across_cards(name):
         ("qwen3-moe-30b-a3b", "EP_DATA_RULES"),
         ("smollm-135m", "DP_ONLY_RULES"),
         ("smollm-135m", "DEFAULT_RULES"),
+        ("qwen3-moe-30b-a3b", "SP_RULES"),
+        ("qwen3-moe-30b-a3b", "EP_DP_RULES"),
     ],
 )
 def test_train_step_across_cards(name, rules):
@@ -189,6 +192,26 @@ def test_train_step_across_cards(name, rules):
         rms = (v[path].gather(cards[0])[off] / unbias).sqrt()
         assert bool((rms < TINY_GRAD).all()), path
         assert float(delta.max()) <= 2 * float(want["lr"]), path
+
+
+@pytest.mark.parametrize("rules", ["SP_RULES", "EP_DP_RULES"])
+def test_rule_set_prefill_across_cards(rules):
+    """qwen3-moe, two layers, a flash prefill under SP (the residual cut
+    along the sequence; B9 on each position's head shard) and EP_DP (the
+    batch over both axes; B9 on all heads of each position's rows)."""
+    cards = _cards(2)
+    mesh = _mesh(cards)
+    cfg = _cfg("qwen3-moe-30b-a3b", 2, attention_impl="flash")
+    params = _bf16_weights(tf.init_params(cfg, seed=0, device=cards[0]))
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    B, T = 4, 1024
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=cards[0], dtype=torch.int32)
+    shape = ShapeConfig("prefill", T, B, "prefill")
+    cell = build_cell(cfg, shape, mesh, getattr(part, rules), params=params)
+    build.reset_counts()
+    got = cell.step_fn(cell.args[0], tokens)
+    assert build.counts()["flash_attention"] == mesh.size * 2
+    _logits_close(got, ds.make_prefill_step(cfg)(params, tokens), SHARE)
 
 
 def test_arctic_layer_with_experts_over_four_cards():
@@ -312,6 +335,20 @@ def test_family_train_step_across_cards(name):
     changes = {"attention_backend": "maclaurin"} if name == "zamba2-2.7b" else {}
     cfg = _cfg(name, FAMILY_DEPTH[name], **changes)
     got, want, off, worst = _train_against_one_device(cfg, _mesh(cards), "DEFAULT_RULES", OCFG, cards)
+    for key in ("loss", "xent", "aux", "lr"):
+        assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
+    assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
+    assert off <= OFF_SHARE and worst <= 2 * float(want["lr"])
+
+
+@pytest.mark.parametrize("rules", ["SP_RULES", "EP_DP_RULES"])
+def test_hybrid_train_step_under_rule_sets_across_cards(rules):
+    """zamba2, one group, under SP (Mamba2 and the shared attention block
+    on the gathered sequence, their outputs reduce-scattered) and EP_DP
+    (the Mamba2 and FFN weights gathered over "model")."""
+    cards = _cards(2)
+    cfg = _cfg("zamba2-2.7b", FAMILY_DEPTH["zamba2-2.7b"], attention_backend="maclaurin")
+    got, want, off, worst = _train_against_one_device(cfg, _mesh(cards), rules, OCFG, cards, T=1024)
     for key in ("loss", "xent", "aux", "lr"):
         assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
     assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)

@@ -11,12 +11,16 @@ The families past dense and MoE (musicgen-medium, rwkv6-7b, zamba2-2.7b,
 llama-3.2-vision-90b: a train, a prefill and a decode cell each under
 ``choose_rules``, the VLM's with its image embeddings and its image
 cache) and the optimizer options (an Adafactor cell's ``vr``/``vc``
-shardings, a compressed cell's ``ef``, a microbatched one).
+shardings, a compressed cell's ``ef``, a microbatched one). The last two
+rule sets, SP_RULES and EP_DP_RULES: a train, a prefill and a decode cell
+of smollm-135m, qwen3-moe and zamba2-2.7b under each.
 
 Then one case a model held against the reference's one-device steps on the
 same weights (``convert``) and batch: smollm-135m under DEFAULT_RULES (FSDP
-and tensor parallelism) and qwen3-moe under EP_DATA_RULES (the experts'
-all-to-all), and one a family past them (musicgen-medium, rwkv6-7b and
+and tensor parallelism) and SP_RULES (the residual cut along the
+sequence), qwen3-moe under EP_DATA_RULES (the experts' all-to-all) and
+EP_DP_RULES (the batch over both axes, the ffn dims gathered), and one a
+family past them (musicgen-medium, rwkv6-7b and
 zamba2-2.7b under DEFAULT_RULES, llama-3.2-vision-90b under its serving
 rules, TP_ONLY, with its image embeddings), each a train step at steps 0
 and 3 on two batches (as
@@ -74,6 +78,11 @@ CELLS = [  # (model, kind, rules (None: choose_rules), batch, config changes)
     (name, kind, None, B, ())
     for name in ("musicgen-medium", "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-90b")
     for kind in ("train", "prefill", "decode")
+] + [
+    (name, kind, rules, B, ())
+    for rules in ("SP_RULES", "EP_DP_RULES")
+    for name in ("smollm-135m", "qwen3-moe-30b-a3b", "zamba2-2.7b")
+    for kind in ("train", "prefill", "decode")
 ]
 
 
@@ -130,6 +139,19 @@ def test_build_cell_equals_the_reference(name, kind, rules, batch, changes):
     assert floating == ({torch.float32} if kind == "train" else {torch.bfloat16})
 
 
+def test_a_cache_cut_twice_over_model_raises_as_the_reference():
+    """EP_DP's batch holds "model", and 3 kv heads send the decode cache's
+    sequence to "model" too (the reference's ``_seq_shard``): a spec that
+    names one mesh axis twice, which both packages refuse."""
+    cfg = dataclasses.replace(ARCHS["smollm-135m"].reduced(), **NARROW)
+    jcfg = dataclasses.replace(JARCHS["smollm-135m"].reduced(), **NARROW)
+    jmesh = jpart.abstract_mesh((2, 2), ("data", "model"))
+    with pytest.raises(Exception, match="duplicate"):
+        jspecs.build_cell(jcfg, JShapeConfig("d", T, B, "decode"), jmesh, jpart.EP_DP_RULES)
+    with pytest.raises(ValueError, match="twice"):
+        specs.build_cell(cfg, ShapeConfig("d", T, B, "decode"), _mesh(), part.EP_DP_RULES)
+
+
 def _close(t, j, what):
     t = np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, np.float64)
     j = np.asarray(j, np.float64)
@@ -159,7 +181,13 @@ def _batch(cfg, seed=3):
 
 
 @pytest.mark.parametrize(
-    "name, rules", [("smollm-135m", "DEFAULT_RULES"), ("qwen3-moe-30b-a3b", "EP_DATA_RULES")]
+    "name, rules",
+    [
+        ("smollm-135m", "DEFAULT_RULES"),
+        ("qwen3-moe-30b-a3b", "EP_DATA_RULES"),
+        ("smollm-135m", "SP_RULES"),
+        ("qwen3-moe-30b-a3b", "EP_DP_RULES"),
+    ],
 )
 def test_sharded_steps_match_the_reference(name, rules):
     cfg, jcfg = ARCHS[name].reduced(), JARCHS[name].reduced()
