@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-source, all started together) and drives thirteen paths: seven at the
+source, all started together) and drives fourteen paths: seven at the
 paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
-8, 9, 11, 12 and 13):
+8, 9, 11, 12, 13 and 14):
 
 1. compile -> save/load -> ``SVMEngine`` for the maclaurin family, with
    rows scaled just out of the Eq 3.11 envelope so the exact fallback
@@ -106,8 +106,18 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
    (B9 on head shards; against DEFAULT_RULES' residual and peak) and
    training (B8), zamba2's and smollm-135m's training; EP_DP_RULES (the
    batch over both axes, the ffn dims gathered) for qwen3-moe's training
-   (B8 on a position's row), prefill (B9) and decode. Path 5's profile act
-   runs after it.
+   (B8 on a position's row), prefill (B9) and decode;
+14. the dry run (``launch.dryrun``: a cell traced on fake devices at one,
+   two (and for training three) periods of layers and extrapolated, its
+   ops counted by ``launch.op_cost``) held against the same cells run on
+   the card under the same recorder (DRY_*): smollm-135m at full width
+   and depth on a 1 x 1 mesh (path 9's training batch, a bf16 flash and a
+   maclaurin prefill: flops and launches equal, the peak over the placed
+   arguments within 15%, the median step against the roofline bound) and
+   qwen3-moe on path 11's 2 x 2 slots (EP_DATA training, SP flash
+   prefill: flops and every collective call equal), while smollm-135m's
+   decode_32k cell is traced on the fake 16 x 16 production mesh in a
+   process of its own. Path 5's profile act runs after it.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after (path 5 in two windows: its acts, and its profile at the
@@ -128,7 +138,8 @@ nvidia-smi, one JSON line of kernels, and last ``{"ok": true, "device":
 without a card, or without the repo's ``src/`` beside it.
 ``python3 chip_smoke.py --eighth-path`` runs path 8 alone,
 ``--ninth-path`` path 9, ``--tenth-path`` path 10, ``--eleventh-path``
-path 11, ``--twelfth-path`` path 12, ``--thirteenth-path`` path 13.
+path 11, ``--twelfth-path`` path 12, ``--thirteenth-path`` path 13,
+``--fourteenth-path`` path 14.
 """
 
 from __future__ import annotations
@@ -159,9 +170,11 @@ SCALED_ROWS = (0, 3, 8, 16)  # rows per request pushed out of the envelope
 OUTSIDE = 1.25
 EXACT_ROWS = 64
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); the same
+# table as ``launch.roofline``'s (PEAK_F32, PEAK_BF16, PEAK_F32_3XTF32,
+# HBM_BW), which prices the dry run's cells.
 PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = 989.4e12
 # f32-accurate products from the tensor cores: 3xTF32 spends three TF32
 # products (hi*hi + hi*lo + lo*hi) on one, at the 495 TFLOP/s dense TF32
 # rate of NVIDIA's H100 SXM data sheet. The bound of every kernel whose work
@@ -582,6 +595,35 @@ SHARD13_ATTN_CASES = (  # what one EP_DP position gives B9 and B8: 32 heads of i
     ("maclaurin_attention", "EP_DP batch block", (32, 1024, 128, 128), "float32"),
 )
 SHARD13_PEAK = 72e9
+# Path 14: the dry run (``launch.dryrun``: the cell traced on fake devices
+# at one and two periods of layers, extrapolated) held against the same
+# cell run on the card under the same recorder (``launch.op_cost``). On a
+# 1 x 1 mesh of the card, smollm-135m at full width and depth: path 9's
+# training batch, a bf16 flash prefill (B9) and a maclaurin prefill (B8);
+# flops and launches equal, the peak over the placed arguments within
+# DRY_PEAK_REL, the median of DRY_TIMED steps after a warm-up against the
+# roofline bound. On path 11's 2 x 2 slots, path 11's qwen3-moe EP_DATA
+# training and path 13's SP flash prefill: flops and every collective call
+# (kind, bytes, group, count) equal. And one production cell, DRY_CELL, on
+# the 16 x 16 mesh of fake devices, traced by ``python -m
+# repro_torch.launch.dryrun`` in a process of its own while the card runs
+# the rest (at most DRY_CELL_S); that process is stopped while a 1 x 1
+# step is timed, and each such step is timed again beside it.
+DRY_SMALL = (  # (label, config changes, (shape name, T, B, kind))
+    ("train", {}, ("path14_train", 2048, 8, "train")),
+    ("flash prefill", {"attention_impl": "flash"}, ("path14_prefill", 2048, 4, "prefill")),
+    ("maclaurin prefill", MACLAURIN, ("path14_prefill", 2048, 4, "prefill")),
+)
+DRY_SLOTS = (  # (label, model, layers, config changes, rules, (shape name, T, B, kind))
+    ("qwen3-moe EP_DATA train", "qwen3-moe-30b-a3b", 2, dict(dtype="float32", **MACLAURIN),
+     "EP_DATA_RULES", ("path14_train", 1024, 2, "train")),
+    ("qwen3-moe SP flash prefill", "qwen3-moe-30b-a3b", 2, dict(dtype="float32", attention_impl="flash"),
+     "SP_RULES", ("path14_prefill", 2048, 2, "prefill")),
+)
+DRY_PEAK_REL = 0.15
+DRY_TIMED = 3
+DRY_CELL = (LM_NAME, "decode_32k")
+DRY_CELL_S = 600
 # PyTorch's caching allocator splits a cached block for a request only
 # where more than 1 MiB would remain, so a shard may take up to this much
 # more than its bytes: the card's allocated memory grows by the bytes
@@ -736,43 +778,6 @@ def fastfood_bound(n: int, f: int, k: int, d: int, w_bytes: int) -> tuple[float,
     t_ops = (flops / PEAK_FP32_FLOPS + products / PEAK_F32_3XTF32) * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def flash_work(bh: int, t: int, d: int, dv: int, nbytes_per: int) -> tuple[float, float]:
-    """(flops, bytes) of kernel B9, causal: for each (row, key) pair on or
-    below the diagonal, the q.k product (2d), p.v (2dv) and four
-    elementwise operations (scale, subtract, exp, add); q, k, v read once
-    and the output written once at ``nbytes_per`` a value."""
-    pairs = bh * t * (t + 1) / 2.0
-    flops = pairs * (2.0 * d + 2.0 * dv + 4.0)
-    nbytes = nbytes_per * bh * t * (2.0 * d + 2.0 * dv)
-    return flops, nbytes
-
-
-def maclaurin_work(bh: int, t: int, d: int, dv: int, chunk: int) -> tuple[float, float]:
-    """(flops, bytes) of the function kernel B8 computes: the smaller of two
-    ways to the same sums. The chunked moments, as the reference kernel
-    computes them: per query phi2(q) (d^2), the readout phi2(q).S2 and
-    phi2(q).k2 (2 d^2 (dv + 1)), q.S1 and q.k1 (2 d (dv + 1)), and the sums
-    (2 dv + 6); per key of every chunk but the last phi2(k) (d^2), S2 and
-    k2 (2 d^2 (dv + 1)), S1 and k1 (2 d (dv + 1)), v0 (dv); per (row, key)
-    pair of a chunk on or below the diagonal q.k (2d), w(u) (4) and w v plus
-    the row sum (2 dv + 2). The causal quadratic form: that last count over
-    every pair on or below the diagonal, the smaller below T ~ 2 d dv. The
-    inputs are f32 (the reference casts them), read once; the output is
-    written once."""
-    per_q = d * d + 2.0 * d * d * (dv + 1) + 2.0 * d * (dv + 1) + 2.0 * dv + 6.0
-    folded = min(t, (t - 1) // chunk * chunk)  # keys of every chunk but the last
-    per_k = d * d + 2.0 * d * d * (dv + 1) + 2.0 * d * (dv + 1) + dv
-    pairs = 0.0
-    for c0 in range(0, t, chunk):
-        n = min(chunk, t - c0)
-        pairs += n * (n + 1) / 2.0
-    per_pair = 2.0 * d + 2.0 * dv + 6.0
-    chunked = bh * (t * per_q + folded * per_k + pairs * per_pair)
-    quadratic = bh * t * (t + 1) / 2.0 * per_pair
-    nbytes = 4.0 * bh * t * (2.0 * d + 2.0 * dv)
-    return min(chunked, quadratic), nbytes
 
 
 def kernel_args(art):
@@ -1053,6 +1058,7 @@ def main() -> int:
         "--eleventh-path": (eleventh_path, attn),
         "--twelfth-path": (twelfth_path, attn),
         "--thirteenth-path": (thirteenth_path, attn),
+        "--fourteenth-path": (fourteenth_path, attn),
     }
     if sys.argv[1:2] and sys.argv[1] in single:
         from repro_torch.kernels import build
@@ -2621,6 +2627,8 @@ def run(dev) -> list[dict]:
     kernels_shard12, launches12 = twelfth_path(dev)
     # ============== thirteenth path (the sharded steps under SP and EP_DP)
     kernels_shard13, launches13 = thirteenth_path(dev)
+    # ==================== fourteenth path (the dry run against the card)
+    launches14 = fourteenth_path(dev)[1]
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2630,7 +2638,7 @@ def run(dev) -> list[dict]:
     launches5 = {n: launches5[n] + profiled[n] for n in launches5}
     paths = (launches, launches2, launches3, launches4)
     paths += (launches5, launches6, launches7, launches8, launches9, launches10, launches11)
-    paths += (launches12, launches13)
+    paths += (launches12, launches13, launches14)
     per_path = {n: [p[n] for p in paths] for n in launches4}
 
     kernels = [
@@ -3236,6 +3244,7 @@ def attention_kernel_checks(dev, cases=ATTN_CASES) -> tuple[dict, dict]:
         maclaurin_attention_ref,
         softmax_attention_ref,
     )
+    from repro_torch.launch.op_cost import flash_work, maclaurin_work
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -4022,6 +4031,7 @@ def grad_checks(dev) -> tuple[dict, dict]:
     from repro_torch.kernels.common import tuning
     from repro_torch.kernels.maclaurin_attn import kernel as ma
     from repro_torch.kernels.maclaurin_attn.ref import maclaurin_attention_ref
+    from repro_torch.launch.op_cost import maclaurin_work
     from repro_torch.models import maclaurin_attention as mac
 
     config = tuning.lookup("maclaurin_attn")
@@ -5695,6 +5705,207 @@ def serve_cell_checks(
         if key in art.meta:
             fields[key] = art.meta[key]
     return fields
+
+
+def tree_locals(tree):
+    """Position 0's blocks of a placed tree: on a 1 x 1 mesh, the whole
+    tensors."""
+    from repro_torch.sharding.partitioning import Sharded, map_tree
+
+    return map_tree(lambda x: x.local(0) if isinstance(x, Sharded) else x, tree)
+
+
+def stopped(proc):
+    """A context in which ``proc``'s process group (started in a session of
+    its own) is stopped (SIGSTOP), so that it takes no CPU from a timing;
+    continued (SIGCONT) after it."""
+    import contextlib
+    import os
+    import signal
+
+    @contextlib.contextmanager
+    def frozen():
+        running = proc is not None and proc.poll() is None
+        if running:
+            os.killpg(proc.pid, signal.SIGSTOP)
+        try:
+            yield
+        finally:
+            if running:
+                os.killpg(proc.pid, signal.SIGCONT)
+
+    return frozen()
+
+
+def dry_against_card(dev, label, cfg, shape, mesh, rules, ocfg, beside=None) -> dict:
+    """One cell's dry run on fake devices shaped as ``mesh`` against the
+    cell run once on ``mesh`` (slots of the card) under the same recorder:
+    flops, matmul flops by dtype, launches and collective calls equal. On
+    a 1 x 1 mesh also the peak over the placed arguments within
+    DRY_PEAK_REL and the median step against the roofline bound, timed
+    with ``beside`` (a process tracing on the CPU) stopped, and again with
+    it running; a prefill also through path 4's one-device entry point on
+    the same weights and tokens. Returns the phase's fields."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.decode_step import make_prefill_step
+
+    t0 = time.perf_counter()
+    pred, _ = dryrun.predict(cfg, shape, dryrun.fake_mesh(mesh.sizes, mesh.axis_names), rules, ocfg)
+    dry_s = time.perf_counter() - t0
+    cell = build_cell(cfg, shape, mesh, rules, ocfg)
+    args = cell.args
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    placed = sum(dryrun._placed_bytes(args, mesh.size))
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = build.counts()
+    got = dryrun.measure(cell.step_fn, *args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    after = build.counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    what = f"path 14 {label}"
+    fields = dict(cell=label, model=cfg.name, layers=cfg.n_layers, shape=[shape.global_batch, shape.seq_len],
+                  kind=shape.kind, rules=pred["rule_set"], dry_run_s=dry_s, trace_s=pred["trace_seconds"])
+    fields.update(flops=[pred["total"]["flops"], got["total"]["flops"]],
+                  matmul_flops=[pred["total"]["matmul_flops"], got["total"]["matmul_flops"]],
+                  launches=[pred["kernels"], launched], calls=[len(pred["calls"]), len(got["calls"])])
+    check(pred["total"]["flops"] == got["total"]["flops"], f"{what}: flops {fields['flops']}")
+    check(pred["total"]["matmul_flops"] == got["total"]["matmul_flops"], f"{what}: matmul flops")
+    check(pred["kernels"] == got["kernels"] == launched, f"{what}: launches {fields['launches']}")
+    check(pred["calls"] == got["calls"], f"{what}: collective calls differ")
+    fields["collectives"] = {c["kind"]: 0 for c in got["calls"]}
+    for c in got["calls"]:
+        fields["collectives"][c["kind"]] += c["count"]
+    if mesh.size == 1:
+        want = pred["memory"]["peak_device_bytes"] - pred["memory"]["argument_bytes"]
+        rel = abs(want - peak) / peak
+        fields.update(peak_over_args=[want, peak], peak_rel=rel, placed_bytes=placed,
+                      base_bytes=base, argument_bytes=pred["memory"]["argument_bytes"],
+                      recorded_peak_on_card=got["peak"].get(str(args[0]["lm_head"]["w"].local(0).device)))
+        check(rel <= DRY_PEAK_REL, f"{what}: peak {want} predicted, {peak} measured")
+
+        def median_s(step, *step_args):
+            def once():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(*step_args)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t
+
+            once()
+            return statistics.median(once() for _ in range(DRY_TIMED))
+
+        with stopped(beside):
+            step_s = median_s(cell.step_fn, *args)
+        fields["step_ms_beside_trace"] = median_s(cell.step_fn, *args) * 1e3
+        if shape.kind == "prefill":  # path 4's f32 parameters, holding the cell's weights
+            tree, tokens = (tree_locals(a) for a in args)
+            params = tf.init_params(cfg, seed=SEED, device=dev).assign(tree)
+            with stopped(beside):
+                fields["one_device_ms"] = median_s(make_prefill_step(cfg), params, tokens) * 1e3
+            del params
+        terms = {
+            "compute": roofline.compute_seconds(pred["cost"]),
+            "memory": pred["cost"]["bytes_accessed"] / roofline.HBM_BW,
+            "collective": roofline.link_seconds(pred["collective_ops"]),
+        }
+        bound_s = max(terms.values())
+        fields.update(step_ms=step_s * 1e3, bound_ms=bound_s * 1e3, terms_ms={k: v * 1e3 for k, v in terms.items()},
+                      roofline_frac=bound_s / step_s, bound_by=max(terms, key=terms.get))
+    del cell, args, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return fields
+
+
+def fourteenth_path(dev) -> tuple[list, dict]:
+    """Path 14: the dry run held against the card (DRY_* above): the
+    production cell DRY_CELL traced on the CPU in a process of its own,
+    while smollm-135m's three cells run on a 1 x 1 mesh of the card (that
+    process stopped while a step is timed, and timed again beside it) and
+    qwen3-moe's two on 2 x 2 slots, each against its dry run. Returns (no
+    ``kernels`` entries: B8 and B9's stand at earlier paths' shapes, every
+    kernel's launches)."""
+    import dataclasses
+    import os
+    import signal
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun, make_mesh, roofline
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.train.train_step import OptimizerConfig
+
+    t_path = time.perf_counter()
+    card = card_line()
+    phase("fourteenth_path_torch", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
+    arch, shape_name = DRY_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape_name, "--force"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    seconds = {}
+    try:
+        torch.cuda.empty_cache()
+        build.reset_counts()
+        mesh = make_mesh((1, 1), ("data", "model"), devices=[dev])
+        for label, changes, (name, T, B, kind) in DRY_SMALL:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(LM_NAME), **changes)
+            row = dry_against_card(dev, label, cfg, ShapeConfig(name, T, B, kind), mesh, None, None, beside=proc)
+            phase("dry_card", card=card, **row)
+            seconds[label] = time.perf_counter() - t0
+        mesh = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
+        for label, name, layers, changes, rules, (sname, T, B, kind) in DRY_SLOTS:
+            t0 = time.perf_counter()
+            cfg = family_config(name, layers, **changes)
+            ocfg = OptimizerConfig(warmup=2, total_steps=10) if kind == "train" else None
+            shape = ShapeConfig(sname, T, B, kind)
+            row = dry_against_card(dev, label, cfg, shape, mesh, getattr(part, rules), ocfg)
+            phase("dry_slots", card=card, **row)
+            seconds[label] = time.perf_counter() - t0
+        launches = build.counts()
+        t0 = time.perf_counter()
+        out, _ = proc.communicate(timeout=max(1.0, DRY_CELL_S - (t0 - t_path)))
+        seconds["production cell wait"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    check(proc.returncode == 0, f"path 14: the dry run of {arch} {shape_name} failed:\n{out[-3000:]}")
+    tag = dryrun.cell_tag(arch, shape_name)
+    with open(ROOT / dryrun.RESULTS_DIR / f"{tag}.json") as f:
+        rec = json.load(f)
+    mem, cost = rec["memory"], rec["cost"]
+    numbers = [mem[k] for k in mem] + [cost["flops"], cost["bytes_accessed"]]
+    check(all(math.isfinite(x) and x >= 0 for x in numbers), "path 14: a production cell's number is not finite")
+    check(rec["n_devices"] == 256 and rec["mesh"] == "16x16", "path 14: the production cell's mesh")
+    check(mem["peak_device_bytes"] >= mem["argument_bytes"] > 0 and cost["flops"] > 0, "path 14: production cell")
+    summary = out.strip().splitlines()[0] if out.strip() else ""
+    row = roofline.analyze_cell(rec)
+    phase("dry_cell", card=card, summary=summary, position=rec["position"], trace_seconds=rec["trace_seconds"],
+          memory=mem, cost=cost, collectives=rec["collectives"],
+          roofline={k: v for k, v in row.items() if k != "collectives"},
+          roofline_row=roofline.to_markdown([row]).splitlines()[-1])
+    seconds["total"] = time.perf_counter() - t_path
+    phase("fourteenth_path_launches", **launches)
+    phase("fourteenth_path_seconds", card=card, **seconds)
+    for kernel in ("flash_attention", "maclaurin_attention"):
+        check(launches[kernel] > 0, f"{kernel} never launched on path 14")
+    return [], launches
 
 
 if __name__ == "__main__":

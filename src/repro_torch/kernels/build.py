@@ -17,7 +17,12 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``CudaKernel.launch`` raises on a non-zero code and otherwise adds one to
 ``launches`` — the count a run reads to show that its path went through
 the kernel. ``on_card`` and ``check_operands`` are the dispatch rule and
-the pointer checks every wrapper applies before a launch.
+the pointer checks every wrapper applies before a launch. Inside
+``card_stand_in`` (the dry run, ``launch.dryrun``) a fake tensor on a
+``meta`` or ``lazy`` device (the dry run's mesh positions) stands in for
+a tensor on the card: ``on_card`` takes it for one, and each wrapper
+reaches its launch op, whose shape rule (``register_fake``) gives the
+output; a bare ``meta`` tensor raises as before.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ import re
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -176,14 +183,34 @@ def counts() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
+_stand_in = 0  # > 0 inside ``card_stand_in``
+
+
+@contextmanager
+def card_stand_in():
+    """While it is open, ``on_card`` takes a fake tensor on a ``meta`` or
+    ``lazy`` device for a tensor on the card (the dry run's mesh
+    positions)."""
+    global _stand_in
+    _stand_in += 1
+    try:
+        yield
+    finally:
+        _stand_in -= 1
+
+
 def on_card(Z: torch.Tensor, name: str) -> bool:
     """Whether ``Z`` lies on a CUDA card (launch the kernel) or the CPU
-    (compute with the plain twin); any other device raises."""
+    (compute with the plain twin); any other device raises, but a fake
+    ``meta`` or ``lazy`` tensor inside ``card_stand_in``, which stands in
+    for the card."""
     if Z.device.type == "cpu":
         return False
-    if Z.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {Z.device}")
-    return True
+    if Z.device.type == "cuda":
+        return True
+    if Z.device.type in ("meta", "lazy") and _stand_in and isinstance(Z, FakeTensor):
+        return True
+    raise ValueError(f"{name} runs on cpu or cuda, not {Z.device}")
 
 
 def refuse_grad(name: str, *operands) -> None:

@@ -15,6 +15,11 @@ instead of padding silently. ``block_q`` and ``block_k`` keep the
 reference's signature and defaults (256 x 256), and so refuse exactly
 where it does; they set that refusal only. The kernel runs its one 64 x
 64 tile whatever blocks are named, and masks keys past T itself.
+
+The launch is one op, ``torch.ops.repro_torch.flash_attention``
+(``launch_op``), so that a dispatch mode sees it whole: its shape rule
+gives the dry run (``launch.dryrun``) the output, and ``launch.op_cost``
+counts its work with ``flash_work``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,16 @@ def flash_attention_cuda(q, k, v, *, scale=None, causal=True, block_q=None, bloc
     check_operands(
         q, {"k": (k, (bh, t, d), q.dtype), "v": (v, (bh, t, dv), q.dtype)}, z_dtype=q.dtype
     )
+    return launch_op(q, k, v, scale, bool(causal))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def launch_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, causal: bool
+) -> torch.Tensor:
+    """One launch on checked operands: (BH, T, dv) in q's type."""
+    bh, t, d = q.shape
+    dv = v.shape[-1]
     out = torch.empty((bh, t, dv), dtype=q.dtype, device=q.device)
     if bh == 0 or t == 0:
         return out
@@ -115,3 +130,8 @@ def flash_attention_cuda(q, k, v, *, scale=None, causal=True, block_q=None, bloc
             stream,
         )
     return out
+
+
+@launch_op.register_fake
+def _(q, k, v, scale, causal):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[-1]))

@@ -17,6 +17,11 @@ picks the kernel's route: the one a cost model fitted on the card finds
 faster. On the card, a d the source is not compiled for is zero-padded
 to the next width it is (``pad_head_dim``), which leaves every q.k, and
 so the function, unchanged.
+
+The launch is one op, ``torch.ops.repro_torch.maclaurin_attention``
+(``launch_op``), so that a dispatch mode sees it whole: its shape rule
+gives the dry run (``launch.dryrun``) the output, and ``launch.op_cost``
+counts its work with ``maclaurin_work``.
 """
 
 from __future__ import annotations
@@ -183,7 +188,18 @@ def maclaurin_attention_cuda(
     taken = force_route or route(bh, t, d, dv)
     if taken not in ROUTES:
         raise ValueError(f"maclaurin_attention: route {taken!r} not in {ROUTES}")
-    out = torch.empty((bh, t, dv), dtype=f32, device=q.device)
+    return launch_op(q, k, v, chunk, ROUTES.index(taken), scale)
+
+
+@torch.library.custom_op("repro_torch::maclaurin_attention", mutates_args=())
+def launch_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, chunk: int, route_index: int, scale: float
+) -> torch.Tensor:
+    """One launch on checked f32 operands (d a compiled width): (BH, T, dv)
+    f32."""
+    bh, t, d = q.shape
+    dv = v.shape[-1]
+    out = torch.empty((bh, t, dv), dtype=torch.float32, device=q.device)
     if bh == 0 or t == 0:
         return out
     with torch.cuda.device(q.device):
@@ -198,8 +214,13 @@ def maclaurin_attention_cuda(
             d,
             dv,
             chunk,
-            ROUTES.index(taken),
+            route_index,
             scale,
             stream,
         )
     return out
+
+
+@launch_op.register_fake
+def _(q, k, v, chunk, route_index, scale):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[-1]), dtype=torch.float32)

@@ -12,8 +12,10 @@ devices=["cuda:0"] * 4)`` splits the work four ways on one card (four
 launches and a gather in place of one launch), as ``repro``'s test suite
 forces eight host devices onto one CPU.
 
-``repro.launch.mesh.make_production_mesh`` (a TPU pod's 16 x 16 or
-2 x 16 x 16 topology) has no counterpart.
+``make_production_mesh`` builds the reference's production topology,
+(16, 16) over ("data", "model") or (2, 16, 16) with "pod" in front, over
+the devices given: every CUDA device by default, so it raises below 256
+(or 512) cards; the dry run (``launch.dryrun``) passes fake ones.
 """
 
 from __future__ import annotations
@@ -84,3 +86,12 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], devices=None) -> Me
             f"a {shape} mesh needs {math.prod(shape)} devices, got {len(devices)}"
         )
     return Mesh(devices=devices, axis_names=axes, sizes=shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's production mesh: (16, 16) ("data", "model"), or
+    (2, 16, 16) with "pod" in front, over ``devices`` (every CUDA device by
+    default). Raises, as ``make_mesh`` does, without exactly 256 (512)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices=devices)

@@ -1,16 +1,45 @@
-"""Roofline cost priors of the serving kernels on an NVIDIA H100.
+"""Roofline terms on an NVIDIA H100: the serving kernels' cost priors, and
+the analysis of the dry run's cells.
 
-A copy of the serving half of ``repro.launch.roofline`` (the prior
+The serving half is a copy of ``repro.launch.roofline``'s (the prior
 ``compile_model`` prunes candidates with), with the card's constants in
 place of the TPU's: 67 TFLOP/s fp32 outside the tensor cores (every
 serving kernel here is fp32 SIMT) and 3.35 TB/s of HBM, the H100 SXM
 data-sheet peaks at 700 W. The prior ranks candidates; measurement still
-decides. The HLO-analysis half of the reference has no counterpart.
+decides.
+
+The analysis half (``model_flops``, ``wire_bytes``, ``analyze_cell``,
+``load_all``, ``to_markdown``, ``main``) reads the dry run's cells
+(``launch.dryrun``, ``results/dryrun_torch``) and derives, per device of
+the 16 x 16 mesh:
+
+    compute term    = matmul flops of each dtype at that dtype's peak
+                      (989.4 TFLOP/s dense bf16, 67 TFLOP/s f32: the port
+                      keeps TF32 off in its library products), kernels B8
+                      and B9's f32 work at the rate of f32-accurate 3xTF32
+                      products (495 / 3 TFLOP/s, as the kernels' own
+                      bounds count it) + the other flops at the f32 peak
+    memory term     = bytes accessed / 3.35 TB/s
+    collective term = the port's route (``route_wire_bytes``: the first
+                      member of a group receives and sends (g - 1) results)
+                      over NVLink, 450 GB/s a direction, where a group's
+                      members lie in one node of ``NODE_GPUS`` consecutive
+                      device indices, else over the network between nodes,
+                      50 GB/s a card (NDR 400 Gb/s)
+
+beside the reference's ring multipliers (``wire_bytes``, a copy) at the
+same links: what an NCCL route would move. MODEL flops are the classic 6 N
+D (train) or 2 N D, against the program's flops over every position.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
+
 from repro_torch.core.families.fourier import DEFAULT_NUM_FEATURES
+from repro_torch.launch.op_cost import F32_PRODUCTS
 
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
@@ -109,3 +138,169 @@ def family_candidate_seconds(
             return fwht_tile_seconds(cfg, n=n, d=d, f=f, k=k, weight_bytes=wb)
         return rff_tile_seconds(cfg, n=n, d=d, f=f, k=k, weight_bytes=wb)
     return None
+
+
+# ---------------------------------------------------------------- analysis
+
+PEAK_BF16 = 989.4e12  # dense bf16 on the tensor cores, H100 SXM5 80GB at 700 W
+PEAK_F32 = 67e12  # f32 without TF32
+PEAK_TF32 = 495e12  # dense TF32 on the tensor cores
+# f32-accurate products as the hand-written kernels make them: 3xTF32,
+# three TF32 products (hi*hi + hi*lo + lo*hi) for one
+PEAK_F32_3XTF32 = PEAK_TF32 / 3
+NVLINK_BW = 450e9  # a direction, between two cards of one node
+NODE_LINK_BW = 50e9  # a card's share of the network between nodes (NDR 400 Gb/s)
+MATMUL_PEAKS = {
+    "torch.bfloat16": PEAK_BF16,
+    "torch.float16": PEAK_BF16,
+    F32_PRODUCTS: PEAK_F32_3XTF32,
+}
+RESULTS_DIR = "results/dryrun_torch"
+
+
+def wire_bytes(collective_ops: list[dict], default_group: int = 16) -> float:
+    """The reference's ring multipliers on each op's result bytes."""
+    total = 0.0
+    for op in collective_ops:
+        g = op.get("group_size") or default_group
+        b = op.get("total_bytes", op["bytes"] * op.get("count", 1))
+        k = op["kind"]
+        if k == "all-reduce":
+            total += 2 * (g - 1) / g * b
+        elif k == "all-gather":
+            total += (g - 1) / g * b
+        elif k == "reduce-scatter":
+            total += (g - 1) * b
+        elif k == "all-to-all":
+            total += (g - 1) / g * b
+        else:  # collective-permute
+            total += b
+    return total
+
+
+def route_bytes(op: dict) -> float:
+    """Bytes over the busiest link of one op (all its calls) on the port's
+    route (``sharding.collectives``), from its result bytes b a member and
+    the s distinct devices of its g members: a reduction, a max or an
+    all-gather moves (s - 1) results through the first member each way;
+    a reduce-scatter receives s - 1 whole inputs (g b each) there; an
+    all-to-all or a gather moves each member's g-th part directly."""
+    b = op.get("total_bytes", op["bytes"] * op.get("count", 1))
+    g = op.get("group_size") or 1
+    s = op.get("span", g)
+    if op["kind"] == "reduce-scatter":
+        return (s - 1) * g * b
+    if op["kind"] in ("all-to-all", "gather"):
+        return (s - 1) / g * b
+    return (s - 1) * b
+
+
+def route_wire_bytes(collective_ops: list[dict]) -> float:
+    return sum(route_bytes(op) for op in collective_ops)
+
+
+def link_seconds(collective_ops: list[dict], ring: bool = False) -> float:
+    """Time of the ops on their links: NVLink within a node, the network
+    between nodes (an op's ``nodes`` > 1)."""
+    t = 0.0
+    for op in collective_ops:
+        nbytes = wire_bytes([op]) if ring else route_bytes(op)
+        t += nbytes / (NVLINK_BW if op.get("nodes", 1) <= 1 else NODE_LINK_BW)
+    return t
+
+
+def compute_seconds(cost: dict) -> float:
+    """Matmul flops of each dtype (and the kernels' work at their rate)
+    at its peak, the rest at the f32 peak."""
+    mm = cost.get("matmul_flops", {})
+    rest = cost["flops"] - sum(mm.values())
+    return sum(f / MATMUL_PEAKS.get(dt, PEAK_F32) for dt, f in mm.items()) + rest / PEAK_F32
+
+
+def model_flops(meta: dict) -> float:
+    n = meta["active_params"]
+    tokens = meta["global_batch"] * (1 if meta["kind"] == "decode" else meta["seq_len"])
+    mult = 6 if meta["kind"] == "train" else 2
+    return mult * n * tokens
+
+
+def analyze_cell(rec: dict) -> dict:
+    n_dev = rec["n_devices"]
+    ops = rec.get("collective_ops", [])
+    terms = {
+        "compute": compute_seconds(rec["cost"]),
+        "memory": rec["cost"]["bytes_accessed"] / HBM_BW,
+        "collective": link_seconds(ops),
+    }
+    dominant = max(terms, key=terms.get)
+    mf = model_flops(rec)
+    flops_global = rec.get("total", {}).get("flops", rec["cost"]["flops"] * n_dev)
+    ideal = mf / n_dev / PEAK_BF16
+    bound = max(terms.values())
+    return {
+        "arch": rec["arch"],
+        "shape": rec["shape"],
+        "kind": rec["kind"],
+        "t_compute_s": terms["compute"],
+        "t_memory_s": terms["memory"],
+        "t_collective_s": terms["collective"],
+        "t_collective_ring_s": link_seconds(ops, ring=True),
+        "route_wire_bytes": route_wire_bytes(ops),
+        "ring_wire_bytes": wire_bytes(ops),
+        "dominant": dominant,
+        "model_flops": mf,
+        "flops_global": flops_global,
+        "useful_ratio": mf / flops_global if flops_global else 0.0,
+        "roofline_fraction": ideal / bound if bound else 0.0,
+        "bound_s": bound,
+        "mem_gib_per_dev": rec["memory"]["peak_device_bytes"] / 2**30,
+        "collectives": rec.get("collectives", {}),
+        "rules": rec.get("rules", "auto"),
+        "rule_set": rec.get("rule_set"),
+    }
+
+
+def load_all(mesh: str = "16x16", rules: str = "auto") -> list[dict]:
+    out = []
+    for path in sorted(glob.glob(os.path.join(RESULTS_DIR, f"*__{mesh}.json"))):
+        # exact arch__shape__mesh tags only: variants carry more __suffixes
+        with open(path) as f:
+            rec = json.load(f)
+        if rec.get("rules", "auto") != rules or rec["mesh"] != mesh:
+            continue
+        out.append(analyze_cell(rec))
+    return out
+
+
+def to_markdown(rows: list[dict]) -> str:
+    hdr = (
+        "| arch | shape | compute (s) | memory (s) | collective (s) | ring (s) | dominant | "
+        "MODEL/flops | roofline frac | mem GiB/dev |\n"
+        "|---|---|---|---|---|---|---|---|---|---|\n"
+    )
+    lines = []
+    for r in rows:
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['t_compute_s']:.3e} | "
+            f"{r['t_memory_s']:.3e} | {r['t_collective_s']:.3e} | "
+            f"{r['t_collective_ring_s']:.3e} | **{r['dominant']}** | "
+            f"{r['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} | "
+            f"{r['mem_gib_per_dev']:.1f} |"
+        )
+    return hdr + "\n".join(lines) + "\n"
+
+
+def main():
+    rows = load_all()
+    os.makedirs("results", exist_ok=True)
+    md = to_markdown(rows)
+    with open("results/roofline_torch.md", "w") as f:
+        f.write(md)
+    with open("results/roofline_torch.json", "w") as f:
+        json.dump(rows, f, indent=1)
+    print(md)
+    print(f"{len(rows)} cells analyzed -> results/roofline_torch.md")
+
+
+if __name__ == "__main__":
+    main()

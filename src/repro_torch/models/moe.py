@@ -128,8 +128,12 @@ def experts(params, buf):
 
 
 def load_counts(expert_idx, E: int):
-    """(B, T, E) f32: how many of each token's top-k picks name each expert."""
-    one_hot = torch.nn.functional.one_hot(expert_idx, E).to(torch.float32)
+    """(B, T, E) f32: how many of each token's top-k picks name each expert.
+    The one-hot is a comparison with the expert ids (what
+    ``F.one_hot`` computes, without its host-side range check, and the same
+    ops on the card, the CPU and the dry run's fake tensors)."""
+    ids = torch.arange(E, device=expert_idx.device)
+    one_hot = (expert_idx[..., None] == ids).to(torch.float32)
     return torch.sum(one_hot, dim=2)
 
 

@@ -239,9 +239,10 @@ def _leaf(tree: dict, path: str):
 def init_params(cfg: ModelConfig, seed: int = SEED, device=None) -> LMParams:
     """Random weights from a ``torch.Generator`` seeded with ``seed``, at
     the reference's scales. Built on ``device``: CUDA unless the caller
-    says, raising when there is no card."""
+    says, raising when there is no card. On a ``meta`` device (shapes
+    only, as the dry run builds a full-width model) nothing is drawn."""
     dev = _device.resolve(device)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         return LMParams(cfg, generator, dev)
 

@@ -24,20 +24,58 @@ adds those shares: Megatron's pair of "g" (all-reduce, then identity) and
 whole loss, composes to it. ``all_max`` and ``gather`` carry no custom
 backward: the max is taken on values a caller detaches, and ``gather`` is
 copies and a concatenation, which autograd differentiates itself.
+
+``OBSERVERS`` (empty unless a cost recorder runs: ``launch.op_cost``)
+hear of each collective of two members or more once, backward ones
+included, under the reference's kinds ("all-reduce", "all-gather",
+"reduce-scatter", "all-to-all") or their own ("gather", "all-max", and
+"reduce" for a ``sum_in_order`` that no other collective called): the
+kind, the members' devices and the bytes of each member's result (the
+gathered whole on the first member for "gather" and "reduce"), as the
+reference's HLO gives a collective's result shape.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 from torch.autograd import Function
+
+OBSERVERS: list = []  # callables (kind, devices, result bytes a member)
+_inside = threading.local()  # set while a noted collective runs
+
+
+class _noted:
+    """Tell ``OBSERVERS`` of one collective, and not of the collectives it
+    calls."""
+
+    def __init__(self, kind: str, xs, result_bytes: int):
+        self.outer = len(xs) > 1 and bool(OBSERVERS) and not getattr(_inside, "on", False)
+        if self.outer:
+            for observe in OBSERVERS:
+                observe(kind, [x.device for x in xs], int(result_bytes))
+
+    def __enter__(self):
+        if self.outer:
+            _inside.on = True
+
+    def __exit__(self, *exc):
+        if self.outer:
+            _inside.on = False
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
 
 
 def sum_in_order(xs):
     """The members' tensors added in order on the first member's device."""
-    total = xs[0]
-    for x in xs[1:]:
-        total = total + x.to(total.device)
-    return total
+    with _noted("reduce", xs, _nbytes(xs[0])):
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x.to(total.device)
+        return total
 
 
 def _copies(x, devices):
@@ -54,11 +92,13 @@ class _AllReduce(Function):
     @staticmethod
     def forward(ctx, *xs):
         ctx.devices = [x.device for x in xs]
-        return _copies(sum_in_order(xs), ctx.devices)
+        with _noted("all-reduce", xs, _nbytes(xs[0])):
+            return _copies(sum_in_order(xs), ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        return _copies(sum_in_order(grads), ctx.devices)
+        with _noted("all-reduce", grads, _nbytes(grads[0])):
+            return _copies(sum_in_order(grads), ctx.devices)
 
 
 class _AllGather(Function):
@@ -66,12 +106,14 @@ class _AllGather(Function):
     def forward(ctx, dim, *xs):
         ctx.dim, ctx.devices = dim, [x.device for x in xs]
         ctx.sizes = [x.shape[dim] for x in xs]
-        whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
-        return _copies(whole, ctx.devices)
+        with _noted("all-gather", xs, sum(_nbytes(x) for x in xs)):
+            whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
+            return _copies(whole, ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, *_split(sum_in_order(grads), ctx.sizes, ctx.dim, ctx.devices))
+        with _noted("reduce-scatter", grads, _nbytes(grads[0]) // len(grads)):
+            return (None, *_split(sum_in_order(grads), ctx.sizes, ctx.dim, ctx.devices))
 
 
 class _ReduceScatter(Function):
@@ -81,12 +123,14 @@ class _ReduceScatter(Function):
         n, size = len(xs), xs[0].shape[dim]
         if size % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {size} does not split {n}")
-        return _split(sum_in_order(xs), [size // n] * n, dim, ctx.devices)
+        with _noted("reduce-scatter", xs, _nbytes(xs[0]) // n):
+            return _split(sum_in_order(xs), [size // n] * n, dim, ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        whole = torch.cat([g.to(grads[0].device) for g in grads], ctx.dim)
-        return (None, *_copies(whole, ctx.devices))
+        with _noted("all-gather", grads, sum(_nbytes(g) for g in grads)):
+            whole = torch.cat([g.to(grads[0].device) for g in grads], ctx.dim)
+            return (None, *_copies(whole, ctx.devices))
 
 
 def _exchange(xs, split_dim, concat_dim):
@@ -108,12 +152,14 @@ class _AllToAll(Function):
     @staticmethod
     def forward(ctx, split_dim, concat_dim, *xs):
         ctx.dims = split_dim, concat_dim
-        return _exchange(xs, split_dim, concat_dim)
+        with _noted("all-to-all", xs, _nbytes(xs[0])):
+            return _exchange(xs, split_dim, concat_dim)
 
     @staticmethod
     def backward(ctx, *grads):
         split_dim, concat_dim = ctx.dims
-        return (None, None, *_exchange(grads, concat_dim, split_dim))
+        with _noted("all-to-all", grads, _nbytes(grads[0])):
+            return (None, None, *_exchange(grads, concat_dim, split_dim))
 
 
 def all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -144,13 +190,15 @@ def all_to_all(xs: list[torch.Tensor], split_dim: int, concat_dim: int) -> list:
 def all_max(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The elementwise max of the members' tensors, on every member (no
     gradient)."""
-    top = xs[0]
-    for x in xs[1:]:
-        top = torch.maximum(top, x.to(top.device))
-    return list(_copies(top, [x.device for x in xs]))
+    with _noted("all-max", xs, _nbytes(xs[0])):
+        top = xs[0]
+        for x in xs[1:]:
+            top = torch.maximum(top, x.to(top.device))
+        return list(_copies(top, [x.device for x in xs]))
 
 
 def gather(xs: list[torch.Tensor], dim: int) -> torch.Tensor:
     """The members' tensors concatenated along ``dim`` on the first
     member's device only."""
-    return torch.cat([x.to(xs[0].device) for x in xs], dim)
+    with _noted("gather", xs, sum(_nbytes(x) for x in xs)):
+        return torch.cat([x.to(xs[0].device) for x in xs], dim)
