@@ -149,6 +149,7 @@ import inspect
 import json
 import math
 import re
+import shlex
 import subprocess
 import sys
 import functools
@@ -604,11 +605,19 @@ SHARD13_PEAK = 72e9
 # DRY_PEAK_REL, the median of DRY_TIMED steps after a warm-up against the
 # roofline bound. On path 11's 2 x 2 slots, path 11's qwen3-moe EP_DATA
 # training and path 13's SP flash prefill: flops and every collective call
-# (kind, bytes, group, count) equal. And one production cell, DRY_CELL, on
-# the 16 x 16 mesh of fake devices, traced by ``python -m
-# repro_torch.launch.dryrun`` in a process of its own while the card runs
-# the rest (at most DRY_CELL_S); that process is stopped while a 1 x 1
-# step is timed, and each such step is timed again beside it.
+# (kind, bytes, group, count) equal. On 4 x 2 slots, DRY_CLASS: 8
+# positions in 4 classes, so the dry run traces 4 and copies their counts
+# to the others (``spmd.class_reps``), its totals over every position held
+# equal to the real step's. On path 11's 2 x 2 slots, DRY_F11: smollm-135m's
+# maclaurin decode under TP_ONLY, whose 3 kv heads do not divide model = 2
+# (its ``MacState`` a replica over "model"), held against the one-device
+# decode at path 11's f32 gate and against its dry run. And the production
+# cells, DRY_CELLS, on the 16 x 16 and 2 x 16 x 16 meshes of fake devices,
+# traced one after another by ``python -m repro_torch.launch.dryrun`` in a
+# process group of their own while the card runs the rest (at most
+# DRY_CELL_S; one at a time, so that their depth workers leave the main
+# process cores); that group is stopped while a 1 x 1 step is timed, and
+# each such step is timed again beside it.
 DRY_SMALL = (  # (label, config changes, (shape name, T, B, kind))
     ("train", {}, ("path14_train", 2048, 8, "train")),
     ("flash prefill", {"attention_impl": "flash"}, ("path14_prefill", 2048, 4, "prefill")),
@@ -620,9 +629,17 @@ DRY_SLOTS = (  # (label, model, layers, config changes, rules, (shape name, T, B
     ("qwen3-moe SP flash prefill", "qwen3-moe-30b-a3b", 2, dict(dtype="float32", attention_impl="flash"),
      "SP_RULES", ("path14_prefill", 2048, 2, "prefill")),
 )
+DRY_CLASS = ("qwen3-moe class-traced DEFAULT train", "qwen3-moe-30b-a3b", 1, dict(dtype="float32", **MACLAURIN),
+             "DEFAULT_RULES", ("path14_train", 1024, 4, "train"), (4, 2))
+DRY_F11 = ("smollm maclaurin TP_ONLY decode", 30, dict(dtype="float32", **MACLAURIN), "TP_ONLY_RULES",
+           ("path14_decode", 64, 2, "decode"), 4)  # ..., greedy steps
 DRY_PEAK_REL = 0.15
 DRY_TIMED = 3
-DRY_CELL = (LM_NAME, "decode_32k")
+DRY_CELLS = (  # (arch, shape, on 2 x 16 x 16), traced in this order
+    (LM_NAME, "train_4k", False),
+    (LM_NAME, "decode_32k", False),
+    (LM_NAME, "decode_32k", True),
+)
 DRY_CELL_S = 600
 # PyTorch's caching allocator splits a cached block for a request only
 # where more than 1 MiB would remain, so a shard may take up to this much
@@ -5715,24 +5732,24 @@ def tree_locals(tree):
     return map_tree(lambda x: x.local(0) if isinstance(x, Sharded) else x, tree)
 
 
-def stopped(proc):
-    """A context in which ``proc``'s process group (started in a session of
-    its own) is stopped (SIGSTOP), so that it takes no CPU from a timing;
-    continued (SIGCONT) after it."""
+def stopped(procs):
+    """A context in which the process groups of ``procs`` (each started in
+    a session of its own) are stopped (SIGSTOP), so that they take no CPU
+    from a timing; continued (SIGCONT) after it."""
     import contextlib
     import os
     import signal
 
     @contextlib.contextmanager
     def frozen():
-        running = proc is not None and proc.poll() is None
-        if running:
-            os.killpg(proc.pid, signal.SIGSTOP)
+        running = [p for p in procs or () if p.poll() is None]
+        for p in running:
+            os.killpg(p.pid, signal.SIGSTOP)
         try:
             yield
         finally:
-            if running:
-                os.killpg(proc.pid, signal.SIGCONT)
+            for p in running:
+                os.killpg(p.pid, signal.SIGCONT)
 
     return frozen()
 
@@ -5743,8 +5760,8 @@ def dry_against_card(dev, label, cfg, shape, mesh, rules, ocfg, beside=None) -> 
     flops, matmul flops by dtype, launches and collective calls equal. On
     a 1 x 1 mesh also the peak over the placed arguments within
     DRY_PEAK_REL and the median step against the roofline bound, timed
-    with ``beside`` (a process tracing on the CPU) stopped, and again with
-    it running; a prefill also through path 4's one-device entry point on
+    with ``beside`` (processes tracing on the CPU) stopped, and again with
+    them running; a prefill also through path 4's one-device entry point on
     the same weights and tokens. Returns the phase's fields."""
     import gc
     import statistics
@@ -5775,7 +5792,8 @@ def dry_against_card(dev, label, cfg, shape, mesh, rules, ocfg, beside=None) -> 
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     what = f"path 14 {label}"
     fields = dict(cell=label, model=cfg.name, layers=cfg.n_layers, shape=[shape.global_batch, shape.seq_len],
-                  kind=shape.kind, rules=pred["rule_set"], dry_run_s=dry_s, trace_s=pred["trace_seconds"])
+                  kind=shape.kind, rules=pred["rule_set"], dry_run_s=dry_s, trace_s=pred["trace_seconds"],
+                  mesh=list(mesh.sizes), classes=pred["classes"])
     fields.update(flops=[pred["total"]["flops"], got["total"]["flops"]],
                   matmul_flops=[pred["total"]["matmul_flops"], got["total"]["matmul_flops"]],
                   launches=[pred["kernels"], launched], calls=[len(pred["calls"]), len(got["calls"])])
@@ -5828,14 +5846,38 @@ def dry_against_card(dev, label, cfg, shape, mesh, rules, ocfg, beside=None) -> 
     return fields
 
 
+def f11_decode(dev, mesh, launches, calls) -> dict:
+    """DRY_F11 on ``mesh`` (2 x 2 slots of the card): ``decode_cell``'s
+    greedy steps held against the one-device decode on the same bf16
+    weights at SHARD_REL, the cache's replicas bit-equal. Returns its
+    phase fields."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    label, layers, changes, rules, (_, S, B, _), steps = DRY_F11
+    cfg = family_config(LM_NAME, layers, **changes)
+    params = tf.init_params(cfg, seed=SEED, device=dev)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(p.to(torch.bfloat16))  # the serving cell's weights, as f32
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    out = dict(cell=label, model=cfg.name, layers=layers, kv_heads=cfg.n_kv_heads, model_ways=mesh.shape["model"])
+    out.update(decode_cell(dev, mesh, launches, calls, cfg, params, rules, tokens, S, steps))
+    del params
+    return out
+
+
 def fourteenth_path(dev) -> tuple[list, dict]:
     """Path 14: the dry run held against the card (DRY_* above): the
-    production cell DRY_CELL traced on the CPU in a process of its own,
-    while smollm-135m's three cells run on a 1 x 1 mesh of the card (that
-    process stopped while a step is timed, and timed again beside it) and
-    qwen3-moe's two on 2 x 2 slots, each against its dry run. Returns (no
-    ``kernels`` entries: B8 and B9's stand at earlier paths' shapes, every
-    kernel's launches)."""
+    production cells DRY_CELLS traced on the CPU, each in a process of its
+    own, while smollm-135m's three cells run on a 1 x 1 mesh of the card
+    (those processes stopped while a step is timed, and timed again beside
+    them), qwen3-moe's two on 2 x 2 slots and DRY_CLASS on 4 x 2, each
+    against its dry run, and DRY_F11's decode on 2 x 2 slots against its
+    dry run and the one-device decode. Returns (no ``kernels`` entries: B8
+    and B9's stand at earlier paths' shapes, every kernel's launches)."""
     import dataclasses
     import os
     import signal
@@ -5852,11 +5894,13 @@ def fourteenth_path(dev) -> tuple[list, dict]:
     t_path = time.perf_counter()
     card = card_line()
     phase("fourteenth_path_torch", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
-    arch, shape_name = DRY_CELL
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape_name, "--force"]
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
+    cmds = []
+    for arch, shape_name, multi_pod in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape_name, "--force"]
+        cmds.append(shlex.join(cmd + (["--multi-pod"] if multi_pod else [])))
+    procs = [subprocess.Popen(["sh", "-c", "set -e; " + "; ".join(cmds)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)]
     seconds = {}
     try:
         torch.cuda.empty_cache()
@@ -5865,11 +5909,14 @@ def fourteenth_path(dev) -> tuple[list, dict]:
         for label, changes, (name, T, B, kind) in DRY_SMALL:
             t0 = time.perf_counter()
             cfg = dataclasses.replace(get_config(LM_NAME), **changes)
-            row = dry_against_card(dev, label, cfg, ShapeConfig(name, T, B, kind), mesh, None, None, beside=proc)
+            row = dry_against_card(dev, label, cfg, ShapeConfig(name, T, B, kind), mesh, None, None, beside=procs)
             phase("dry_card", card=card, **row)
             seconds[label] = time.perf_counter() - t0
-        mesh = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
-        for label, name, layers, changes, rules, (sname, T, B, kind) in DRY_SLOTS:
+        slots = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
+        sizes = DRY_CLASS[-1]
+        cells = [(slots, *cell) for cell in DRY_SLOTS]
+        cells.append((make_mesh(sizes, SHARD_MESH[1], devices=[dev] * math.prod(sizes)), *DRY_CLASS[:-1]))
+        for mesh, label, name, layers, changes, rules, (sname, T, B, kind) in cells:
             t0 = time.perf_counter()
             cfg = family_config(name, layers, **changes)
             ocfg = OptimizerConfig(warmup=2, total_steps=10) if kind == "train" else None
@@ -5877,29 +5924,50 @@ def fourteenth_path(dev) -> tuple[list, dict]:
             row = dry_against_card(dev, label, cfg, shape, mesh, getattr(part, rules), ocfg)
             phase("dry_slots", card=card, **row)
             seconds[label] = time.perf_counter() - t0
-        launches = build.counts()
         t0 = time.perf_counter()
-        out, _ = proc.communicate(timeout=max(1.0, DRY_CELL_S - (t0 - t_path)))
-        seconds["production cell wait"] = time.perf_counter() - t0
+        label, layers, changes, rules, (sname, S, B, kind), _ = DRY_F11
+        cfg = family_config(LM_NAME, layers, **changes)
+        row = dry_against_card(dev, label, cfg, ShapeConfig(sname, S, B, kind), slots, getattr(part, rules), None)
+        check(cfg.n_kv_heads % slots.shape["model"] != 0, "path 14: DRY_F11's kv heads divide the model axis")
+        phase("dry_slots", card=card, **row)
+        launches = build.counts()
+        decoded = {n: 0 for n in launches}
+        row = f11_decode(dev, slots, decoded, {})
+        phase("dry_f11_decode", card=card, **row)
+        for k, n in decoded.items():
+            launches[k] = launches.get(k, 0) + n
+        seconds[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = procs[0].communicate(timeout=max(1.0, DRY_CELL_S - (t0 - t_path)))[0]
+        seconds["production cells wait"] = time.perf_counter() - t0
     finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    check(proc.returncode == 0, f"path 14: the dry run of {arch} {shape_name} failed:\n{out[-3000:]}")
-    tag = dryrun.cell_tag(arch, shape_name)
-    with open(ROOT / dryrun.RESULTS_DIR / f"{tag}.json") as f:
-        rec = json.load(f)
-    mem, cost = rec["memory"], rec["cost"]
-    numbers = [mem[k] for k in mem] + [cost["flops"], cost["bytes_accessed"]]
-    check(all(math.isfinite(x) and x >= 0 for x in numbers), "path 14: a production cell's number is not finite")
-    check(rec["n_devices"] == 256 and rec["mesh"] == "16x16", "path 14: the production cell's mesh")
-    check(mem["peak_device_bytes"] >= mem["argument_bytes"] > 0 and cost["flops"] > 0, "path 14: production cell")
-    summary = out.strip().splitlines()[0] if out.strip() else ""
-    row = roofline.analyze_cell(rec)
-    phase("dry_cell", card=card, summary=summary, position=rec["position"], trace_seconds=rec["trace_seconds"],
-          memory=mem, cost=cost, collectives=rec["collectives"],
-          roofline={k: v for k, v in row.items() if k != "collectives"},
-          roofline_row=roofline.to_markdown([row]).splitlines()[-1])
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    check(procs[0].returncode == 0, f"path 14: the production cells' dry run failed:\n{out[-3000:]}")
+    done = [line for line in out.splitlines() if line.startswith("OK ")]
+    check(len(done) == len(DRY_CELLS), f"path 14: {len(done)} production cells traced:\n{out[-3000:]}")
+    for (arch, shape_name, multi_pod), summary in zip(DRY_CELLS, done):
+        mesh_name = dryrun.mesh_name(multi_pod)
+        what = f"path 14: the dry run of {arch} {shape_name} on {mesh_name}"
+        tag = dryrun.cell_tag(arch, shape_name, multi_pod=multi_pod)
+        with open(ROOT / dryrun.RESULTS_DIR / f"{tag}.json") as f:
+            rec = json.load(f)
+        mem, cost = rec["memory"], rec["cost"]
+        numbers = [mem[k] for k in mem] + [cost["flops"], cost["bytes_accessed"]]
+        check(all(math.isfinite(x) and x >= 0 for x in numbers), f"{what}: a number is not finite")
+        n = 512 if multi_pod else 256
+        check(rec["n_devices"] == n and rec["mesh"] == mesh_name, f"{what}: its mesh")
+        check(sum(rec["classes"].values()) == n and len(rec["classes"]) == (8 if multi_pod else 4), f"{what}: classes")
+        check(mem["peak_device_bytes"] >= mem["argument_bytes"] > 0 and cost["flops"] > 0, what)
+        check(f" {shape_name} " in summary and f" {mesh_name} " in summary, f"{what}: {summary}")
+        row = roofline.analyze_cell(rec)
+        phase("dry_cell", card=card, summary=summary, arch=arch, shape=shape_name, mesh=mesh_name,
+              position=rec["position"], trace_seconds=rec["trace_seconds"], classes=rec["classes"],
+              memory=mem, cost=cost, collectives=rec["collectives"],
+              roofline={k: v for k, v in row.items() if k != "collectives"},
+              roofline_row=roofline.to_markdown([row]).splitlines()[-1])
     seconds["total"] = time.perf_counter() - t_path
     phase("fourteenth_path_launches", **launches)
     phase("fourteenth_path_seconds", card=card, **seconds)

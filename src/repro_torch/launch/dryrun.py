@@ -4,17 +4,31 @@ The counterpart of ``repro/launch/dryrun.py``, which lowers and compiles
 each (arch x shape x mesh) cell for 256 or 512 forced host devices and
 reads XLA's memory and cost analyses. The port compiles nothing: it runs
 its own program, the lockstep sharded step of ``launch.specs.build_cell``,
-once on fake tensors (``FakeTensorMode``: shapes, dtypes and devices, no
-data) over a mesh of fake devices, under ``launch.op_cost.CostRecorder``.
-The fake devices are ``meta:0 ... meta:127`` and then ``lazy:0 ...
-lazy:127``, one a mesh position: a CPU-only PyTorch cannot index or copy
-into a fake tensor on a ``cuda`` device (its Python bindings take a CUDA
-device guard, which such a build lacks), fake ``meta`` and ``lazy``
-devices keep the index, the checks across devices and every view, and an
-index has 8 bits. So 256 positions at most: the 16 x 16 mesh, the only
-one this dry run walks (the reference's 2 x 16 x 16 mesh has no fake
-counterpart yet). Kernels B8 and B9 stand on their launch ops' shape
-rules (``kernels.build.card_stand_in``).
+on fake tensors (``FakeTensorMode``: shapes, dtypes and devices, no data)
+over a mesh of fake devices, under ``launch.op_cost.CostRecorder``, on the
+16 x 16 mesh or the 2 x 16 x 16 one (``--multi-pod``). The fake devices are
+``meta:0 ... meta:127`` and then ``lazy:0 ... lazy:127``: a CPU-only
+PyTorch cannot index or copy into a fake tensor on a ``cuda`` device (its
+Python bindings take a CUDA device guard, which such a build lacks), fake
+``meta`` and ``lazy`` devices keep the index, the checks across devices
+and every view, and an index has 8 bits. Kernels B8 and B9 stand on their
+launch ops' shape rules (``kernels.build.card_stand_in``).
+
+One position of each class is traced (``sharding.spmd.class_reps``): a
+position's counts depend only on which groups it leads, since every
+reduction is summed on a group's first member, so its class is the set of
+mesh axes on which its coordinate is 0 (4 classes on 16 x 16, 8 on
+2 x 16 x 16), and the positions at coordinates 0 or 1 on every axis stand
+for them. The program runs those positions only; each other member of a
+group they join takes a stand-in of its representative's shape on its own
+device (``collectives.stand_in``), made where nothing counts it, and each
+collective runs over every member, so a traced position records exactly
+what it would in a full trace. Every other position takes its class's
+counts, copied (``total`` sums each class's counts times its size); a
+leaf's block that differs in shape from its class representative's
+raises. Argument, output and alias bytes stay exact at every position,
+from the placements. The traced positions hold fake devices of their own;
+on 2 x 16 x 16 the others share the remaining indices (``fake_devices``).
 
 A cell is traced at one and at two periods of layers (a layer;
 ``hybrid_attn_every`` layers and the shared block for zamba2,
@@ -25,29 +39,28 @@ deeper than its depths is traced whole): the
 counterpart of ``hlo_cost``'s trip-count multiplication. The layout
 policy (rules, optimizer, microbatches) is the full-depth config's.
 
-Per cell, ``results/dryrun_torch/<arch>__<shape>__16x16[__...].json``
-holds the reference's keys: ``meta``'s fields, ``mesh``, ``rules``,
-``n_devices``, ``memory`` (argument, output, temp, alias and peak bytes),
-``cost`` (flops and bytes accessed, and matmul flops by dtype),
-``collectives`` and ``collective_ops``, for the mesh position with the
-largest peak (``position``: the positions differ, as a reduction is summed
-on a group's first member), with ``trace_seconds`` in place of
-``compile_seconds`` and ``depth_traced``: the periods traced. ``total``
-sums the cost over every device, ``kernels`` counts the launch ops and
-``calls`` every collective call of the program. Argument and output bytes
-are the placed leaves' (``Sharded.position_bytes``), the whole outputs at
-the reference's layout (logits cut by the batch and the vocab cut, scalars
-replicated), and, as XLA counts them, 8 bytes a leaf of an output tuple;
-alias bytes are the donated arguments'. The position's op counts go to
-``<tag>.ops.json.gz`` (``profile_cell``; ``--reanalyze`` prices them
-again without a trace).
+Per cell, ``results/dryrun_torch/<arch>__<shape>__<mesh>[__...].json``
+(``16x16`` or ``2x16x16``) holds the reference's keys: ``meta``'s fields,
+``mesh``, ``rules``, ``n_devices``, ``memory`` (argument, output, temp,
+alias and peak bytes), ``cost`` (flops and bytes accessed, and matmul
+flops by dtype), ``collectives`` and ``collective_ops``, for the mesh
+position with the largest peak (``position``: the positions differ, as a
+reduction is summed on a group's first member), with ``trace_seconds`` in
+place of ``compile_seconds``, ``depth_traced``: the periods traced, and
+``classes``: each traced position and the positions its counts stand
+for. ``total`` sums the cost over every device, ``kernels`` counts the
+launch ops and ``calls`` every collective call of the program. Argument
+and output bytes are the placed leaves' (``Sharded.position_bytes``), the
+whole outputs at the reference's layout (logits cut by the batch and the
+vocab cut, scalars replicated), and, as XLA counts them, 8 bytes a leaf of
+an output tuple; alias bytes are the donated arguments'. The position's
+op counts go to ``<tag>.ops.json.gz`` (``profile_cell``; ``--reanalyze``
+prices them again without a trace).
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all    # the 40 cells on 16 x 16
-
-Not every cell finishes yet: a train_4k cell traces for most of an hour
-and seven archs refuse long_500k (ROADMAP A13).
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape decode_32k --multi-pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all    # the 80 cells on both meshes
 """
 
 from __future__ import annotations
@@ -87,7 +100,7 @@ from repro_torch.sharding.partitioning import (
     Sharded,
     batch_sharding,
 )
-from repro_torch.sharding.spmd import rules_name
+from repro_torch.sharding.spmd import class_reps, class_sizes, rules_name, running
 from repro_torch.train.train_step import OptimizerConfig
 
 RESULTS_DIR = "results/dryrun_torch"
@@ -101,22 +114,37 @@ RULES = {
     "sp": SP_RULES,
 }
 TUPLE_ENTRY_BYTES = 8  # XLA's pointer a leaf of an output tuple
-FAKE_CACHE_DEVICES = 16  # FakeTensorMode's dispatch cache pays up to this mesh size
+FAKE_CACHE_DEVICES = 16  # FakeTensorMode's dispatch cache pays up to this many traced positions
 
 
-def fake_devices(n: int) -> list[torch.device]:
+def fake_devices(n: int, run=()) -> list[torch.device]:
     """The dry run's mesh positions: ``meta:0 ... meta:127``, then
-    ``lazy:0 ... lazy:127`` (``op_cost.FAKE_TYPES``). A device index has 8
-    bits, so there are 256 of them: the 2 x 16 x 16 mesh has no fake
-    counterpart."""
+    ``lazy:0 ... lazy:127`` (``op_cost.FAKE_TYPES``), one a position up to
+    256 (a device index has 8 bits). Past that, the positions in ``run``
+    (those a class trace runs) keep devices of their own, position p < 256
+    its own index's, the others the first indices left; every other
+    position shares the indices none of ``run`` holds."""
     most = len(FAKE_TYPES) * FAKE_BLOCK
-    if n > most:
-        raise NotImplementedError(f"{n} fake devices: a dry run has at most {most}")
-    return [torch.device(FAKE_TYPES[i // FAKE_BLOCK], i % FAKE_BLOCK) for i in range(n)]
+    pool = [torch.device(FAKE_TYPES[i // FAKE_BLOCK], i % FAKE_BLOCK) for i in range(most)]
+    if n <= most:
+        return pool[:n]
+    run = sorted(set(run))
+    if not run:
+        raise NotImplementedError(f"{n} fake positions share {most} devices: name those run")
+    if len(run) >= most:
+        raise ValueError(f"{len(run)} positions run: a dry run has {most} fake devices")
+    taken = {p for p in run if p < most}
+    free = iter(i for i in range(most) if i not in taken)
+    own = {p: p if p < most else next(free) for p in run}
+    rest = [i for i in range(most) if i not in set(own.values())]
+    return [pool[own[p]] if p in own else pool[rest[p % len(rest)]] for p in range(n)]
 
 
 def fake_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
-    return make_mesh(shape, axes, devices=fake_devices(math.prod(shape)))
+    """A mesh of ``shape`` over fake devices, its class representatives
+    each on a device of its own."""
+    devices = fake_devices(math.prod(shape), run=class_reps(tuple(shape)))
+    return make_mesh(shape, axes, devices=devices)
 
 
 def period_layers(cfg: ModelConfig) -> int:
@@ -203,16 +231,23 @@ def trace_cell(
     mesh: Mesh,
     rules: AxisRules,
     ocfg: OptimizerConfig | None = None,
+    classes: bool = True,
 ) -> dict:
-    """``build_cell`` on ``mesh`` (fake ``meta`` devices) and one step under
-    a ``CostRecorder``: its ``summary()`` with "arguments", "outputs",
-    "aliases" (bytes a position) and "seconds". The step and the decode
-    position go in as Python ints: a fake scalar has no value to read."""
+    """``build_cell`` on ``mesh`` (fake devices) and one step under a
+    ``CostRecorder``, running one position of each class (``classes``;
+    else every position): its ``summary()`` with "run" (the positions
+    run), "arguments", "outputs", "aliases" (bytes a position, at every
+    position) and "seconds". The step and the decode position go in as
+    Python ints: a fake scalar has no value to read."""
     t0 = time.time()
+    run = sorted(set(class_reps(mesh.sizes))) if classes else list(range(mesh.size))
+    devs = [str(d) for d in mesh.devices]
+    kept = {devs[p]: p for p in run}
     fake = FakeTensorMode()
-    # its dispatch cache misses on most ops once many devices make distinct
-    # keys, and a miss costs more than no cache (about 20% at 256 devices)
-    fake.cache_enabled = fake.cache_enabled and mesh.size <= FAKE_CACHE_DEVICES
+    # its dispatch cache misses on most ops once many traced devices make
+    # distinct keys, and a miss costs more than no cache (about 20% at 256
+    # devices); with one position a class traced it pays again
+    fake.cache_enabled = fake.cache_enabled and len(run) <= FAKE_CACHE_DEVICES
     with fake, card_stand_in():
         cell = build_cell(cfg, shape, mesh, rules, ocfg)
         args = list(cell.args)
@@ -222,12 +257,14 @@ def trace_cell(
         n = mesh.size
         arguments = _placed_bytes(cell.args, n)
         aliases = _placed_bytes([cell.args[i] for i in cell.donate_argnums], n)
-        with CostRecorder() as rec:
+        recorder = CostRecorder(skip=set(devs) - set(kept), positions=kept)
+        with running(run if classes else None), recorder as rec:
             out = cell.step_fn(*args)
         outputs = _output_bytes(out, cell, mesh, rules)
         del out, args, cell
     return {
         **rec.summary(),
+        "run": run,
         "arguments": arguments,
         "outputs": outputs,
         "aliases": aliases,
@@ -360,10 +397,13 @@ def predict(
     ``<tag>.ops.json.gz``). ``cfg`` is the full-depth config; the layout
     policy is chosen for it, then the cell is traced at ``depths(shape)``
     periods of layers (in forked processes, ``workers`` at once; never
-    from a process that has touched the card) and each count extrapolated
-    to ``periods(cfg)``; a cell no deeper than that is traced whole. ``total``, ``kernels`` and
-    ``calls`` cover every device the program touched (the learning rate's
-    scalars live on the host)."""
+    from a process that has touched the card), one position of each class
+    (``trace_cell``), and each count extrapolated to ``periods(cfg)``; a
+    cell no deeper than that is traced whole. Every position takes its
+    class's counts and peak over its own arguments; ``total``, ``kernels``
+    and ``calls`` are each class's counts times its size, over every
+    device the program touched (the learning rate's scalars live on the
+    host)."""
     cfg = pick_backend(cfg, shape)
     rules = choose_rules(cfg, shape, rules)
     dp_ways = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
@@ -379,17 +419,22 @@ def predict(
         traces = [_trace_job(*job) for job in jobs]
     n = mesh.size
     devs = [str(d) for d in mesh.devices]
+    rep, size = class_reps(mesh.sizes), class_sizes(mesh.sizes)
+    weight = {devs[r]: k for r, k in size.items()}
+
+    def w(d: str) -> int:
+        """The positions a device's counts stand for: its class's (a traced
+        position), one (the host, where the learning rate lives)."""
+        return weight.get(d, 0 if d in devs else 1)
 
     def fit(values):
         return extrapolate(values, P)
 
     per = [{d: price(t["records"], c) for d, c in t["counts"].items()} for t in traces]
-    peak = [
-        fit([t["arguments"][p] for t in traces]) + peak_fit(traces, d, traced, P)
-        for p, d in enumerate(devs)
-    ]
+    peaks = {r: peak_fit(traces, devs[r], traced, P) for r in size}
+    peak = [fit([t["arguments"][p] for t in traces]) + peaks[rep[p]] for p in range(n)]
     pos = max(range(n), key=lambda p: (peak[p], -p))
-    dev = devs[pos]
+    dev = devs[rep[pos]]
     zero = {"flops": 0.0, "bytes_accessed": 0.0, "matmul_flops": {}}
     at = [x.get(dev, zero) for x in per]
     arguments, outputs, aliases = (fit([t[k][pos] for t in traces]) for k in ("arguments", "outputs", "aliases"))
@@ -398,15 +443,28 @@ def predict(
         "bytes_accessed": fit([x["bytes_accessed"] for x in at]),
         "matmul_flops": _extrapolate_counts([x["matmul_flops"] for x in at], P),
     }
-    total = {k: fit([sum(v[k] for v in x.values()) for x in per]) for k in ("flops", "bytes_accessed")}
+    total = {
+        k: fit([sum(w(d) * v[k] for d, v in x.items()) for x in per])
+        for k in ("flops", "bytes_accessed")
+    }
     mm = [collections.Counter() for _ in traces]
-    for m, x in zip(mm, per):
-        for v in x.values():
-            m.update(v["matmul_flops"])
+    kernels = [collections.Counter() for _ in traces]
+    for m, kn, x, t in zip(mm, kernels, per, traces):
+        for d, v in x.items():
+            for dtype, flops in v["matmul_flops"].items():
+                m[dtype] += w(d) * flops
+        for d, counts in t["counts"].items():
+            for i, c in counts.items():
+                if t["records"][i][3] is not None:  # a launch op
+                    kn[t["records"][i][0]] += w(d) * c
     total["matmul_flops"] = _extrapolate_counts(mm, P)
     colls = [{ph: c for (ph, d), c in t["collectives"].items() if d == dev} for t in traces]
     ops = _collective_ops(fit_sequences(colls, P))
-    calls = fit_sequences([t["calls"] for t in traces], P)
+    calls: collections.Counter = collections.Counter()
+    for lead in sorted({d for t in traces for _, d in t["leads"]}):
+        led = [{ph: c for (ph, d), c in t["leads"].items() if d == lead} for t in traces]
+        for key, count in fit_sequences(led, P).items():
+            calls[key] += w(lead) * count
     result = {
         "n_devices": n,
         "position": pos,
@@ -416,6 +474,7 @@ def predict(
         "rule_set": rules_name(rules),
         "optimizer": {"name": ocfg.name, "microbatches": ocfg.microbatches},
         "trace_seconds": round(sum(t["seconds"] for t in traces), 1),
+        "classes": {str(r): k for r, k in sorted(size.items())},
         "memory": {
             "argument_bytes": arguments,
             "output_bytes": outputs,
@@ -425,7 +484,7 @@ def predict(
         },
         "cost": cost,
         "total": total,
-        "kernels": {k: v for k, v in _extrapolate_counts([t["kernels"] for t in traces], P).items() if v},
+        "kernels": {k: v for k, v in _extrapolate_counts(kernels, P).items() if v},
         "collectives": _aggregate(ops),
         "collective_ops": ops,
         "calls": [
@@ -491,8 +550,8 @@ def _record(r) -> tuple:
 
 
 def cell_tag(arch, shape_name, rules_name="auto", microbatches=None,
-             backend=None, scores_bf16=False, kv_int8=False) -> str:
-    tag = f"{arch}__{shape_name}__16x16"
+             backend=None, scores_bf16=False, kv_int8=False, multi_pod=False) -> str:
+    tag = f"{arch}__{shape_name}__{mesh_name(multi_pod)}"
     if rules_name != "auto":
         tag += f"__{rules_name}"
     if microbatches is not None:
@@ -506,6 +565,18 @@ def cell_tag(arch, shape_name, rules_name="auto", microbatches=None,
     return tag
 
 
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def production_mesh(multi_pod: bool) -> Mesh:
+    """The reference's production mesh over fake devices."""
+    if not multi_pod:
+        return make_production_mesh(devices=fake_devices(256))
+    run = class_reps((2, 16, 16))
+    return make_production_mesh(multi_pod=True, devices=fake_devices(512, run=run))
+
+
 def run_cell(
     arch: str,
     shape_name: str,
@@ -516,13 +587,14 @@ def run_cell(
     backend: str | None = None,
     scores_bf16: bool = False,
     kv_int8: bool = False,
+    multi_pod: bool = False,
 ) -> dict:
     """The reference's ``run_cell``: the cell's JSON, read back where it
     exists (unless ``force``), its costs priced again from the stored op
     counts with ``reanalyze``, else traced on the 16 x 16 mesh of fake
-    devices."""
+    devices (2 x 16 x 16 with ``multi_pod``)."""
     tag = cell_tag(arch, shape_name, rules_name, microbatches, backend,
-                   scores_bf16, kv_int8)
+                   scores_bf16, kv_int8, multi_pod)
     os.makedirs(RESULTS_DIR, exist_ok=True)
     path = os.path.join(RESULTS_DIR, tag + ".json")
     ops_path = os.path.join(RESULTS_DIR, tag + ".ops.json.gz")
@@ -541,7 +613,7 @@ def run_cell(
         return result
     cfg = cell_config(arch, backend, scores_bf16, kv_int8)
     shape = SHAPES[shape_name]
-    mesh = make_production_mesh(devices=fake_devices(256))
+    mesh = production_mesh(multi_pod)
     ocfg = None
     if microbatches is not None:
         dp_ways = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
@@ -565,7 +637,7 @@ def run_cell(
         meta["backend"] = full.attention_backend
     result = {
         **meta,
-        "mesh": "16x16",
+        "mesh": mesh_name(multi_pod),
         "rules": rules_name,
         **body,
     }
@@ -580,6 +652,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--rules", default="auto", choices=list(RULES))
     ap.add_argument("--force", action="store_true")
@@ -593,27 +667,29 @@ def main():
 
     archs = [args.arch] if args.arch else sorted(ARCHS)
     shapes = [args.shape] if args.shape else list(SHAPES)
+    meshes = [False, True] if (args.all or args.both_meshes) else [args.multi_pod]
 
     n_ok = n_fail = 0
     for arch in archs:
         for shape in shapes:
-            label = f"{arch:24s} {shape:12s} {'16x16':8s}"
-            try:
-                r = run_cell(arch, shape, args.rules, args.force, args.reanalyze,
-                             args.microbatches, args.backend, args.scores_bf16,
-                             args.kv_int8)
-                mem_gb = r["memory"]["peak_device_bytes"] / 2**30
-                colls = sum(v["count"] for v in r["collectives"].values())
-                print(
-                    f"OK   {label} flops/dev={r['cost']['flops']:.3e} "
-                    f"mem/dev={mem_gb:.2f}GiB colls={colls} ({r['trace_seconds']}s)",
-                    flush=True,
-                )
-                n_ok += 1
-            except Exception:
-                print(f"FAIL {label}", flush=True)
-                traceback.print_exc()
-                n_fail += 1
+            for mp in meshes:
+                label = f"{arch:24s} {shape:12s} {mesh_name(mp):8s}"
+                try:
+                    r = run_cell(arch, shape, args.rules, args.force, args.reanalyze,
+                                 args.microbatches, args.backend, args.scores_bf16,
+                                 args.kv_int8, mp)
+                    mem_gb = r["memory"]["peak_device_bytes"] / 2**30
+                    colls = sum(v["count"] for v in r["collectives"].values())
+                    print(
+                        f"OK   {label} flops/dev={r['cost']['flops']:.3e} "
+                        f"mem/dev={mem_gb:.2f}GiB colls={colls} ({r['trace_seconds']}s)",
+                        flush=True,
+                    )
+                    n_ok += 1
+                except Exception:
+                    print(f"FAIL {label}", flush=True)
+                    traceback.print_exc()
+                    n_fail += 1
     print(f"\ndry-run: {n_ok} ok, {n_fail} failed")
     raise SystemExit(1 if n_fail else 0)
 

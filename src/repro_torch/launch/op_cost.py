@@ -33,8 +33,16 @@ one device a mesh position, with the reference's weights
     collectives   one record for each call into ``sharding.collectives``
                   (its ``OBSERVERS``) at each member's position: kind,
                   result bytes a member, group size, and how many distinct
-                  devices and nodes of ``NODE_GPUS`` consecutive device
-                  indices the members span.
+                  devices and nodes of ``NODE_GPUS`` consecutive mesh
+                  positions the members span; and each call once (under
+                  the device of its first member, which leads it, too).
+
+Under a class trace (``sharding.spmd.Lockstep``'s ``run``) the recorder
+``skip``s the devices of the positions that are not run: nothing is
+counted or held there, and ops that make stand-ins are not counted at all
+(``collectives.quiet``). A stand-in member of a collective is a device of
+its own at its own mesh position; ``positions`` maps each other device to
+its position where ``device_position`` cannot (past 256 fake devices).
 
 Each op becomes a record (its name, and the shapes and dtypes of its
 results and tensor operands), counted at its position; ``cost`` prices a
@@ -251,13 +259,19 @@ class CostRecorder(TorchDispatchMode):
     ``collectives[phase, dev]`` lists, in order, the (kind, result bytes a
     member, group size, devices spanned, nodes spanned) of each collective
     ``dev`` joins; ``calls[phase]`` lists the (kind, bytes, group size) of
-    every collective call of the program; ``kernels`` maps a launch op (a
-    ``build.KERNELS`` name) to its calls. An op that decomposes
+    every collective call of the program, and ``leads[phase, dev]`` those
+    that ``dev`` leads (is the first member of); ``kernels`` maps a launch
+    op (a ``build.KERNELS`` name) to its calls. An op that decomposes
     (``CompositeImplicitAutograd``, which reaches the mode whole under
-    ``torch.inference_mode``) is counted as the ops it runs."""
+    ``torch.inference_mode``) is counted as the ops it runs. Devices in
+    ``skip`` are not counted (a class trace's positions that are not run);
+    ``positions`` maps a device to its mesh position where its index does
+    not say it."""
 
-    def __init__(self):
+    def __init__(self, skip=(), positions=None):
         super().__init__()
+        self.skip = frozenset(skip)
+        self.positions = dict(positions or {})
         self.records: list = []
         self._index: dict = {}
         self.counts: dict = collections.defaultdict(collections.Counter)
@@ -268,6 +282,7 @@ class CostRecorder(TorchDispatchMode):
         self._backward = False
         self.collectives: dict = collections.defaultdict(list)
         self.calls: dict = collections.defaultdict(list)
+        self.leads: dict = collections.defaultdict(list)
         self.kernels: collections.Counter = collections.Counter()
         self._composites: dict = {}
 
@@ -290,15 +305,25 @@ class CostRecorder(TorchDispatchMode):
             self.records.append(rec)
         self.counts[dev][i] += n
 
-    def _collective(self, kind: str, devices: list, nbytes: int) -> None:
-        where = [str(d) for d in devices]
-        span = len(set(where))
-        nodes = len({device_position(d) // NODE_GPUS for d in devices})
-        key = (kind, nbytes, len(devices), span, nodes)
+    def _position(self, device, stand_in) -> int:
+        if stand_in is not None:
+            return stand_in
+        return self.positions.get(str(device), device_position(device))
+
+    def _collective(self, kind: str, members: list, nbytes: int) -> None:
+        """One collective over ``members`` (``collectives.places``: each
+        member's device and, for a stand-in, its mesh position)."""
+        ids = [str(d) if pos is None else ("stand-in", pos) for d, pos in members]
+        nodes = len({self._position(d, pos) // NODE_GPUS for d, pos in members})
+        key = (kind, nbytes, len(members), len(set(ids)), nodes)
         self._phase()
-        for dev in sorted(set(where)):
+        for dev in sorted({str(d) for d, pos in members if pos is None} - self.skip):
             self.collectives[self.phase, dev].append(key)
-        self.calls[self.phase].append((kind, nbytes, len(devices)))
+        lead, stand_in = members[0]
+        if stand_in is None and str(lead) not in self.skip:
+            call = (kind, nbytes, len(members))
+            self.calls[self.phase].append(call)
+            self.leads[self.phase, str(lead)].append(call)
 
     def _phase(self) -> None:
         """A new phase at each entry to or exit from a backward pass."""
@@ -321,6 +346,8 @@ class CostRecorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if coll.quiet():  # a stand-in: no work of the program
+            return func(*args, **kwargs)
         if self._composite(func):  # reached whole under inference_mode
             with self:
                 out = func.decompose(*args, **kwargs)
@@ -338,18 +365,21 @@ class CostRecorder(TorchDispatchMode):
         name = _base(func)
         fixed = None
         if func.namespace == "repro_torch":
-            self.kernels[name] += 1
+            if dev not in self.skip:
+                self.kernels[name] += 1
             fixed = _kernel_work(name, args)
         elif name in ("copy", "_to_copy") and ins and outs:
             src = ins[-1]
             if src.device != where:  # across devices: read there, written here
                 spec = (_spec(src),)
-                self._count(str(src.device), (COPY_OUT, (), spec, None))
-                self._count(dev, (COPY_IN, spec, (), None))
+                if str(src.device) not in self.skip:
+                    self._count(str(src.device), (COPY_OUT, (), spec, None))
+                if dev not in self.skip:
+                    self._count(dev, (COPY_IN, spec, (), None))
                 name = None
             elif name == "_to_copy":
                 name = "cast"
-        if name is not None:
+        if name is not None and dev not in self.skip:
             rec = (name, tuple(_spec(t) for t in outs), tuple(_spec(t) for t in ins), fixed)
             self._count(dev, rec)
         self._track(outs, ins)
@@ -369,6 +399,8 @@ class CostRecorder(TorchDispatchMode):
             held.add(key)
             nbytes = st.nbytes()
             dev = str(t.device)
+            if dev in self.skip:
+                continue
             live = self.live[dev] = self.live[dev] + nbytes
             if live > self.peak[dev]:
                 self.peak[dev] = live
@@ -382,7 +414,7 @@ class CostRecorder(TorchDispatchMode):
 
     def summary(self) -> dict:
         """What was counted, as plain containers (picklable): records,
-        counts, peak, collectives, calls and kernels."""
+        counts, peak, collectives, calls, leads and kernels."""
         return {
             "records": list(self.records),
             "counts": {d: dict(c) for d, c in self.counts.items()},
@@ -390,6 +422,7 @@ class CostRecorder(TorchDispatchMode):
             "trajectory": dict(self.trajectory),
             "collectives": dict(self.collectives),
             "calls": dict(self.calls),
+            "leads": dict(self.leads),
             "kernels": dict(self.kernels),
         }
 

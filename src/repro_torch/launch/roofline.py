@@ -11,7 +11,7 @@ decides.
 The analysis half (``model_flops``, ``wire_bytes``, ``analyze_cell``,
 ``load_all``, ``to_markdown``, ``main``) reads the dry run's cells
 (``launch.dryrun``, ``results/dryrun_torch``) and derives, per device of
-the 16 x 16 mesh:
+the 16 x 16 and the 2 x 16 x 16 meshes:
 
     compute term    = matmul flops of each dtype at that dtype's peak
                       (989.4 TFLOP/s dense bf16, 67 TFLOP/s f32: the port
@@ -240,6 +240,7 @@ def analyze_cell(rec: dict) -> dict:
     return {
         "arch": rec["arch"],
         "shape": rec["shape"],
+        "mesh": rec.get("mesh", "16x16"),
         "kind": rec["kind"],
         "t_compute_s": terms["compute"],
         "t_memory_s": terms["memory"],
@@ -274,14 +275,14 @@ def load_all(mesh: str = "16x16", rules: str = "auto") -> list[dict]:
 
 def to_markdown(rows: list[dict]) -> str:
     hdr = (
-        "| arch | shape | compute (s) | memory (s) | collective (s) | ring (s) | dominant | "
+        "| arch | shape | mesh | compute (s) | memory (s) | collective (s) | ring (s) | dominant | "
         "MODEL/flops | roofline frac | mem GiB/dev |\n"
-        "|---|---|---|---|---|---|---|---|---|---|\n"
+        "|---|---|---|---|---|---|---|---|---|---|---|\n"
     )
     lines = []
     for r in rows:
         lines.append(
-            f"| {r['arch']} | {r['shape']} | {r['t_compute_s']:.3e} | "
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['t_compute_s']:.3e} | "
             f"{r['t_memory_s']:.3e} | {r['t_collective_s']:.3e} | "
             f"{r['t_collective_ring_s']:.3e} | **{r['dominant']}** | "
             f"{r['useful_ratio']:.2f} | {r['roofline_fraction']:.3f} | "
@@ -291,7 +292,7 @@ def to_markdown(rows: list[dict]) -> str:
 
 
 def main():
-    rows = load_all()
+    rows = load_all("16x16") + load_all("2x16x16")
     os.makedirs("results", exist_ok=True)
     md = to_markdown(rows)
     with open("results/roofline_torch.md", "w") as f:

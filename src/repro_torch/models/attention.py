@@ -205,33 +205,59 @@ def decode_attention_quant(
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta)
-    group = _kv_group(head_dim)
-    G = head_dim // group
-
-    def quantize(t):  # (B, 1, Hkv, hd) -> int8 + (B, 1, Hkv, G) group scales
-        tg = t.reshape(*t.shape[:-1], G, group)
-        s = torch.amax(torch.abs(tg), dim=-1, keepdim=True) / 127.0 + 1e-9
-        q8 = torch.clamp(torch.round(tg / s), -127, 127).to(torch.int8)
-        return q8.reshape(t.shape), s[..., 0]
-
-    def dequantize(c8, s):  # (B, S, Hkv, hd) int8 + (B, S, Hkv, G) -> f32
-        cg = c8.to(torch.float32).reshape(*c8.shape[:-1], G, group)
-        return (cg * s[..., None]).reshape(c8.shape)
-
-    kq, ks = quantize(k)
-    vq, vs = quantize(v)
-    cache_k[:, pos] = kq[:, 0]
-    cache_v[:, pos] = vq[:, 0]
-    k_scale[:, pos] = ks[:, 0].to(k_scale.dtype)
-    v_scale[:, pos] = vs[:, 0].to(v_scale.dtype)
-
-    k_deq = dequantize(cache_k, k_scale).to(q.dtype)
+    write_slot_q8(cache_k, cache_v, k_scale, v_scale, k, v, pos)
+    k_deq = dequantize_kv(cache_k, k_scale).to(q.dtype)
     w = _decode_scores(q, k_deq, pos, n_heads, head_dim)
     out = torch.einsum(
-        "bhgts,bshd->bthgd", w.to(q.dtype), dequantize(cache_v, v_scale).to(q.dtype)
+        "bhgts,bshd->bthgd", w.to(q.dtype), dequantize_kv(cache_v, v_scale).to(q.dtype)
     )
     out = out.reshape(B, 1, n_heads * head_dim) @ params["w_o"]
     return out, cache_k, cache_v, k_scale, v_scale
+
+
+def quantize_kv(t):
+    """(B, 1, Hkv, hd) -> its int8 values and (B, 1, Hkv, G) group scales."""
+    group = _kv_group(t.shape[-1])
+    tg = t.reshape(*t.shape[:-1], t.shape[-1] // group, group)
+    s = torch.amax(torch.abs(tg), dim=-1, keepdim=True) / 127.0 + 1e-9
+    q8 = torch.clamp(torch.round(tg / s), -127, 127).to(torch.int8)
+    return q8.reshape(t.shape), s[..., 0]
+
+
+def dequantize_kv(c8, s):
+    """(B, S, Hkv, hd) int8 and (B, S, Hkv, G) group scales -> f32."""
+    group = _kv_group(c8.shape[-1])
+    cg = c8.to(torch.float32).reshape(*c8.shape[:-1], c8.shape[-1] // group, group)
+    return (cg * s[..., None]).reshape(c8.shape)
+
+
+def write_slot_q8(cache_k, cache_v, k_scale, v_scale, k, v, slot: int) -> None:
+    """One token's k, v (B, 1, Hkv, hd) quantized into slot ``slot`` of an
+    int8 cache and its scales, in place."""
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    cache_k[:, slot] = kq[:, 0]
+    cache_v[:, slot] = vq[:, 0]
+    k_scale[:, slot] = ks[:, 0].to(k_scale.dtype)
+    v_scale[:, slot] = vs[:, 0].to(v_scale.dtype)
+
+
+def write_kv(cache: tuple, k, v, slot: int) -> None:
+    """One token's k, v into slot ``slot`` of a (k, v) cache, or of int8's
+    (k, v, k scales, v scales)."""
+    if len(cache) == 4:
+        write_slot_q8(*cache, k, v, slot)
+    else:
+        write_slot(*cache, k, v, slot)
+
+
+def read_kv(cache: tuple) -> tuple:
+    """A cache's (k, v) as stored, or int8's dequantized (f32) with their
+    per-token scales."""
+    if len(cache) == 4:
+        ck, cv, ks, vs = cache
+        return dequantize_kv(ck, ks), dequantize_kv(cv, vs)
+    return cache
 
 
 class CrossAttention(ParamModule):

@@ -42,19 +42,48 @@ import threading
 import torch
 from torch.autograd import Function
 
-OBSERVERS: list = []  # callables (kind, devices, result bytes a member)
+OBSERVERS: list = []  # callables (kind, members' places, result bytes a member)
 _inside = threading.local()  # set while a noted collective runs
+_quiet = threading.local()  # set while a stand-in is made
+
+
+def quiet() -> bool:
+    """Whether the op now dispatched makes a stand-in (no recorder counts
+    it)."""
+    return getattr(_quiet, "on", False)
+
+
+def stand_in(like, device, position: int) -> torch.Tensor:
+    """A tensor of ``like``'s shape, strides and dtype (a tensor, or a
+    (shape, dtype) pair: contiguous) on ``device``, with no values set,
+    standing for mesh position ``position``'s tensor."""
+    _quiet.on = True
+    try:
+        if isinstance(like, torch.Tensor):
+            t = torch.empty_strided(like.shape, like.stride(), dtype=like.dtype, device=device)
+        else:
+            t = torch.empty(like[0], dtype=like[1], device=device)
+    finally:
+        _quiet.on = False
+    t.mesh_position = position
+    return t
+
+
+def places(xs) -> list:
+    """Each member's (device, mesh position where it is a stand-in, else
+    None)."""
+    return [(x.device, getattr(x, "mesh_position", None)) for x in xs]
 
 
 class _noted:
-    """Tell ``OBSERVERS`` of one collective, and not of the collectives it
-    calls."""
+    """Tell ``OBSERVERS`` of one collective over members at ``where``
+    (``places``), and not of the collectives it calls."""
 
-    def __init__(self, kind: str, xs, result_bytes: int):
-        self.outer = len(xs) > 1 and bool(OBSERVERS) and not getattr(_inside, "on", False)
+    def __init__(self, kind: str, where: list, result_bytes: int):
+        self.outer = len(where) > 1 and bool(OBSERVERS) and not getattr(_inside, "on", False)
         if self.outer:
             for observe in OBSERVERS:
-                observe(kind, [x.device for x in xs], int(result_bytes))
+                observe(kind, where, int(result_bytes))
 
     def __enter__(self):
         if self.outer:
@@ -69,13 +98,25 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size()
 
 
+class _Reduce(Function):
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.devices = [x.device for x in xs]
+        with _noted("reduce", places(xs), _nbytes(xs[0])):
+            total = xs[0]
+            for x in xs[1:]:
+                total = total + x.to(total.device)
+            return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(grad.to(d) for d in ctx.devices)
+
+
 def sum_in_order(xs):
-    """The members' tensors added in order on the first member's device."""
-    with _noted("reduce", xs, _nbytes(xs[0])):
-        total = xs[0]
-        for x in xs[1:]:
-            total = total + x.to(total.device)
-        return total
+    """The members' tensors added in order on the first member's device
+    (the gradient copied back to each)."""
+    return _Reduce.apply(*xs) if len(xs) > 1 else xs[0]
 
 
 def _copies(x, devices):
@@ -91,44 +132,44 @@ def _split(x, sizes, dim, devices):
 class _AllReduce(Function):
     @staticmethod
     def forward(ctx, *xs):
-        ctx.devices = [x.device for x in xs]
-        with _noted("all-reduce", xs, _nbytes(xs[0])):
+        ctx.devices, ctx.places = [x.device for x in xs], places(xs)
+        with _noted("all-reduce", ctx.places, _nbytes(xs[0])):
             return _copies(sum_in_order(xs), ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        with _noted("all-reduce", grads, _nbytes(grads[0])):
+        with _noted("all-reduce", ctx.places, _nbytes(grads[0])):
             return _copies(sum_in_order(grads), ctx.devices)
 
 
 class _AllGather(Function):
     @staticmethod
     def forward(ctx, dim, *xs):
-        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        ctx.dim, ctx.devices, ctx.places = dim, [x.device for x in xs], places(xs)
         ctx.sizes = [x.shape[dim] for x in xs]
-        with _noted("all-gather", xs, sum(_nbytes(x) for x in xs)):
+        with _noted("all-gather", ctx.places, sum(_nbytes(x) for x in xs)):
             whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
             return _copies(whole, ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        with _noted("reduce-scatter", grads, _nbytes(grads[0]) // len(grads)):
+        with _noted("reduce-scatter", ctx.places, _nbytes(grads[0]) // len(grads)):
             return (None, *_split(sum_in_order(grads), ctx.sizes, ctx.dim, ctx.devices))
 
 
 class _ReduceScatter(Function):
     @staticmethod
     def forward(ctx, dim, *xs):
-        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        ctx.dim, ctx.devices, ctx.places = dim, [x.device for x in xs], places(xs)
         n, size = len(xs), xs[0].shape[dim]
         if size % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {size} does not split {n}")
-        with _noted("reduce-scatter", xs, _nbytes(xs[0]) // n):
+        with _noted("reduce-scatter", ctx.places, _nbytes(xs[0]) // n):
             return _split(sum_in_order(xs), [size // n] * n, dim, ctx.devices)
 
     @staticmethod
     def backward(ctx, *grads):
-        with _noted("all-gather", grads, sum(_nbytes(g) for g in grads)):
+        with _noted("all-gather", ctx.places, sum(_nbytes(g) for g in grads)):
             whole = torch.cat([g.to(grads[0].device) for g in grads], ctx.dim)
             return (None, *_copies(whole, ctx.devices))
 
@@ -151,15 +192,49 @@ def _exchange(xs, split_dim, concat_dim):
 class _AllToAll(Function):
     @staticmethod
     def forward(ctx, split_dim, concat_dim, *xs):
-        ctx.dims = split_dim, concat_dim
-        with _noted("all-to-all", xs, _nbytes(xs[0])):
+        ctx.dims, ctx.places = (split_dim, concat_dim), places(xs)
+        with _noted("all-to-all", ctx.places, _nbytes(xs[0])):
             return _exchange(xs, split_dim, concat_dim)
 
     @staticmethod
     def backward(ctx, *grads):
         split_dim, concat_dim = ctx.dims
-        with _noted("all-to-all", grads, _nbytes(grads[0])):
+        with _noted("all-to-all", ctx.places, _nbytes(grads[0])):
             return (None, None, *_exchange(grads, concat_dim, split_dim))
+
+
+class _Gather(Function):
+    @staticmethod
+    def forward(ctx, dim, *xs):
+        ctx.dim, ctx.devices = dim, [x.device for x in xs]
+        ctx.sizes = [x.shape[dim] for x in xs]
+        with _noted("gather", places(xs), sum(_nbytes(x) for x in xs)):
+            return torch.cat([x.to(xs[0].device) for x in xs], dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        chunks = torch.split(grad, ctx.sizes, ctx.dim)
+        return (None, *(c.to(d) for c, d in zip(chunks, ctx.devices)))
+
+
+class _Scatter(Function):
+    @staticmethod
+    def forward(ctx, x, dim, blocks, devices):
+        ctx.dim, ctx.device = dim, x.device
+        cuts = [b.start for b in blocks] + [x.shape[dim]]
+        if cuts[0] != 0 or any(b.stop != c for b, c in zip(blocks, cuts[1:])):
+            raise NotImplementedError(f"scatter: blocks {blocks} do not tile dim {dim}")
+        index = [slice(None)] * x.dim()
+        out = []
+        for b, d in zip(blocks, devices):
+            index[dim] = b
+            out.append(x[tuple(index)].to(d))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        whole = torch.cat([g.to(ctx.device) for g in grads], ctx.dim)
+        return whole, None, None, None
 
 
 def all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -190,7 +265,7 @@ def all_to_all(xs: list[torch.Tensor], split_dim: int, concat_dim: int) -> list:
 def all_max(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The elementwise max of the members' tensors, on every member (no
     gradient)."""
-    with _noted("all-max", xs, _nbytes(xs[0])):
+    with _noted("all-max", places(xs), _nbytes(xs[0])):
         top = xs[0]
         for x in xs[1:]:
             top = torch.maximum(top, x.to(top.device))
@@ -200,5 +275,10 @@ def all_max(xs: list[torch.Tensor]) -> list[torch.Tensor]:
 def gather(xs: list[torch.Tensor], dim: int) -> torch.Tensor:
     """The members' tensors concatenated along ``dim`` on the first
     member's device only."""
-    with _noted("gather", xs, sum(_nbytes(x) for x in xs)):
-        return torch.cat([x.to(xs[0].device) for x in xs], dim)
+    return _Gather.apply(dim, *xs) if len(xs) > 1 else xs[0]
+
+
+def scatter(x: torch.Tensor, dim: int, blocks: list[slice], devices: list) -> list:
+    """Block ``blocks[i]`` of ``x`` along ``dim`` on ``devices[i]`` (a view
+    where that is ``x``'s device): blocks that tile the dim in order."""
+    return list(_Scatter.apply(x, dim, blocks, devices))

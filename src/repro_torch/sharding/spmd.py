@@ -29,7 +29,12 @@ What the layout asks for, as GSPMD would insert it:
     logits with a vocab-parallel cross-entropy;
   * attention on a head shard where the q and kv cuts hold whole heads (q
     shard p's heads then read kv shard p's); otherwise q, k and v gathered
-    over the group, attention once a group, each member its ``w_o`` rows;
+    over the group, attention once a group, each member its ``w_o`` rows.
+    Decode through a cache whose kv heads do not divide "model" gathers q,
+    k and v on every member, which reads its whole copy of the cache: a
+    ``MacState`` (a replica) extended with every kv head and read out; a
+    KV cache, a replica or cut along its sequence (int8's dequantized a
+    block at a time with its own scales), by one combine over the group;
   * experts over "model": each member's experts on the replicated
     dispatch buffer, then the all-reduce; over "data" (``EP_DATA_RULES``,
     ``EP_DP_RULES``): the buffer all-to-all'd to the experts' owners and
@@ -66,6 +71,12 @@ What the layout asks for, as GSPMD would insert it:
     image tokens, no mask and no RoPE; decode from the cached image K/V
     (or their ``MacState``), head-cut, sequence-cut or a replica.
 
+A class trace runs one position of each class only (``run``,
+``class_reps``: the positions with coordinate 0 or 1 on every axis), the
+other members of each group it runs standing in with tensors of their
+representative's shapes (``collectives.stand_in``); ``launch.dryrun``
+gives every other position its class's counts.
+
 The blocks are the port's own functions (``transformer._attn_forward``,
 ``_attn_core``, ``_attn_decode``, ``_cross_attn_decode``,
 ``layers.swiglu``, ``moe.route``, ``moe.experts``, ``rwkv.time_mix_*``,
@@ -77,20 +88,25 @@ other than the reference's six (``RULE_SETS``) and mesh axes other than
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import maclaurin_attention as mac
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import (
     _gqa_scores_full,
     cross_attention,
     decode_attend,
     qkv_columns,
+    read_kv,
     split_heads,
-    write_slot,
+    write_kv,
 )
 from repro_torch.models.layers import rmsnorm, swiglu
 from repro_torch.models.moe import _combine, experts, load_counts, route
@@ -253,6 +269,36 @@ def remat_lockstep(fn, *args):
     return _unflatten(box["shape"], out)
 
 
+def class_reps(sizes: tuple[int, ...]) -> list[int]:
+    """Each position's class representative on a mesh of ``sizes``
+    (row-major). A position's counts depend only on the groups it leads (a
+    reduction is summed on a group's first member, which has coordinate 0
+    on the group's axes), so its class is the set of axes on which its
+    coordinate is 0; the representative has coordinate 0 there and 1 on
+    the other axes."""
+    coords = np.indices(sizes).reshape(len(sizes), -1)
+    return [int(p) for p in np.ravel_multi_index(np.minimum(coords, 1), sizes)]
+
+
+def class_sizes(sizes: tuple[int, ...]) -> dict[int, int]:
+    """{a class representative: the positions of its class}."""
+    return dict(collections.Counter(class_reps(sizes)))
+
+
+_RUN: list = [None]  # the positions a Lockstep built now runs (None: all)
+
+
+@contextlib.contextmanager
+def running(run):
+    """Lockstep programs built inside run the mesh positions ``run`` only
+    (a class trace; None: every position)."""
+    _RUN.append(None if run is None else frozenset(run))
+    try:
+        yield
+    finally:
+        _RUN.pop()
+
+
 @dataclasses.dataclass(frozen=True)
 class Cut:
     """How one leaf is cut as its block sees it: ``gathered`` lists the
@@ -290,7 +336,14 @@ class Lockstep:
     parameters' layout (``params``, a tree of ``Sharded`` in
     ``LMParams.tree()``'s layout) and a global batch of ``global_batch``
     rows. Methods take and return one value a mesh position, in position
-    order."""
+    order: None at a position that is not run.
+
+    ``run``: the positions to run (default: those ``running`` names, else
+    all). Every class representative (``class_reps``) must be among them,
+    each on a device of its own; any other member of a group that runs
+    takes a stand-in shaped as its representative's value
+    (``collectives.stand_in``). Where a leaf's block at such a position
+    differs in shape from its representative's, the program raises."""
 
     def __init__(
         self,
@@ -299,12 +352,24 @@ class Lockstep:
         rules: AxisRules,
         params: dict,
         global_batch: int,
+        run=None,
     ):
         check_supported(cfg, mesh, rules)
         self.cfg, self.mesh = cfg, mesh
         self.dtype = getattr(torch, cfg.dtype)
         self.n = mesh.size
         self.devices = mesh.devices
+        self.rep = class_reps(mesh.sizes)
+        run = _RUN[-1] if run is None else run
+        self.run = tuple(range(self.n)) if run is None else tuple(sorted(set(run)))
+        self.live = frozenset(self.run)
+        self.partial = len(self.run) < self.n
+        if self.partial:
+            missing = sorted(set(self.rep) - self.live)
+            if missing:
+                raise ValueError(f"a class trace runs every class representative, not {missing}")
+            if len({str(self.devices[p]) for p in self.run}) < len(self.run):
+                raise ValueError("a class trace runs each position on a device of its own")
         self.global_batch = global_batch
         self.batch = batch_sharding(mesh, rules, global_batch)
         self.batch_axes = tuple(self.batch.dim_axes(1)[0])
@@ -324,17 +389,65 @@ class Lockstep:
         spec = flat(logical_spec(cfg))
         self.cuts = {}
         for path, leaf in flat(params).items():
+            self.check_blocks(leaf, path)
             self.cuts[path] = _cut(leaf, spec[path], 1 if path[0] in STACKS else 0, self.tp)
 
     # ------------------------------------------------------------ layout
 
+    def check_blocks(self, leaf: Sharded, what) -> None:
+        """Raise where a position that is not run holds a block of ``leaf``
+        of another shape than its class representative's."""
+        if not self.partial:
+            return
+        for p in range(self.n):
+            if p not in self.live:
+                got, want = leaf.shards[p].shape, leaf.shards[self.rep[p]].shape
+                if got != want:
+                    raise ValueError(
+                        f"{what}: position {p}'s block {tuple(got)} is not its class "
+                        f"representative {self.rep[p]}'s {tuple(want)}: no stand-in"
+                    )
+
+    def each(self, fn) -> list:
+        """``fn(p)`` at each position that runs, None at the others. (A
+        loop body is a function: its temporaries die with its call, so the
+        last position holds no more than the others.)"""
+        return [fn(p) if p in self.live else None for p in range(self.n)]
+
+    def each2(self, fn) -> tuple[list, list]:
+        """``each`` of a function returning a pair: two lists."""
+        both = self.each(fn)
+        return [b and b[0] for b in both], [b and b[1] for b in both]
+
+    def per_group(self, fn) -> list:
+        """``fn(g)`` of each tensor-parallel group that runs: its members'
+        values, merged into one list a position."""
+        out = [None] * self.n
+        for g in self.tp_groups:
+            if self.runs(g):
+                for p, y in zip(g, fn(g)):
+                    out[p] = y
+        return out
+
+    def have(self, xs: list, p: int):
+        """Position ``p``'s entry of ``xs``: its own where it runs, else a
+        stand-in shaped as its class representative's."""
+        if p in self.live:
+            return xs[p]
+        return coll.stand_in(xs[self.rep[p]], self.devices[p], p)
+
+    def runs(self, group) -> bool:
+        return any(p in self.live for p in group)
+
     def over(self, groups, xs: list, fn) -> list:
-        """``fn`` on each group's members of ``xs`` (one a position)."""
+        """``fn`` on each group's members of ``xs`` (one a position), over
+        every group that a position that runs belongs to."""
         out = list(xs)
         for g in groups:
-            if len(g) > 1:
-                for p, y in zip(g, fn([xs[p] for p in g])):
-                    out[p] = y
+            if len(g) > 1 and self.runs(g):
+                for p, y in zip(g, fn([self.have(xs, p) for p in g])):
+                    if p in self.live:
+                        out[p] = y
         return out
 
     def tp_reduce(self, xs: list) -> list:
@@ -350,7 +463,7 @@ class Lockstep:
             return self.tp_reduce(xs) if partial else xs
         if partial:
             return self.over(self.tp_groups, xs, lambda m: coll.reduce_scatter(m, 1))
-        return [x[:, self.seq_rows(p, x.shape[1])] for p, x in enumerate(xs)]
+        return self.each(lambda p: xs[p][:, self.seq_rows(p, xs[p].shape[1])])
 
     def seq_rows(self, p: int, T: int) -> slice:
         """The rows of a T-token sequence position ``p``'s residual holds."""
@@ -398,38 +511,37 @@ class Lockstep:
         """Block ``prefix``'s parameters a position (layer ``i`` of a stack;
         ``i`` None for the unstacked shared block), cast to the compute
         dtype and FSDP-gathered, as ``layer.tensors(dtype)`` nests them."""
-        out = [dict() for _ in range(self.n)]
-        for path in stacks[0][prefix]:
-            xs = [stacks[p][prefix][path] for p in range(self.n)]
-            xs = [(x if i is None else x[i]).to(self.dtype) for x in xs]
+        out = self.each(lambda p: {})
+        for path in stacks[self.run[0]][prefix]:
+            xs = self.each(lambda p: stacks[p][prefix][path])
+            xs = self.each(lambda p: (xs[p] if i is None else xs[p][i]).to(self.dtype))
             xs = self.fsdp((prefix,) + path, xs)
-            for p in range(self.n):
+            for p in self.run:
                 out[p][path] = xs[p]
-        return [nest(o) for o in out]
+        return self.each(lambda p: nest(out[p]))
 
     def embed(self, top: list[dict], tokens: list) -> list:
         path = ("embed", "table")
-        table = self.fsdp(path, [t[path] for t in top])
+        table = self.fsdp(path, self.each(lambda p: top[p][path]))
         cut = bool(self.cuts[path].axes[0])
-        if not cut:
-            x = [table[p][tokens[p]] for p in range(self.n)]
-        else:
-            x = []
-            for p in range(self.n):
-                rows = table[p].shape[0]
-                t = tokens[p].long() - self.block(path, p, 0).start
-                inside = (t >= 0) & (t < rows)
-                got = table[p][t.clamp(0, rows - 1)]
-                x.append(torch.where(inside[..., None], got, 0.0))
-        return [xi.to(self.dtype) for xi in self.finish(x, cut)]
+
+        def lookup(p):  # rows of the vocab block this position holds
+            rows = table[p].shape[0]
+            t = tokens[p].long() - self.block(path, p, 0).start
+            inside = (t >= 0) & (t < rows)
+            return torch.where(inside[..., None], table[p][t.clamp(0, rows - 1)], 0.0)
+
+        x = self.each(lookup if cut else lambda p: table[p][tokens[p]])
+        x = self.finish(x, cut)
+        return self.each(lambda p: x[p].to(self.dtype))
 
     def head(self, top: list[dict], x: list) -> list:
         """Final norm and LM head: each position's (B, T, its vocab) logits."""
         ln, head = ("final_ln", "scale"), ("lm_head", "w")
-        scale = self.fsdp(ln, [t[ln] for t in top])
-        w = self.fsdp(head, [t[head].to(self.dtype) for t in top])
-        h = self.whole_seq([rmsnorm({"scale": scale[p]}, x[p]) for p in range(self.n)])
-        return [h[p] @ w[p] for p in range(self.n)]
+        scale = self.fsdp(ln, self.each(lambda p: top[p][ln]))
+        w = self.fsdp(head, self.each(lambda p: top[p][head].to(self.dtype)))
+        h = self.whole_seq(self.each(lambda p: rmsnorm({"scale": scale[p]}, x[p])))
+        return self.each(lambda p: h[p] @ w[p])
 
     def xent_sums(self, logits: list, labels: list) -> list:
         """Each position's sum of token losses over its rows: a
@@ -437,24 +549,36 @@ class Lockstep:
         logit each reduced over the vocab's cut)."""
         path = ("lm_head", "w")
         cut = bool(self.cuts[path].axes[1])
-        l32 = [x.to(torch.float32) for x in logits]
-        top = [torch.amax(x, dim=-1).detach() for x in l32]
+        l32 = self.each(lambda p: logits[p].to(torch.float32))
+        top = self.each(lambda p: torch.amax(l32[p], dim=-1).detach())
         if cut:
             top = self.over(self.tp_groups, top, coll.all_max)
-        total, gold = [], []
-        for p in range(self.n):
-            total.append(torch.sum(torch.exp(l32[p] - top[p][..., None]), dim=-1))
+
+        def parts(p):
+            total = torch.sum(torch.exp(l32[p] - top[p][..., None]), dim=-1)
             cols = l32[p].shape[-1]
             t = labels[p].long() - self.block(path, p, 1).start
             inside = (t >= 0) & (t < cols)
             where = t.clamp(0, cols - 1)[..., None]
             hit = torch.take_along_dim(l32[p], where, dim=-1)[..., 0]
-            gold.append(torch.where(inside, hit, 0.0))
+            return total, torch.where(inside, hit, 0.0)
+
+        total, gold = self.each2(parts)
         if cut:
             total, gold = self.tp_reduce(total), self.tp_reduce(gold)
-        return [
-            torch.sum(top[p] + torch.log(total[p]) - gold[p]) for p in range(self.n)
-        ]
+        return self.each(lambda p: torch.sum(top[p] + torch.log(total[p]) - gold[p]))
+
+    def group_columns(self, xs: list, g, cut) -> torch.Tensor:
+        """Group ``g``'s columns of ``xs`` gathered on its first member
+        where ``cut``, else the first member's own."""
+        return coll.gather([self.have(xs, p) for p in g], -1) if cut else xs[g[0]]
+
+    def to_members(self, o: torch.Tensor, g, lp: list[dict], key: tuple) -> list:
+        """Each member of ``g`` that runs: its rows of the whole attention
+        output ``o`` (on the first member) through its ``w_o`` block."""
+        rows = [self.block(key + ("w_o",), p, 0) for p in g]
+        pieces = coll.scatter(o, -1, rows, [self.devices[p] for p in g])
+        return [piece @ lp[p][key[-1]]["w_o"] if p in self.live else None for p, piece in zip(g, pieces)]
 
     def attention(self, lp: list[dict], h: list, pos: list, prefix: str) -> list:
         cfg = self.cfg
@@ -465,26 +589,19 @@ class Lockstep:
         whole = cfg.n_heads % parts == 0 and cfg.n_kv_heads % parts == 0
         if q_ax == kv_ax == o_ax and whole:
             local = self.heads_cfg(parts)  # whole heads: attention on the shard
-            out = [
-                tf._attn_forward(local, lp[p]["attn"], h[p], pos[p])
-                for p in range(self.n)
-            ]
+            out = self.each(lambda p: tf._attn_forward(local, lp[p]["attn"], h[p], pos[p]))
             return self.finish(out, bool(q_ax))
-        cols = [qkv_columns(lp[p]["attn"], h[p]) for p in range(self.n)]
-        out = [None] * self.n
-        for g in self.tp_groups:
-            q, k, v = (
-                coll.gather([cols[p][j] for p in g], -1) if ax else cols[g[0]][j]
-                for j, ax in enumerate((q_ax, kv_ax, kv_ax))
-            )
+        cols = self.each(lambda p: qkv_columns(lp[p]["attn"], h[p]))
+        cols = [self.each(lambda p, j=j: cols[p][j]) for j in range(3)]
+
+        def group(g):
+            q, k, v = (self.group_columns(xs, g, ax) for xs, ax in zip(cols, (q_ax, kv_ax, kv_ax)))
             heads = split_heads(
                 q, k, v, cfg.n_heads, cfg.n_kv_heads, cfg.hd, pos[g[0]], cfg.rope_theta
             )
-            o = tf._attn_core(cfg, *heads)
-            for p in g:
-                rows = self.block((prefix, "attn", "w_o"), p, 0)
-                out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["attn"]["w_o"]
-        return self.finish(out, bool(o_ax))
+            return self.to_members(tf._attn_core(cfg, *heads), g, lp, (prefix, "attn"))
+
+        return self.finish(self.per_group(group), bool(o_ax))
 
     def cross(self, lp: list[dict], h: list, ctx: list) -> list:
         """The VLM's cross-attention of each position's rows over its image
@@ -500,23 +617,16 @@ class Lockstep:
         if q_ax == kv_ax == o_ax and whole:
             local = self.heads_cfg(parts)
             heads = dict(n_heads=local.n_heads, n_kv=local.n_kv_heads, head_dim=cfg.hd)
-            out = [
-                cross_attention(lp[p]["xattn"], h[p], ctx[p], **heads)
-                for p in range(self.n)
-            ]
+            out = self.each(lambda p: cross_attention(lp[p]["xattn"], h[p], ctx[p], **heads))
             return self.finish(out, bool(q_ax))
-        out = [None] * self.n
-        for g in self.tp_groups:
-            w = [lp[p]["xattn"] for p in g]
-            parts_ = (
-                [h[p] @ wp["w_q"] for p, wp in zip(g, w)],
-                [ctx[p] @ wp["w_k"] for p, wp in zip(g, w)],
-                [ctx[p] @ wp["w_v"] for p, wp in zip(g, w)],
-            )
-            q, k, v = (
-                coll.gather(xs, -1) if ax else xs[0]
-                for xs, ax in zip(parts_, (q_ax, kv_ax, kv_ax))
-            )
+        cols = (
+            self.each(lambda p: h[p] @ lp[p]["xattn"]["w_q"]),
+            self.each(lambda p: ctx[p] @ lp[p]["xattn"]["w_k"]),
+            self.each(lambda p: ctx[p] @ lp[p]["xattn"]["w_v"]),
+        )
+
+        def group(g):
+            q, k, v = (self.group_columns(xs, g, ax) for xs, ax in zip(cols, (q_ax, kv_ax, kv_ax)))
             B, T, N = q.shape[0], q.shape[1], k.shape[1]
             o = _gqa_scores_full(
                 q.reshape(B, T, cfg.n_heads, cfg.hd),
@@ -524,10 +634,9 @@ class Lockstep:
                 v.reshape(B, N, cfg.n_kv_heads, cfg.hd),
                 causal=False,
             ).reshape(B, T, cfg.n_heads * cfg.hd)
-            for p in g:
-                rows = self.block(key + ("w_o",), p, 0)
-                out[p] = o[..., rows].to(self.devices[p]) @ lp[p]["xattn"]["w_o"]
-        return self.finish(out, bool(o_ax))
+            return self.to_members(o, g, lp, key)
+
+        return self.finish(self.per_group(group), bool(o_ax))
 
     def ffn(self, lp: list[dict], h: list, want_aux: bool, prefix: str = "layers"):
         """(y a position, aux a position or None)."""
@@ -536,9 +645,9 @@ class Lockstep:
         if cfg.moe_num_experts:
             y, aux = self.moe(lp, h, want_aux)
         if not cfg.moe_num_experts or cfg.moe_dense_residual:
-            dense = [swiglu(lp[p]["ffn"], h[p]) for p in range(self.n)]
+            dense = self.each(lambda p: swiglu(lp[p]["ffn"], h[p]))
             dense = self.finish(dense, bool(self.cuts[(prefix, "ffn", "w_down")].axes[0]))
-            y = dense if not cfg.moe_num_experts else [a + b for a, b in zip(y, dense)]
+            y = dense if not cfg.moe_num_experts else self.each(lambda p: y[p] + dense[p])
         return y, aux
 
     def moe(self, lp: list[dict], h: list, want_aux: bool):
@@ -546,57 +655,54 @@ class Lockstep:
         E = cfg.moe_num_experts
         e_ax = self.cuts[("layers", "moe", "w_gate")].axes[0]
         f_ax = self.cuts[("layers", "moe", "w_down")].axes[1]
-        routed = [route(lp[p]["moe"], h[p], top_k=cfg.moe_top_k) for p in range(self.n)]
-        buf = [r[0] for r in routed]
+        routed = self.each(lambda p: route(lp[p]["moe"], h[p], top_k=cfg.moe_top_k))
+        buf = self.each(lambda p: routed[p][0])
         if not e_ax:
-            y = [experts(lp[p]["moe"], buf[p]) for p in range(self.n)]
+            y = self.each(lambda p: experts(lp[p]["moe"], buf[p]))
         elif e_ax == (self.tp,):  # each member's experts, zero for the others'
-            y = []
-            for p in range(self.n):
+
+            def mine(p):
                 sl = self.block(("layers", "moe", "w_gate"), p, 0)
-                mine = experts(lp[p]["moe"], buf[p][:, sl])
-                B, _, C, d = buf[p].shape
-                before = mine.new_zeros((B, sl.start, C, d))
-                after = mine.new_zeros((B, E - sl.stop, C, d))
-                y.append(torch.cat([before, mine, after], dim=1))
+                y = experts(lp[p]["moe"], buf[p][:, sl])
+                return torch.nn.functional.pad(y, (0, 0, 0, 0, sl.start, E - sl.stop))
+
+            y = self.each(mine)
         else:  # experts over other axes: to their owners and back
             groups = axis_groups(self.mesh, e_ax)
             sent = self.over(groups, buf, lambda m: coll.all_to_all(m, 1, 0))
-            done = [experts(lp[p]["moe"], sent[p]) for p in range(self.n)]
+            done = self.each(lambda p: experts(lp[p]["moe"], sent[p]))
             y = self.over(groups, done, lambda m: coll.all_to_all(m, 0, 1))
-        out = [
-            _combine(y[p], routed[p][1], cfg.moe_top_k, routed[p][4])
-            for p in range(self.n)
-        ]
+        out = self.each(lambda p: _combine(y[p], routed[p][1], cfg.moe_top_k, routed[p][4]))
         out = self.finish(out, e_ax == (self.tp,) or bool(f_ax))
         if not want_aux:
             return out, None
-        tokens = self.global_batch * h[0].shape[1]
-        me = [r[2].sum(dim=(0, 1)) for r in routed]
+        tokens = self.global_batch * h[self.run[0]].shape[1]
+        me = self.each(lambda p: routed[p][2].sum(dim=(0, 1)))
         me = self.over(self.batch_groups, me, coll.all_reduce)
-        ce = [load_counts(r[3], E).sum(dim=(0, 1)) for r in routed]
+        ce = self.each(lambda p: load_counts(routed[p][3], E).sum(dim=(0, 1)))
         ce = self.over(self.batch_groups, ce, coll.all_reduce)
-        return out, [E * torch.sum((m / tokens) * (c / tokens)) for m, c in zip(me, ce)]
+        return out, self.each(lambda p: E * torch.sum((me[p] / tokens) * (ce[p] / tokens)))
 
     def layer(self, i, stacks: list[dict], x: list, pos: list, prefix: str = "layers"):
         """Dense block ``i`` of ``prefix`` (the one-device ``_dense_block``):
         (x, aux)."""
         lp = self.block_params(stacks, prefix, i)
-        h = self.whole_seq([rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)])
+        h = self.whole_seq(self.each(lambda p: rmsnorm(lp[p]["ln1"], x[p])))
         a = self.attention(lp, h, pos, prefix)
-        x = [xi + ai for xi, ai in zip(x, a)]
-        h = self.whole_seq([rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)])
+        x = self.each(lambda p: x[p] + a[p])
+        h = self.whole_seq(self.each(lambda p: rmsnorm(lp[p]["ln2"], x[p])))
         y, aux = self.ffn(lp, h, want_aux=True, prefix=prefix)
-        return [xi + yi for xi, yi in zip(x, y)], aux
+        return self.each(lambda p: x[p] + y[p]), aux
 
     def cross_layer(self, g: int, stacks: list[dict], x: list, ctx: list) -> list:
         """Cross block ``g`` (the one-device ``_cross_block``)."""
         lp = self.block_params(stacks, "cross_layers", g)
-        h = self.whole_seq([rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)])
-        x = [xi + ai for xi, ai in zip(x, self.cross(lp, h, ctx))]
-        h = self.whole_seq([rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)])
+        h = self.whole_seq(self.each(lambda p: rmsnorm(lp[p]["ln1"], x[p])))
+        a = self.cross(lp, h, ctx)
+        x = self.each(lambda p: x[p] + a[p])
+        h = self.whole_seq(self.each(lambda p: rmsnorm(lp[p]["ln2"], x[p])))
         y, _ = self.ffn(lp, h, want_aux=False, prefix="cross_layers")
-        return [xi + yi for xi, yi in zip(x, y)]
+        return self.each(lambda p: x[p] + y[p])
 
     # ------------------------------------------------------------- RWKV6
 
@@ -609,67 +715,60 @@ class Lockstep:
         cut = self.cuts[("layers", "w_r")].axes[1]
         cols = [self.block(("layers", "w_r"), p, 1) for p in range(self.n)]
         if all(c.start % hd == 0 and c.stop % hd == 0 for c in cols):
-            out = []
-            for p in range(self.n):
-                mine = dict(lp[p])
-                mine["u"] = lp[p]["u"][cols[p].start // hd : cols[p].stop // hd]
-                out.append(mine)
-            return out, bool(cut)
-        out = [dict(d) for d in lp]
+            own = lambda p: lp[p]["u"][cols[p].start // hd : cols[p].stop // hd]  # noqa: E731
+            return self.each(lambda p: {**lp[p], "u": own(p)}), bool(cut)
+        out = self.each(lambda p: dict(lp[p]))
         for name, dim in (("w_r", 1), ("w_k", 1), ("w_v", 1), ("w_g", 1), ("w0", 0),
                           ("w_lora_b", 1), ("ln_scale", 0), ("w_o", 0)):
             if self.cuts[("layers", name)].axes[dim]:
-                whole = self.gather_tp([d[name] for d in out], dim)
-                for d, w in zip(out, whole):
-                    d[name] = w
+                whole = self.gather_tp(self.each(lambda p: out[p][name]), dim)
+                for p in self.run:
+                    out[p][name] = whole[p]
         return out, False
 
     def channel_mix(self, lp: list[dict], h: list, last=None) -> list:
         """The channel mix a position: the value projection's partial sums
         reduced over the "ffn" cut before its gate (both in the residual's
         layout)."""
-        parts = [
-            channel_mix_parts(lp[p], h[p], None if last is None else last[p])
-            for p in range(self.n)
-        ]
+        parts = self.each(
+            lambda p: channel_mix_parts(lp[p], h[p], None if last is None else last[p])
+        )
         partial = bool(self.cuts[("layers", "w_ffn_v")].axes[0])
-        value = self.finish([v for _, v in parts], partial)
-        gate = self.finish([g for g, _ in parts], False)
-        return [g * v for g, v in zip(gate, value)]
+        value = self.finish(self.each(lambda p: parts[p][1]), partial)
+        gate = self.finish(self.each(lambda p: parts[p][0]), False)
+        return self.each(lambda p: gate[p] * value[p])
 
     def rwkv_layer(self, i: int, stacks: list[dict], x: list) -> list:
         """RWKV6 block ``i`` (the one-device ``_rwkv_block``)."""
         cfg = self.cfg
         lp = self.block_params(stacks, "layers", i)
-        h = self.whole_seq([rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)])
+        h = self.whole_seq(self.each(lambda p: rmsnorm({"scale": lp[p]["ln1"]}, x[p])))
         tm, partial = self.rwkv_params(lp)
         opts = dict(head_dim=cfg.rwkv_head_dim, chunk=cfg.scan_chunk)
-        out = [time_mix_forward(tm[p], h[p], **opts) for p in range(self.n)]
-        x = [xi + oi for xi, oi in zip(x, self.finish(out, partial))]
-        h = self.whole_seq([rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)])
-        return [xi + oi for xi, oi in zip(x, self.channel_mix(lp, h))]
+        out = self.finish(self.each(lambda p: time_mix_forward(tm[p], h[p], **opts)), partial)
+        x = self.each(lambda p: x[p] + out[p])
+        h = self.whole_seq(self.each(lambda p: rmsnorm({"scale": lp[p]["ln2"]}, x[p])))
+        mixed = self.channel_mix(lp, h)
+        return self.each(lambda p: x[p] + mixed[p])
 
     def rwkv_decode(self, i: int, stacks: list[dict], x: list, cache: list) -> list:
         """One token through RWKV6 block ``i``, each position's blocks of
         the cache's states written in place."""
         f32 = torch.float32
         lp = self.block_params(stacks, "layers", i)
-        h = [rmsnorm({"scale": lp[p]["ln1"]}, x[p]) for p in range(self.n)]
+        h = self.each(lambda p: rmsnorm({"scale": lp[p]["ln1"]}, x[p]))
         tm, partial = self.rwkv_params(lp)
-        out, new = [], []
-        for p in range(self.n):
-            state = (cache[p]["S"][i], cache[p]["x_tm"][i].to(h[p].dtype))
-            o, st = time_mix_decode(tm[p], h[p], state, head_dim=self.cfg.rwkv_head_dim)
-            out.append(o)
-            new.append(st)
-        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, self.finish(out, partial))]
-        h2 = [rmsnorm({"scale": lp[p]["ln2"]}, x[p]) for p in range(self.n)]
-        last = [cache[p]["x_cm"][i].to(h2[p].dtype) for p in range(self.n)]
+        hd = self.cfg.rwkv_head_dim
+        state = lambda p: (cache[p]["S"][i], cache[p]["x_tm"][i].to(h[p].dtype))  # noqa: E731
+        out, new = self.each2(lambda p: time_mix_decode(tm[p], h[p], state(p), head_dim=hd))
+        out = self.finish(out, partial)
+        x = self.each(lambda p: x[p] + out[p].to(x[p].dtype))
+        h2 = self.each(lambda p: rmsnorm({"scale": lp[p]["ln2"]}, x[p]))
+        last = self.each(lambda p: cache[p]["x_cm"][i].to(h2[p].dtype))
         out2 = self.channel_mix(lp, h2, last)
-        x = [xi + oi.to(xi.dtype) for xi, oi in zip(x, out2)]
-        for p in range(self.n):
-            S_, x_tm = new[p]
-            for key, value in (("S", S_), ("x_tm", x_tm), ("x_cm", h2[p])):
+        x = self.each(lambda p: x[p] + out2[p].to(x[p].dtype))
+        for p in self.run:
+            for key, value in (("S", new[p][0]), ("x_tm", new[p][1]), ("x_cm", h2[p])):
                 cache[p][key][i] = value.to(f32)
         return x
 
@@ -687,24 +786,22 @@ class Lockstep:
         key = lambda name: ("layers",) + name  # noqa: E731
         w_in, conv, w_out = key(("w_in",)), key(("conv",)), key(("w_out",))
         # the packed projection's columns gathered before they are split
-        proj = [x[p] @ lp[p]["w_in"] for p in range(self.n)]
+        proj = self.each(lambda p: x[p] @ lp[p]["w_in"])
         if self.cuts[w_in].axes[1]:
             proj = self.gather_tp(proj, -1)
-        split = [_split_proj(pr, d_inner, N, H) for pr in proj]
+        split = self.each(lambda p: _split_proj(proj[p], d_inner, N, H))
         # the conv on the channel block of x | B | C its weight holds
-        conved, carries = [], []
-        for p in range(self.n):
-            z, xs, Bm, Cm, dt = split[p]
-            ch = self.block(conv, p, 1)
-            xbc = torch.cat([xs, Bm, Cm], dim=-1)[..., ch]
-            carry = states[p][1] if states else None
-            out, carry = _causal_conv(xbc, lp[p]["conv"], carry)
-            conved.append(out)
-            carries.append(carry)
+
+        def conv_block(p):
+            _, xs, Bm, Cm, _ = split[p]
+            xbc = torch.cat([xs, Bm, Cm], dim=-1)[..., self.block(conv, p, 1)]
+            return _causal_conv(xbc, lp[p]["conv"], states[p][1] if states else None)
+
+        conved, carries = self.each2(conv_block)
         if self.cuts[conv].axes[1]:
             conved = self.gather_tp(conved, -1)
-        y, ss, new = [], [], []
-        for p in range(self.n):
+
+        def scan(p):  # ((y rows, z rows), their sum of squares, the new states)
             z, _, _, _, dt = split[p]
             xs = conved[p][..., :d_inner]
             Bm = conved[p][..., d_inner : d_inner + N]
@@ -718,54 +815,59 @@ class Lockstep:
             A = -torch.exp(lp[p]["A_log"][h0:h1])
             B, T = xs.shape[:2]
             xh = xs[..., h0 * P : h1 * P].reshape(B, T, h1 - h0, P)
+            new = None
             if states:
                 yh, ssm = ssd_step(states[p][0], xh[:, 0], Bm[:, 0], Cm[:, 0], dt[:, 0, h0:h1], A)
                 yh = (yh + lp[p]["D"][h0:h1][None, :, None] * xh[:, 0])[:, None]
-                new.append((ssm, carries[p]))
+                new = (ssm, carries[p])
             else:
                 yh = ssd_scan(xh, Bm, Cm, dt[..., h0:h1], A, cfg.scan_chunk)
                 yh = yh + lp[p]["D"][h0:h1][None, None, :, None] * xh
             yp = yh.reshape(B, T, (h1 - h0) * P)[..., rows.start - h0 * P : rows.stop - h0 * P]
-            y.append((yp, z[..., rows]))
             y32 = yp.to(torch.float32)
-            ss.append(torch.sum(y32 * y32, dim=-1, keepdim=True))
+            return (yp, z[..., rows]), torch.sum(y32 * y32, dim=-1, keepdim=True), new
+
+        done = self.each(scan)
+        y, ss = self.each(lambda p: done[p][0]), self.each(lambda p: done[p][1])
+        new = self.each(lambda p: done[p][2])
+        del done
         if self.cuts[w_out].axes[0]:
             ss = self.tp_reduce(ss)
-        out = []
-        for p in range(self.n):
+
+        def project(p):
             yp, zp = y[p]
             var = ss[p] / d_inner
             normed = yp.to(torch.float32) * torch.rsqrt(var + 1e-5) * lp[p]["norm"]["scale"]
             gated = normed.to(yp.dtype) * torch.nn.functional.silu(zp)
-            out.append(_mm(gated, lp[p]["w_out"]))
-        out = self.finish(out, bool(self.cuts[w_out].axes[0]))
+            return _mm(gated, lp[p]["w_out"])
+
+        out = self.finish(self.each(project), bool(self.cuts[w_out].axes[0]))
         return out, (new if states else None)
 
     def mamba_layer(self, i: int, stacks: list[dict], x: list) -> list:
         """Mamba2 block ``i`` (the one-device ``_mamba_block``)."""
         out, _ = self.mamba(self.block_params(stacks, "layers", i), self.whole_seq(x))
-        return [xi + oi for xi, oi in zip(x, out)]
+        return self.each(lambda p: x[p] + out[p])
 
     def mamba_decode(self, i, stacks: list[dict], x: list, cache: list, layouts: dict) -> list:
         """One token through Mamba2 block ``i``, each position's blocks of
         the ssm state and the conv carry written in place."""
         f32 = torch.float32
         lp = self.block_params(stacks, "layers", i)
-        states = [(c["ssm"][i], c["conv"][i]) for c in cache]
+        states = self.each(lambda p: (cache[p]["ssm"][i], cache[p]["conv"][i]))
         out, new = self.mamba(lp, x, states, layouts["ssm"])
-        for p in range(self.n):
+        for p in self.run:
             cache[p]["ssm"][i], cache[p]["conv"][i] = (t.to(f32) for t in new[p])
-        return [xi + oi.to(xi.dtype) for xi, oi in zip(x, out)]
+        return self.each(lambda p: x[p] + out[p].to(x[p].dtype))
 
     # ----------------------------------------------------------- programs
 
     def split(self, local: list[dict]):
         """(top-level leaves, {block prefix: its leaves}) a position, flat."""
-        top = [{k: v for k, v in t.items() if k[0] not in BLOCKS} for t in local]
-        stacks = [
-            {b: {k[1:]: v for k, v in t.items() if k[0] == b} for b in BLOCKS}
-            for t in local
-        ]
+        top = self.each(lambda p: {k: v for k, v in local[p].items() if k[0] not in BLOCKS})
+        stacks = self.each(
+            lambda p: {b: {k[1:]: v for k, v in local[p].items() if k[0] == b} for b in BLOCKS}
+        )
         return top, stacks
 
     def scanned(self, fn, i: int, stacks: list[dict], x: list, *extra):
@@ -774,7 +876,7 @@ class Lockstep:
         slices of the stacked leaves, so the node keeps no whole stack."""
         if not self.cfg.remat:
             return fn(i, stacks, x, *extra)
-        own = [{"layers": {k: v[i] for k, v in s["layers"].items()}} for s in stacks]
+        own = self.each(lambda p: {"layers": {k: v[i] for k, v in stacks[p]["layers"].items()}})
         return remat_lockstep(fn, None, own, x, *extra)
 
     def forward(self, local: list[dict], tokens: list, image_embeds: list | None = None):
@@ -783,15 +885,15 @@ class Lockstep:
         VLM takes each position's block of ``image_embeds``."""
         cfg = self.cfg
         top, stacks = self.split(local)
-        T = tokens[0].shape[1]
+        T = tokens[self.run[0]].shape[1]
         self.seq_cut = self.sp and T % self.mesh.shape[self.tp] == 0
         x = self.embed(top, tokens)
-        pos = [torch.arange(T, dtype=torch.int32, device=d) for d in self.devices]
-        aux = [torch.zeros((), dtype=torch.float32, device=d) for d in self.devices]
+        pos = self.each(lambda p: torch.arange(T, dtype=torch.int32, device=self.devices[p]))
+        aux = self.each(lambda p: torch.zeros((), dtype=torch.float32, device=self.devices[p]))
 
         def add(a):
             if a is not None:
-                aux[:] = [s + ai for s, ai in zip(aux, a)]
+                aux[:] = self.each(lambda p: aux[p] + a[p])
 
         if cfg.family == "ssm":
             for i in range(cfg.n_layers):
@@ -806,7 +908,7 @@ class Lockstep:
         elif cfg.family == "vlm":
             if image_embeds is None:
                 raise ValueError(f"{cfg.name}: the vlm family's forward needs image_embeds")
-            ctx = [e.to(self.dtype) for e in image_embeds]
+            ctx = self.each(lambda p: image_embeds[p].to(self.dtype))
             n_cross, _, per_block = tf.vlm_layout(cfg)
             for g in range(n_cross):
                 for i in range(g * per_block, (g + 1) * per_block):
@@ -822,17 +924,14 @@ class Lockstep:
     def gather_logits(self, logits: list) -> torch.Tensor:
         """The whole (GB, T, V) logits on the mesh's first device."""
         vocab = bool(self.cuts[("lm_head", "w")].axes[1])
-        parts = []
-        for r in self.reps:
-            g = next(g for g in self.tp_groups if r in g)
-            own = coll.gather([logits[p] for p in g], -1) if vocab else logits[r]
-            parts.append(own)
-        return coll.gather(parts, 0).to(self.devices[0])
+        parts = self.per_group(lambda g: [self.group_columns(logits, g, vocab)])
+        return coll.gather([self.have(parts, r) for r in self.reps], 0).to(self.devices[0])
 
     def cache_layout(self, kv) -> tuple:
         """(the axes that cut the kv heads, each position's block of slots
         where the sequence is cut, else None) of a placed attention cache
-        stack: a KV tuple of (L, B, S, Hkv, hd) leaves or a ``MacState``."""
+        stack: a KV tuple of (L, B, S, Hkv, hd) leaves (and int8's scales)
+        or a ``MacState``."""
         first = kv[0]
         axes = first.sharding.dim_axes(len(first.shape))
         mac_state = isinstance(kv, tf.mac.MacState)
@@ -843,6 +942,8 @@ class Lockstep:
                     f"no sharded decode cuts the cache's {what} dim over {ax}"
                 )
         self.check_batch(first)
+        for leaf in kv:
+            self.check_blocks(leaf, "the cache")
         if not seq:
             return heads, None
         return heads, [first.sharding.index(first.shape, p)[2] for p in range(self.n)]
@@ -871,6 +972,7 @@ class Lockstep:
                 out[key] = self.cache_layout(value)
                 continue
             self.check_batch(value)
+            self.check_blocks(value, f"the cache's {key}")
             if key == "ssm":
                 out[key] = [value.sharding.index(value.shape, p)[2] for p in range(self.n)]
         return out
@@ -895,21 +997,21 @@ class Lockstep:
                 x = self.rwkv_decode(i, stacks, x, cache)
         elif cfg.family == "hybrid":
             k = cfg.hybrid_attn_every
-            attn = [c["attn"] for c in cache]
+            attn = self.each(lambda p: cache[p]["attn"])
             for g in range(cfg.n_layers // k):
                 for i in range(g * k, (g + 1) * k):
                     x = self.mamba_decode(i, stacks, x, cache, layouts)
                 x = self.block_decode("shared_attn", None, stacks, x, pos, attn, layouts["attn"], g)
         elif cfg.family == "vlm":
             n_cross, _, per_block = tf.vlm_layout(cfg)
-            own = [c["self"] for c in cache]
-            cross = [c["cross"] for c in cache]
+            own = self.each(lambda p: cache[p]["self"])
+            cross = self.each(lambda p: cache[p]["cross"])
             for g in range(n_cross):
                 for i in range(g * per_block, (g + 1) * per_block):
                     x = self.block_decode("layers", i, stacks, x, pos, own, layouts["self"], i)
                 x = self.cross_decode(g, stacks, x, cross, layouts["cross"])
         else:
-            kv = [c["kv"] for c in cache]
+            kv = self.each(lambda p: cache[p]["kv"])
             for i in range(cfg.n_layers):
                 x = self.block_decode("layers", i, stacks, x, pos, kv, layouts["kv"], i)
         return self.head(top, x)
@@ -918,12 +1020,12 @@ class Lockstep:
         """One token through dense block ``i`` of ``prefix``, its attention
         through slot ``slot`` of the ``kv`` stacks."""
         lp = self.block_params(stacks, prefix, i)
-        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
+        h = self.each(lambda p: rmsnorm(lp[p]["ln1"], x[p]))
         a = self.attention_decode(lp, h, pos, kv, layout, slot, prefix)
-        x = [xi + ai for xi, ai in zip(x, a)]
-        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        x = self.each(lambda p: x[p] + a[p])
+        h = self.each(lambda p: rmsnorm(lp[p]["ln2"], x[p]))
         y, _ = self.ffn(lp, h, want_aux=False, prefix=prefix)
-        return [xi + yi for xi, yi in zip(x, y)]
+        return self.each(lambda p: x[p] + y[p])
 
     def attention_decode(
         self, lp, h, pos: int, cache: list, layout: tuple, i: int, prefix: str = "layers"
@@ -931,58 +1033,51 @@ class Lockstep:
         """One token's self-attention through the cache. Where the cache's
         kv heads are cut over the tensor-parallel axis (or there is none),
         ``_attn_decode`` on each head shard; otherwise q, k and v gathered
-        on every member, and its cache blocks (sequence-cut, or a replica)
-        read by ``attend_gathered``."""
+        on every member and its cache blocks read whole: a ``MacState``
+        (a replica) extended with every kv head and read out
+        (``mac_gathered``), a KV cache (sequence-cut, or a replica; int8's
+        dequantized) by ``attend_gathered``."""
         cfg = self.cfg
-        layer_cache = [tf._layer_cache(c, i) for c in cache]
+        layer_cache = self.each(lambda p: tf._layer_cache(cache[p], i))
         heads_ax, seq_blocks = layout
         if not self.tp or heads_ax:
-            parts = self.tp_parts(heads_ax)
-            local = self.heads_cfg(parts)
-            out = []
-            for p in range(self.n):
-                attn = lp[p]["attn"]
-                o, new = tf._attn_decode(local, attn, h[p], pos, layer_cache[p])
+            local = self.heads_cfg(self.tp_parts(heads_ax))
+
+            def shard(p):
+                o, new = tf._attn_decode(local, lp[p]["attn"], h[p], pos, layer_cache[p])
                 tf._store(cache[p], i, new)
-                out.append(o)
-            return self.finish(out, bool(heads_ax))
-        self.refuse_gathered(layer_cache)
-        cols = [qkv_columns(lp[p]["attn"], h[p]) for p in range(self.n)]
+                return o
+
+            return self.finish(self.each(shard), bool(heads_ax))
+        cols = self.each(lambda p: qkv_columns(lp[p]["attn"], h[p]))
         q_ax = self.cuts[(prefix, "attn", "w_q")].axes[1]
         kv_ax = self.cuts[(prefix, "attn", "w_k")].axes[1]
         full = []
         for j, ax in enumerate((q_ax, kv_ax, kv_ax)):
-            xs = [c[j] for c in cols]
-            if ax:
-                xs = self.gather_tp(xs, -1)
-            full.append(xs)
-        q, kv = [], []
-        for p in range(self.n):
+            xs = self.each(lambda p, j=j: cols[p][j])
+            full.append(self.gather_tp(xs, -1) if ax else xs)
+
+        def heads(p):
             B = full[0][p].shape[0]
             positions = torch.full((B, 1), pos, dtype=torch.int32, device=self.devices[p])
             qkv = (full[0][p], full[1][p], full[2][p])
             qh, kh, vh = split_heads(
                 *qkv, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions, cfg.rope_theta
             )
-            q.append(qh)
-            kv.append((kh, vh))
-        out = self.attend_gathered(q, layer_cache, seq_blocks, pos, kv)
-        return self.rows_out(out, lp, (prefix, "attn"))
+            return qh, (kh, vh)
 
-    def refuse_gathered(self, layer_cache) -> None:
-        if self.cfg.attention_backend == "maclaurin" or len(layer_cache[0]) != 2:
-            raise NotImplementedError(
-                f"{self.cfg.name}: a cache whose kv heads do not divide the model axis "
-                "is only sharded for the softmax backend's bf16/f32 KV cache"
-            )
+        q, kv = self.each2(heads)
+        del full
+        if isinstance(layer_cache[self.run[0]], tf.mac.MacState):
+            out = self.mac_gathered(q, layer_cache, kv, cache, i)
+        else:
+            out = self.attend_gathered(q, layer_cache, seq_blocks, pos, kv)
+        return self.rows_out(out, lp, (prefix, "attn"))
 
     def rows_out(self, out: list, lp: list[dict], key: tuple) -> list:
         """Each member's rows of the whole attention output through its
         ``w_o`` block, the partial sums reduced where ``w_o`` is row-cut."""
-        res = []
-        for p in range(self.n):
-            rows = self.block(key + ("w_o",), p, 0)
-            res.append(out[p][..., rows] @ lp[p][key[-1]]["w_o"])
+        res = self.each(lambda p: out[p][..., self.block(key + ("w_o",), p, 0)] @ lp[p][key[-1]]["w_o"])
         return self.finish(res, bool(self.cuts[key + ("w_o",)].axes[0]))
 
     def cross_decode(self, g: int, stacks, x: list, cross: list, layout: tuple) -> list:
@@ -990,34 +1085,60 @@ class Lockstep:
         K/V (or their ``MacState``) at slot ``g``."""
         cfg = self.cfg
         lp = self.block_params(stacks, "cross_layers", g)
-        h = [rmsnorm(lp[p]["ln1"], x[p]) for p in range(self.n)]
-        layer = [tf._layer_cache(c, g) for c in cross]
+        h = self.each(lambda p: rmsnorm(lp[p]["ln1"], x[p]))
+        layer = self.each(lambda p: tf._layer_cache(cross[p], g))
         heads_ax, seq_blocks = layout
         if not self.tp or heads_ax:
             local = self.heads_cfg(self.tp_parts(heads_ax))
-            a = [
-                tf._cross_attn_decode(local, lp[p]["xattn"], h[p], layer[p])
-                for p in range(self.n)
-            ]
+            a = self.each(lambda p: tf._cross_attn_decode(local, lp[p]["xattn"], h[p], layer[p]))
             a = self.finish(a, bool(heads_ax))
         else:
-            self.refuse_gathered(layer)
-            q = [h[p] @ lp[p]["xattn"]["w_q"] for p in range(self.n)]
+            q = self.each(lambda p: h[p] @ lp[p]["xattn"]["w_q"])
             if self.cuts[("cross_layers", "xattn", "w_q")].axes[1]:
                 q = self.gather_tp(q, -1)
-            B = q[0].shape[0]
-            q = [qi.reshape(B, 1, cfg.n_heads, cfg.hd) for qi in q]
-            out = self.attend_gathered(q, layer, seq_blocks, None, None)
+            B = q[self.run[0]].shape[0]
+            q = self.each(lambda p: q[p].reshape(B, 1, cfg.n_heads, cfg.hd))
+            if isinstance(layer[self.run[0]], tf.mac.MacState):
+                out = self.mac_gathered(q, layer, None, None, g)
+            else:
+                out = self.attend_gathered(q, layer, seq_blocks, None, None)
             a = self.rows_out(out, lp, ("cross_layers", "xattn"))
-        x = [xi + ai for xi, ai in zip(x, a)]
-        h = [rmsnorm(lp[p]["ln2"], x[p]) for p in range(self.n)]
+        x = self.each(lambda p: x[p] + a[p])
+        h = self.each(lambda p: rmsnorm(lp[p]["ln2"], x[p]))
         y, _ = self.ffn(lp, h, want_aux=False, prefix="cross_layers")
-        return [xi + yi for xi, yi in zip(x, y)]
+        return self.each(lambda p: x[p] + y[p])
+
+    def mac_gathered(self, q: list, states: list, kv, cache, i: int) -> list:
+        """Each member's whole query (B, 1, Hq, hd) -> its (B, 1, Hq hd)
+        attention output through its copy of the whole ``MacState`` (a
+        replica over the group): extended with every kv head's new ``kv``
+        and stored at slot ``i`` of ``cache`` (the reference's
+        ``_mac_attn_decode``); ``kv`` None for the image context, which is
+        only read. Every member computes the same on the same inputs, so
+        the replicas stay equal."""
+        cfg = self.cfg
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        f32 = torch.float32
+
+        def read(p):
+            B = q[p].shape[0]
+            state = states[p]
+            if kv is not None:
+                kh, vh = kv[p]
+                state = mac.extend_state(state, kh.transpose(1, 2).to(f32), vh.transpose(1, 2).to(f32))
+                tf._store(cache[p], i, state)
+            q_bh = q[p].reshape(B, 1, Hkv, Hq // Hkv, hd)[:, 0].to(f32)
+            o, _ = mac.readout(state, q_bh)
+            return o.reshape(B, 1, Hq * hd).to(q[p].dtype)
+
+        return self.each(read)
 
     def attend_gathered(self, q: list, layer_cache, seq_blocks, pos, kv) -> list:
         """Each member's whole query (B, 1, Hq, hd) -> its (B, 1, Hq hd)
-        attention output over its cache blocks. ``kv``: each member's whole
-        new (k, v) heads, written at slot ``pos`` and read causally; None
+        attention output over its cache blocks: (k, v), or int8's (k, v, k
+        scales, v scales), each block dequantized with its own per-token
+        scales. ``kv``: each member's whole new (k, v) heads, written at
+        slot ``pos`` (quantized into an int8 cache) and read causally; None
         for the image context (no write, no mask). A replicated cache: the
         slot written and read whole on each member. A sequence-cut cache:
         the slot's owner writes it, each member its scores over its slots,
@@ -1026,39 +1147,33 @@ class Lockstep:
         cfg = self.cfg
         Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
         f32 = torch.float32
-        heads, scores, tops = [], [], []
-        for p in range(self.n):
+
+        def scores(p):  # the whole attention (a replica), or (scores, values) over the block
             B = q[p].shape[0]
-            ck, cv = layer_cache[p]
-            if seq_blocks is None:
-                if kv is not None:
-                    write_slot(ck, cv, *kv[p], pos)
+            sl = None if seq_blocks is None else seq_blocks[p]
+            if kv is not None and (sl is None or sl.start <= pos < sl.stop):
+                write_kv(layer_cache[p], *kv[p], pos - (0 if sl is None else sl.start))
+            ck, cv = read_kv(layer_cache[p])
+            if sl is None:
                 last = pos if kv is not None else ck.shape[1] - 1
-                heads.append(decode_attend(q[p], ck, cv, last, Hq, hd))
-                continue
-            sl = seq_blocks[p]
-            if kv is not None and sl.start <= pos < sl.stop:
-                write_slot(ck, cv, *kv[p], pos - sl.start)
+                return decode_attend(q[p], ck.to(q[p].dtype), cv.to(q[p].dtype), last, Hq, hd)
             qh = q[p].reshape(B, 1, Hkv, Hq // Hkv, hd).to(f32)
             u = torch.einsum("bthgd,bshd->bhgts", qh, ck.to(f32)) * (1.0 / hd**0.5)
             if kv is not None:
                 slots = sl.start + torch.arange(ck.shape[1], device=u.device)
                 u = u.masked_fill(slots > pos, -torch.inf)
-            scores.append(u)
-            tops.append(torch.amax(u, dim=-1, keepdim=True))
+            return u, cv
+
         if seq_blocks is None:
-            return heads
+            return self.each(scores)
+        scores, values = self.each2(scores)
+        tops = self.each(lambda p: torch.amax(scores[p], dim=-1, keepdim=True))
         tops = self.over(self.tp_groups, tops, coll.all_max)
-        e = [torch.exp(u - t) for u, t in zip(scores, tops)]
-        total = self.tp_reduce([torch.sum(x, dim=-1) for x in e])  # (B, Hkv, g, 1)
-        num = [
-            torch.einsum("bhgts,bshd->bthgd", x, layer_cache[p][1].to(f32))
-            for p, x in enumerate(e)
-        ]
+        e = self.each(lambda p: torch.exp(scores[p] - tops[p]))
+        total = self.tp_reduce(self.each(lambda p: torch.sum(e[p], dim=-1)))  # (B, Hkv, g, 1)
+        num = self.each(lambda p: torch.einsum("bhgts,bshd->bthgd", e[p], values[p].to(f32)))
         num = self.tp_reduce(num)  # (B, 1, Hkv, g, hd)
-        out = []
-        for p in range(self.n):
-            B = num[p].shape[0]
-            o = num[p] / total[p].permute(0, 3, 1, 2)[..., None]
-            out.append(o.reshape(B, 1, Hq * hd).to(self.dtype))
-        return out
+        B = num[self.run[0]].shape[0]
+        return self.each(
+            lambda p: (num[p] / total[p].permute(0, 3, 1, 2)[..., None]).reshape(B, 1, Hq * hd).to(self.dtype)
+        )

@@ -32,6 +32,12 @@ they keep their shardings, replicas bit for bit equal.
 The prefill step returns the whole logits on the mesh's first device. The
 decode step writes each position's blocks of the cache in place and
 returns the whole logits and the cache.
+
+Under a class trace (``spmd.running``) only the positions that run
+compute; a block whose replica group's first member does not run is a
+stand-in (``collectives.stand_in``), and of its update only what reaches
+a position that runs is carried out: its copies to and from the mesh's
+first device.
 """
 
 from __future__ import annotations
@@ -63,14 +69,32 @@ def _place(ctx: spmd.Lockstep, x) -> list:
     elif x.sharding.spec != ctx.batch.spec:
         got, want = x.sharding.spec, ctx.batch.spec
         raise ValueError(f"a batch input placed by {got}, not by {want}")
-    return [x.local(p) for p in range(ctx.n)]
+    ctx.check_blocks(x, "a batch input")
+    return ctx.each(x.local)
 
 
 def _locals(ctx: spmd.Lockstep, leaves: dict, grad: bool) -> list[dict]:
     def own(s: Sharded, p: int):
         return s.local(p).detach().requires_grad_(True) if grad else s.local(p)
 
-    return [{path: own(s, p) for path, s in leaves.items()} for p in range(ctx.n)]
+    return ctx.each(lambda p: {path: own(s, p) for path, s in leaves.items()})
+
+
+def _by_group(ctx: spmd.Lockstep, groups: list, fn, like=None) -> list:
+    """``fn(i)`` for each replica group ``i`` whose first member runs; for
+    the others a stand-in on their first member's device, of ``like``'s
+    (shape, dtype), else of their class representative's group's result
+    (groups are in position order, so it comes first)."""
+    out, index = [], {}
+    for i, grp in enumerate(groups):
+        lead = grp[0]
+        if lead in ctx.live:
+            out.append(fn(i))
+        else:
+            shape = like if like is not None else out[index[ctx.rep[lead]]]
+            out.append(coll.stand_in(shape, ctx.devices[lead], lead))
+        index[lead] = i
+    return out
 
 
 def _images(ctx: spmd.Lockstep, x) -> list | None:
@@ -89,7 +113,7 @@ def _microbatches(batch: dict, n: int) -> list[dict]:
 def _block_grads(cfg, mesh, rules, ocfg, params, leaves, paths, groups, batch):
     """One (micro)batch's loss over the mesh and each distinct block's
     gradient (summed over its replicas, on its first position's device):
-    (loss, xent, aux, {path: [a gradient a replica group]})."""
+    (loss, xent, aux, {path: [a gradient a replica group]}, the program)."""
     tokens = batch["tokens"]
     B, T = tokens.shape
     ctx = spmd.Lockstep(cfg, mesh, rules, params, B)
@@ -99,19 +123,23 @@ def _block_grads(cfg, mesh, rules, ocfg, params, leaves, paths, groups, batch):
         logits, aux = ctx.forward(local, _place(ctx, tokens), images)
         sums = ctx.xent_sums(logits, _place(ctx, batch["labels"]))
         del logits
-        xent = coll.sum_in_order([sums[r] for r in ctx.reps]) / (B * T)
+        xent = coll.sum_in_order([ctx.have(sums, r) for r in ctx.reps]) / (B * T)
         loss = xent + ocfg.aux_loss_weight * aux[0].to(xent.device)
-        wrt = [local[p][path] for path in paths for p in range(ctx.n)]
+        wrt = [local[p][path] for path in paths for p in ctx.run]
         got = torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True)
     del local, wrt
-    n = ctx.n
+    n = len(ctx.run)
     blocks = {}
     for i, path in enumerate(paths):
-        per = got[i * n : (i + 1) * n]
-        blocks[path] = [coll.sum_in_order([per[p] for p in g]) for g in groups[path]]
+        per = [None] * ctx.n
+        for p, g in zip(ctx.run, got[i * n : (i + 1) * n]):
+            per[p] = g
+        blocks[path] = _by_group(
+            ctx, groups[path], lambda j: coll.sum_in_order([ctx.have(per, p) for p in groups[path][j]])
+        )
     del got
     aux0 = aux[0].detach().to(ctx.devices[0])
-    return loss.detach(), xent.detach(), aux0, blocks
+    return loss.detach(), xent.detach(), aux0, blocks, ctx
 
 
 def _write(target: Sharded, group: list[int], value) -> None:
@@ -119,19 +147,21 @@ def _write(target: Sharded, group: list[int], value) -> None:
         target.local(p).copy_(value)
 
 
-def _compress(leaf: Sharded, blocks: list, groups: list, ef: Sharded) -> list:
+def _compress(ctx, leaf: Sharded, blocks: list, groups: list, ef: Sharded) -> list:
     """The int8 round trip of one leaf's gradient blocks with error
     feedback: the scale is the whole leaf's (the max over its distinct
     blocks); ``ef`` (placed as the leaf) is written in place."""
-    g32 = [g.to(torch.float32) + ef.local(grp[0]) for g, grp in zip(blocks, groups)]
-    peak = coll.all_max([torch.amax(torch.abs(x)) for x in g32])
-    out = []
-    for x, grp, top in zip(g32, groups, peak):
-        scale = compression.q8_scale(top)
-        deq = compression.q8_codes(x, scale).to(torch.float32) * scale
-        _write(ef, grp, x - deq)
-        out.append(deq)
-    return out
+    f32 = torch.float32
+    g32 = _by_group(ctx, groups, lambda i: blocks[i].to(f32) + ef.local(groups[i][0]))
+    peak = coll.all_max(_by_group(ctx, groups, lambda i: torch.amax(torch.abs(g32[i])), ((), f32)))
+
+    def round_trip(i):
+        scale = compression.q8_scale(peak[i])
+        deq = compression.q8_codes(g32[i], scale).to(f32) * scale
+        _write(ef, groups[i], g32[i] - deq)
+        return deq
+
+    return [round_trip(i) if grp[0] in ctx.live else g32[i] for i, grp in enumerate(groups)]
 
 
 def _scatter(target: Sharded, whole: torch.Tensor) -> None:
@@ -140,7 +170,7 @@ def _scatter(target: Sharded, whole: torch.Tensor) -> None:
         shard.copy_(whole[target.sharding.index(target.shape, p)])
 
 
-def _adafactor(leaf: Sharded, blocks: list, groups: list, state: dict, lr, wd: float):
+def _adafactor(ctx, leaf: Sharded, blocks: list, groups: list, state: dict, lr, wd: float):
     """``optimizer.adafactor_update`` of one placed leaf from its clipped
     gradient blocks: its reductions over the whole leaf, the state written
     in place."""
@@ -149,38 +179,62 @@ def _adafactor(leaf: Sharded, blocks: list, groups: list, state: dict, lr, wd: f
     shape = leaf.shape
     dev0 = leaf.sharding.mesh.devices[0]
     index = [leaf.sharding.index(shape, grp[0]) for grp in groups]
-    g32 = [g.to(f32) for g in blocks]
+    g32 = _by_group(ctx, groups, lambda i: blocks[i].to(f32))
     if len(shape) >= 2:
         row = torch.zeros(shape[:-1], dtype=f32, device=dev0)
         col = torch.zeros(shape[:-2] + shape[-1:], dtype=f32, device=dev0)
-        for g, idx in zip(g32, index):  # each block's partial sums, in order
-            g2 = g * g + eps
-            row[idx[:-1]] += torch.sum(g2, dim=-1).to(dev0)
-            col[idx[:-2] + idx[-1:]] += torch.sum(g2, dim=-2).to(dev0)
+
+        def sums(g, grp, idx):  # one block's partial sums, added on the first device
+            if grp[0] in ctx.live:
+                g2 = g * g + eps
+                row[idx[:-1]] += torch.sum(g2, dim=-1).to(dev0)
+                col[idx[:-2] + idx[-1:]] += torch.sum(g2, dim=-2).to(dev0)
+            else:
+                row[idx[:-1]] += coll.stand_in((g.shape[:-1], f32), g.device, grp[0]).to(dev0)
+                rest = g.shape[:-2] + g.shape[-1:]
+                col[idx[:-2] + idx[-1:]] += coll.stand_in((rest, f32), g.device, grp[0]).to(dev0)
+
+        for g, grp, idx in zip(g32, groups, index):  # in order
+            sums(g, grp, idx)
         vr = b2 * state["vr"].gather() + (1 - b2) * (row / shape[-1])
         vc = b2 * state["vc"].gather() + (1 - b2) * (col / shape[-2])
         denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
         _scatter(state["vr"], vr)
         _scatter(state["vc"], vc)
-        u = []
-        for g, idx in zip(g32, index):
+
+        def factored(g, grp, idx):
             r = vr[idx[:-1]][..., None]
             c = vc[idx[:-2] + idx[-1:]][..., None, :]
             vhat = (r * c / denom[idx[:-2]][..., None]).to(g.device)
-            u.append(g * torch.rsqrt(vhat + eps))
+            return g * torch.rsqrt(vhat + eps) if grp[0] in ctx.live else g
+
+        u = [factored(g, grp, idx) for g, grp, idx in zip(g32, groups, index)]
     else:
-        u = []
-        for g, grp in zip(g32, groups):
+
+        def unfactored(g, grp):
             v = b2 * state["v"].local(grp[0]) + (1 - b2) * (g * g + eps)
             _write(state["v"], grp, v)
-            u.append(g * torch.rsqrt(v + eps))
-    squares = coll.sum_in_order([torch.sum(x * x).to(dev0) for x in u])
+            return g * torch.rsqrt(v + eps)
+
+        u = [unfactored(g, grp) if grp[0] in ctx.live else g for g, grp in zip(g32, groups)]
+
+    def square(x, grp):
+        if grp[0] in ctx.live:
+            return torch.sum(x * x).to(dev0)
+        return coll.stand_in(((), f32), x.device, grp[0]).to(dev0)
+
+    squares = coll.sum_in_order([square(x, grp) for x, grp in zip(u, groups)])
     rms = torch.sqrt(squares / math.prod(shape) + eps)  # the update clip
     denom = torch.clamp(rms / clip, min=1.0)
+
+    def update(x, grp):
+        d = denom.to(x.device)
+        if grp[0] in ctx.live:
+            p32 = leaf.local(grp[0]).to(f32)
+            _write(leaf, grp, (p32 - lr * (x / d + wd * p32)).to(leaf.dtype))
+
     for x, grp in zip(u, groups):
-        p32 = leaf.local(grp[0]).to(f32)
-        new = p32 - lr.to(x.device) * (x / denom.to(x.device) + wd * p32)
-        _write(leaf, grp, new.to(leaf.dtype))
+        update(x, grp)
 
 
 def make_train_step(
@@ -201,21 +255,27 @@ def make_train_step(
         acc, loss = None, 0.0
         for mb in _microbatches(batch, n_micro):
             args = (cfg, mesh, rules, ocfg, params, leaves, paths, groups, mb)
-            l, xent, aux0, grads = _block_grads(*args)
+            l, xent, aux0, grads, ctx = _block_grads(*args)
             if acc is None:
                 acc = grads
             else:
-                acc = {k: [a + g for a, g in zip(acc[k], grads[k])] for k in paths}
+                acc = {k: _by_group(ctx, groups[k], lambda i, k=k: acc[k][i] + grads[k][i]) for k in paths}
             loss = loss + l / n_micro if n_micro > 1 else l
             del grads
-        grads = acc if n_micro == 1 else {k: [g / n_micro for g in v] for k, v in acc.items()}
+        if n_micro > 1:
+            acc = {k: _by_group(ctx, groups[k], lambda i, k=k: acc[k][i] / n_micro) for k in paths}
+        grads = acc
         del acc
         if ocfg.compress_grads:
             ef = spmd.flat(opt_state["ef"])
             for path in paths:
-                grads[path] = _compress(leaves[path], grads[path], groups[path], ef[path])
+                grads[path] = _compress(ctx, leaves[path], grads[path], groups[path], ef[path])
         dev0 = mesh.devices[0]
-        squares = [opt.square_sum(g).to(dev0) for path in paths for g in grads[path]]
+        f32 = torch.float32
+        squares = []
+        for path in paths:
+            got = _by_group(ctx, groups[path], lambda i, g=grads[path]: opt.square_sum(g[i]), ((), f32))
+            squares += [x.to(dev0) for x in got]
         gnorm = torch.sqrt(coll.sum_in_order(squares))
         scale = opt.clip_scale(gnorm, ocfg.clip_norm)
         lr = opt.cosine_schedule(
@@ -224,26 +284,32 @@ def make_train_step(
             warmup=ocfg.warmup,
             total=ocfg.total_steps,
         )
+
+        def clip(g, grp):  # the scale copied to each block's device
+            s = scale.to(g.device)
+            return (g * s).to(g.dtype) if grp[0] in ctx.live else g
+
         for path in paths:
-            clipped = [(g * scale.to(g.device)).to(g.dtype) for g in grads[path]]
+            clipped = [clip(g, grp) for g, grp in zip(grads[path], groups[path])]
             if ocfg.name == "adafactor":
                 state = {k[-1]: v for k, v in spmd.flat(opt_state["v"]).items() if k[:-1] == path}
-                _adafactor(leaves[path], clipped, groups[path], state, lr, ocfg.weight_decay)
+                _adafactor(ctx, leaves[path], clipped, groups[path], state, lr, ocfg.weight_decay)
             else:
-                _adamw(leaves[path], clipped, groups[path], opt_state, path, lr, ocfg)
+                _adamw(ctx, leaves[path], clipped, groups[path], opt_state, path, lr, ocfg)
             del grads[path]
-        for c in opt_state["count"].shards:
-            c.add_(1)
+        for p in ctx.run:
+            opt_state["count"].local(p).add_(1)
         metrics = dict(xent=xent, aux=aux0, loss=loss, grad_norm=gnorm, lr=lr)
         return params, opt_state, metrics
 
     return train_step
 
 
-def _adamw(leaf: Sharded, blocks: list, groups: list, opt_state, path, lr, ocfg) -> None:
+def _adamw(ctx, leaf: Sharded, blocks: list, groups: list, opt_state, path, lr, ocfg) -> None:
     """``optimizer.adamw_update`` on each distinct block of one leaf."""
     m_in, v_in = spmd.flat(opt_state["m"])[path], spmd.flat(opt_state["v"])[path]
-    for gr, g in zip(blocks, groups):
+
+    def update(gr, g):
         p0 = g[0]
         state = {
             "m": {"x": m_in.local(p0)},
@@ -255,6 +321,10 @@ def _adamw(leaf: Sharded, blocks: list, groups: list, opt_state, path, lr, ocfg)
         )
         for target, value in zip((leaf, m_in, v_in), (upd["x"], st["m"]["x"], st["v"]["x"])):
             _write(target, g, value)
+
+    for gr, g in zip(blocks, groups):
+        if g[0] in ctx.live:
+            update(gr, g)
 
 
 def make_prefill_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
@@ -285,7 +355,7 @@ def make_serve_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
         ctx = spmd.Lockstep(cfg, mesh, rules, params, tokens.shape[0])
         local = _locals(ctx, spmd.flat(params), grad=False)
         layouts = ctx.cache_layouts(cache)
-        blocks = [map_tree(lambda s, p=p: s.local(p), cache) for p in range(ctx.n)]
+        blocks = ctx.each(lambda p: map_tree(lambda s: s.local(p), cache))
         logits = ctx.decode(local, _place(ctx, tokens), _scalar(pos), blocks, layouts)
         return ctx.gather_logits(logits), cache
 

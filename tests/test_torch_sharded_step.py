@@ -318,12 +318,14 @@ def test_other_meshes_and_caches_raise():
     with pytest.raises(ValueError, match="abstract"):
         abstract = part.abstract_mesh((2, 2), ("data", "model"))
         sharded.make_prefill_step(cfg, abstract, part.DEFAULT_RULES)
-    # an int8 cache whose kv heads do not divide the model axis: refused,
-    # never decoded unsharded
-    narrow = dataclasses.replace(cfg, kv_cache_dtype="int8", **NARROW)
-    cell = specs.build_cell(narrow, ShapeConfig("d", T, B, "decode"), _mesh(), part.DEFAULT_RULES)
-    with pytest.raises(NotImplementedError, match="kv heads"):
-        cell.step_fn(cell.args[0], torch.zeros((B, 1), dtype=torch.int32), 0, cell.args[3])
+    # a cache whose kv heads are cut over "data": refused, never decoded
+    # unsharded (a cache whose kv heads do not divide "model" is decoded:
+    # tests/test_torch_sharded_decode.py)
+    cell = specs.build_cell(cfg, ShapeConfig("d", T, B, "decode"), _mesh(), part.DEFAULT_RULES)
+    by_data = part.NamedSharding(_mesh(), P(None, None, None, "data", None))
+    odd_cache = device_put(tf.init_cache(cfg, B, T, dtype=torch.bfloat16, device="cpu"), by_data)
+    with pytest.raises(NotImplementedError, match="kv-head"):
+        cell.step_fn(cell.args[0], torch.zeros((B, 1), dtype=torch.int32), 0, odd_cache)
     # a batch placed by another sharding than the step's
     by_model = part.NamedSharding(_mesh(), P("model"))
     tokens = device_put(torch.zeros((B, T), dtype=torch.int32), by_model)
