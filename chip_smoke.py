@@ -94,7 +94,8 @@ paper's mnist width (d=780, 10 one-vs-rest heads), and the LM side (4,
    ``repro_torch.sharding``) on a (data, model) mesh of 2 x 2 slots of
    the card at f32 (SHARD_*): qwen3-moe served and trained (B9 and B8 on
    head shards), smollm-135m trained and decoded, each against the
-   one-device step;
+   one-device step (the served logits gathered from the positions where
+   they stay, each block's place and the card's peak printed);
 12. the same for the families past dense and MoE and the optimizer
    options (SHARD12_*): rwkv6, zamba2 and llama-vision served (B9 on
    zamba2's 16-head shards at d = 80 and llama-vision's 32-head shards at
@@ -4812,6 +4813,34 @@ def to_host(tree):
     return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
 
 
+def logit_blocks(logits, mesh, name: str, base: int, inputs: int) -> dict:
+    """Where a sharded step left its logits (a ``Sharded``): each position's
+    block shape, device and bytes, checked against its sharding's block
+    and its own position's device; each device's peak allocated bytes
+    since the last reset (the step's), beside the bytes allocated before
+    the step (``base``) and the step's inputs (``inputs``)."""
+    import torch
+
+    block = logits.sharding.shard_shape(logits.shape)
+    blocks = []
+    for p, x in enumerate(logits.shards):
+        own = torch.device(mesh.devices[p])
+        check(x.device == own, f"{name}: position {p}'s logits on {x.device}, not {own}")
+        check(tuple(x.shape) == block, f"{name}: position {p}'s logits {tuple(x.shape)}, not {block}")
+        blocks.append({"position": p, "shape": list(x.shape), "device": str(x.device), "bytes": x.nbytes})
+    devices = sorted({str(torch.device(d)) for d in mesh.devices})
+    return dict(
+        model=name,
+        shape=list(logits.shape),
+        spec=[list(a) if isinstance(a, tuple) else a for a in logits.sharding.spec],
+        blocks=blocks,
+        whole_bytes=math.prod(logits.shape) * logits.dtype.itemsize,
+        peak_bytes_by_device={d: torch.cuda.max_memory_allocated(d) for d in devices},
+        base_bytes=base,
+        input_bytes=inputs,
+    )
+
+
 class Window:
     """Launch counts over the sharded steps only: each ``with`` window sets
     the counts to 0 and adds what it read to ``launches``; B8/B9 calls kept
@@ -4874,6 +4903,7 @@ def sharded_serving(dev, mesh, launches, calls, name: str, layers: int, prefill:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     out = {"model": name, "layers": layers}
     share = MOE_F32_SHARE if moe else None
+    earlier_peak = 0  # the peak before the prefill's reset
     if prefill:
         B, T = SHARD_PREFILL
         tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen, device=dev, dtype=torch.int32)
@@ -4888,8 +4918,14 @@ def sharded_serving(dev, mesh, launches, calls, name: str, layers: int, prefill:
         placed = sum(held["bytes_per_position"])
         check(placed == sum(held["placement_bytes_per_position"]), f"{name}: bytes held != the placement's")
         check(placed <= grown < placed + ALLOC_SLACK * held["shards"], f"{name}: {grown} B allocated for {placed} B")
+        torch.cuda.synchronize()
+        earlier_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
         with Window(launches, calls) as w:
             got = cell.step_fn(cell.args[0], tokens)
+        phase("shard_logits", **logit_blocks(got, mesh, name, base, placed + tokens.nbytes))
+        got = got.gather()
         gate = shard_gate(got, want, share, f"{name} sharded prefill")
         out.update(prefill_s=w.seconds, prefill=gate, prefill_twins=held_against_twins(calls, "prefill"))
         del cell, got, want
@@ -4907,6 +4943,7 @@ def sharded_serving(dev, mesh, launches, calls, name: str, layers: int, prefill:
         with Window(launches, calls) as w:
             logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
         seconds.append(w.seconds)
+        logits = logits.gather()
         want, want_cache = step(params, want_tok, pos, want_cache)
         gates.append(shard_gate(logits, want, share, f"{name} sharded decode at {pos}")["rel"])
         tok = torch.argmax(logits, -1).to(torch.int32)
@@ -4924,7 +4961,7 @@ def sharded_serving(dev, mesh, launches, calls, name: str, layers: int, prefill:
     for x in kv:
         for g in x.replica_groups():
             check(all(torch.equal(x.local(p), x.local(g[0])) for p in g), f"{name}: cache replicas differ")
-    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["peak_bytes"] = max(earlier_peak, torch.cuda.max_memory_allocated(dev))
     del cell, cache, want_cache, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5177,6 +5214,7 @@ def family_serving(dev, mesh, launches, calls, name, rules, dtype, B, T, S, step
     out.update(prefill_batch=[B, T], **placed_bytes(cell.args[0]))
     with Window(launches, calls) as w:
         got = cell.step_fn(cell.args[0], tokens, *extra)
+    got = got.gather()
     if limit is None:
         gate = shard_gate(got, want, share, f"{name} sharded prefill")
     else:
@@ -5248,6 +5286,7 @@ def decode_cell(dev, mesh, launches, calls, cfg, params, rules, tokens, S, steps
         with Window(launches, calls) as w:
             logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *extra)
         seconds.append(w.seconds)
+        logits = logits.gather()
         counts = {k: counts.get(k, 0) + n for k, n in w.counts.items()}
         want, want_cache = step(params, want_tok, pos, want_cache, *extra)
         rels.append(shard_gate(logits, want, share, f"{name} sharded decode at {pos}")["rel"])
@@ -5558,6 +5597,7 @@ def rule_serving(dev, mesh, launches, calls) -> list[dict]:
             cell.step_fn(cell.args[0], tokens)  # warm, outside the counted window
             with residual_blocks() as res, Window(launches, calls) as w:
                 got = cell.step_fn(cell.args[0], tokens)
+            got = got.gather()
             what = f"{name} {rules} prefill"
             row = dict(model=name, layers=layers, rules=rules, prefill_batch=[B, T])
             row.update(prefill_s=w.seconds, one_device_prefill_s=one_s, launches=w.counts)

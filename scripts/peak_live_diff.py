@@ -7,20 +7,125 @@ origin (the op that made it, its shape and dtype). Prints the card's name
 and power limit, then for each side the peak of new bytes and the
 storages live at that moment, largest first.
 
-    python3 scripts/peak_live_diff.py        # on a machine with a CUDA card
+With ``--cycles``: what a prefill leaves to Python's cycle collector on
+the card. For flash and maclaurin attention, on the 1 x 1 mesh and on a
+(data, model) mesh of 2 x 2 slots of the card, a warm prefill, then one
+under ``gc.disable()`` and ``gc.DEBUG_SAVEALL``, without and then with a
+``CostRecorder`` around it: ``gc.collect()`` then lists the unreachable
+objects. Prints their count by type, the tensors among them (shape, dtype,
+device) and, for each kind of object that refers to such a tensor, its
+description (a frame's function and line, a function's name), so that the
+cycle's owner can be named.
+
+    python3 scripts/peak_live_diff.py             # on a machine with a CUDA card
+    python3 scripts/peak_live_diff.py --cycles
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import subprocess
 import sys
+import types
 import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+
+def describe(obj) -> str:
+    """A short name for an object the cycle collector found."""
+    if isinstance(obj, types.FrameType):
+        return f"frame {obj.f_code.co_name} ({Path(obj.f_code.co_filename).name}:{obj.f_lineno})"
+    if isinstance(obj, types.FunctionType):
+        return f"function {obj.__module__}.{obj.__qualname__}"
+    if isinstance(obj, types.MethodType):
+        return f"method {obj.__qualname__}"
+    if isinstance(obj, types.CellType):
+        return "cell"
+    if isinstance(obj, dict):
+        return f"dict keys {sorted(map(str, obj))[:6]}"
+    if isinstance(obj, (list, tuple)):
+        return f"{type(obj).__name__} of {len(obj)}"
+    return f"{type(obj).__module__}.{type(obj).__qualname__}"
+
+
+def unreachable(step) -> dict:
+    """Run ``step()`` with the cycle collector off and every unreachable
+    object kept; what ``gc.collect()`` then found: {"objects", "by_type",
+    "tensors", "tensor_bytes", "holders"}."""
+    import torch
+
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        step()
+        torch.cuda.synchronize()
+        gc.collect()
+        found = list(gc.garbage)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    tensors = [o for o in found if isinstance(o, torch.Tensor)]
+    ids = {id(t) for t in tensors}
+    holders = collections.Counter()
+    for o in found:
+        if any(id(r) in ids for r in gc.get_referents(o)) and not isinstance(o, torch.Tensor):
+            holders[describe(o)] += 1
+    frames = collections.Counter(describe(o) for o in found if isinstance(o, types.FrameType))
+    out = {
+        "objects": len(found),
+        "by_type": dict(collections.Counter(type(o).__name__ for o in found).most_common(12)),
+        "tensors": dict(collections.Counter(f"{list(t.shape)} {t.dtype} {t.device}" for t in tensors)),
+        "tensor_bytes": sum(t.untyped_storage().nbytes() for t in tensors),
+        "holders": dict(holders.most_common(12)),
+        "frames": dict(frames.most_common(12)),
+    }
+    del found, tensors
+    return out
+
+
+def cycles() -> int:
+    """``--cycles``: the unreachable objects of one prefill, by route and
+    mesh, with and without the recorder."""
+    import json
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.build import build_all
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.op_cost import CostRecorder
+    from repro_torch.launch.specs import build_cell
+
+    build_all(["flash_attn.cu", "maclaurin_attn.cu"])
+    dev = torch.device("cuda", 0)
+    shape = ShapeConfig("prefill", 2048, 4, "prefill")
+    for impl, backend in (("flash", "softmax"), ("blockwise", "maclaurin")):
+        cfg = dataclasses.replace(get_config("smollm-135m"), attention_impl=impl, attention_backend=backend)
+        for sizes in ((1, 1), (2, 2)):
+            mesh = make_mesh(sizes, ("data", "model"), devices=[dev] * (sizes[0] * sizes[1]))
+            cell = build_cell(cfg, shape, mesh, None)
+            cell.step_fn(*cell.args)  # warm: kernels loaded, tables read
+
+            def recorded():
+                with CostRecorder():
+                    cell.step_fn(*cell.args)
+
+            for label, step in (("plain", lambda: cell.step_fn(*cell.args)), ("recorder", recorded)):
+                got = unreachable(step)
+                row = dict(route=backend if backend == "maclaurin" else impl, mesh=list(sizes), run=label, **got)
+                print("cycles:", json.dumps(row, sort_keys=True), flush=True)
+            del cell
+            gc.collect()
+            torch.cuda.empty_cache()
+    return 0
 
 
 def main() -> int:
@@ -37,6 +142,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("peak_live_diff: no CUDA device is available", file=sys.stderr)
         return 2
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    if sys.argv[1:2] == ["--cycles"]:
+        return cycles()
 
     class Live(CostRecorder):
         """The recorder, with each live storage's origin and a snapshot of
@@ -68,10 +180,6 @@ def main() -> int:
         for (op, shape, dtype, nbytes), n in sorted(rec.snapshot.items(), key=lambda kv: -kv[0][3] * kv[1]):
             print(f"   {n:3d} x {op} {list(shape)} {dtype} ({nbytes} B)")
 
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip())
     cfg = dataclasses.replace(get_config("smollm-135m"), attention_impl="flash")
     shape = ShapeConfig("prefill", 2048, 4, "prefill")
     build_all(["flash_attn.cu"])

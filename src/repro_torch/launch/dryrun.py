@@ -50,10 +50,11 @@ place of ``compile_seconds``, ``depth_traced``: the periods traced, and
 ``classes``: each traced position and the positions its counts stand
 for. ``total`` sums the cost over every device, ``kernels`` counts the
 launch ops and ``calls`` every collective call of the program. Argument
-and output bytes are the placed leaves' (``Sharded.position_bytes``), the
-whole outputs at the reference's layout (logits cut by the batch and the
-vocab cut, scalars replicated), and, as XLA counts them, 8 bytes a leaf of
-an output tuple; alias bytes are the donated arguments'. The position's
+and output bytes are the placed leaves' (``Sharded.position_bytes``: the
+parameters, the cache, and the serving steps' logits, which stay where
+they were computed, in the reference's layout), a scalar whole on every
+position, and, as XLA counts them, 8 bytes a leaf of an output tuple;
+alias bytes are the donated arguments'. The position's
 op counts go to ``<tag>.ops.json.gz`` (``profile_cell``; ``--reanalyze``
 prices them again without a trace).
 
@@ -95,10 +96,7 @@ from repro_torch.sharding.partitioning import (
     SP_RULES,
     TP_ONLY_RULES,
     AxisRules,
-    NamedSharding,
-    PartitionSpec,
     Sharded,
-    batch_sharding,
 )
 from repro_torch.sharding.spmd import class_reps, class_sizes, rules_name, running
 from repro_torch.train.train_step import OptimizerConfig
@@ -198,27 +196,19 @@ def _placed_bytes(tree, n: int) -> list[int]:
     return total
 
 
-def _output_bytes(out, cell, mesh: Mesh, rules: AxisRules) -> list[int]:
-    """Bytes a position of the step's outputs at the reference's layout:
-    placed leaves as placed; a whole (GB, ..., V) tensor cut along its batch
-    by the batch sharding and along the vocab as the LM head is; a scalar
-    replicated; 8 bytes a leaf where the outputs are a tuple of more than
-    one."""
+def _output_bytes(out, n: int) -> list[int]:
+    """Bytes each of ``n`` positions holds of the step's outputs: placed
+    leaves as placed; a scalar (a train step's metrics) whole on each; 8
+    bytes a leaf where the outputs are a tuple of more than one."""
     leaves = _leaves(out, [])
-    total = [0] * mesh.size
-    bsh = batch_sharding(mesh, rules, cell.meta["global_batch"])
-    vocab = cell.args[0]["lm_head"]["w"].sharding.dim_axes(2)[1]
-    batch = tuple(a for s in bsh.spec for a in ((s,) if isinstance(s, str) else s or ()))
-    vocab = tuple(a for a in vocab if a not in batch) or None
+    total = [0] * n
     for leaf in leaves:
         if isinstance(leaf, Sharded):
             nbytes = leaf.position_bytes()
         else:
-            shape = tuple(leaf.shape)
-            if len(shape) >= 2:
-                spec = (bsh.spec[0],) + (None,) * (len(shape) - 2) + (vocab,)
-                shape = NamedSharding(mesh, PartitionSpec(*spec)).shard_shape(shape)
-            nbytes = [math.prod(shape) * leaf.element_size()] * mesh.size
+            if leaf.dim():
+                raise ValueError(f"a step output of shape {tuple(leaf.shape)} is not placed")
+            nbytes = [leaf.element_size()] * n
         total = [a + b for a, b in zip(total, nbytes)]
     if len(leaves) > 1:
         total = [t + TUPLE_ENTRY_BYTES * len(leaves) for t in total]
@@ -260,7 +250,7 @@ def trace_cell(
         recorder = CostRecorder(skip=set(devs) - set(kept), positions=kept)
         with running(run if classes else None), recorder as rec:
             out = cell.step_fn(*args)
-        outputs = _output_bytes(out, cell, mesh, rules)
+        outputs = _output_bytes(out, mesh.size)
         del out, args, cell
     return {
         **rec.summary(),

@@ -37,6 +37,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import sys
 
 from repro_torch.core.families.fourier import DEFAULT_NUM_FEATURES
 from repro_torch.launch.op_cost import F32_PRODUCTS
@@ -292,7 +293,17 @@ def to_markdown(rows: list[dict]) -> str:
 
 
 def main():
+    """Writes ``results/roofline_torch.{md,json}`` from the dry run's cells;
+    with ``--keep``, the rows of cells that ``results/dryrun_torch`` does
+    not hold are kept from the existing ``results/roofline_torch.json``
+    (a part of the grid traced again)."""
     rows = load_all("16x16") + load_all("2x16x16")
+    if "--keep" in sys.argv[1:] and os.path.exists("results/roofline_torch.json"):
+        with open("results/roofline_torch.json") as f:
+            old = json.load(f)
+        key = lambda r: (r["mesh"] != "16x16", r["arch"], r["shape"])  # noqa: E731
+        new = {key(r) for r in rows}
+        rows = sorted(rows + [r for r in old if key(r) not in new], key=key)
     os.makedirs("results", exist_ok=True)
     md = to_markdown(rows)
     with open("results/roofline_torch.md", "w") as f:

@@ -121,6 +121,8 @@ from repro_torch.sharding.partitioning import (
     SP_RULES,
     TP_ONLY_RULES,
     AxisRules,
+    NamedSharding,
+    PartitionSpec,
     Sharded,
     axis_groups,
     batch_sharding,
@@ -195,34 +197,36 @@ _LEAF = object()
 def _flatten(tree):
     """(the tensors of nested dicts, lists and tuples in order, its shape
     with ``_LEAF`` in their place)."""
-    leaves = []
+    leaves: list = []
+    return leaves, _shape_of(tree, leaves)
 
-    def go(t):
-        if isinstance(t, torch.Tensor):
-            leaves.append(t)
-            return _LEAF
-        if isinstance(t, dict):
-            return {k: go(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(go(v) for v in t)
-        return t
 
-    return leaves, go(tree)
+def _shape_of(t, leaves: list):
+    # module level, not a closure: a closure that calls itself is a reference
+    # cycle, which would keep ``leaves`` (a layer's weights and its residual)
+    # alive until the cycle collector runs
+    if isinstance(t, torch.Tensor):
+        leaves.append(t)
+        return _LEAF
+    if isinstance(t, dict):
+        return {k: _shape_of(v, leaves) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_shape_of(v, leaves) for v in t)
+    return t
 
 
 def _unflatten(shape, leaves):
-    it = iter(leaves)
+    return _filled(shape, iter(leaves))
 
-    def go(s):
-        if s is _LEAF:
-            return next(it)
-        if isinstance(s, dict):
-            return {k: go(v) for k, v in s.items()}
-        if isinstance(s, (list, tuple)):
-            return type(s)(go(v) for v in s)
-        return s
 
-    return go(shape)
+def _filled(s, it):
+    if s is _LEAF:
+        return next(it)
+    if isinstance(s, dict):
+        return {k: _filled(v, it) for k, v in s.items()}
+    if isinstance(s, (list, tuple)):
+        return type(s)(_filled(v, it) for v in s)
+    return s
 
 
 class _Remat(torch.autograd.Function):
@@ -386,6 +390,7 @@ class Lockstep:
         reps = [g[0] for g in axis_groups(mesh, off_batch)]
         index = lambda p: self.batch.index((global_batch,), p)[0].start  # noqa: E731
         self.reps = sorted(reps, key=index)  # one position a batch block, in order
+        self.vocab = params["lm_head"]["w"].shape[-1]
         spec = flat(logical_spec(cfg))
         self.cuts = {}
         for path, leaf in flat(params).items():
@@ -921,11 +926,26 @@ class Lockstep:
                 add(a)
         return self.head(top, x), aux
 
-    def gather_logits(self, logits: list) -> torch.Tensor:
-        """The whole (GB, T, V) logits on the mesh's first device."""
-        vocab = bool(self.cuts[("lm_head", "w")].axes[1])
-        parts = self.per_group(lambda g: [self.group_columns(logits, g, vocab)])
-        return coll.gather([self.have(parts, r) for r in self.reps], 0).to(self.devices[0])
+    def placed_logits(self, logits: list) -> Sharded:
+        """The (GB, T, V) logits where they were computed, in the layout
+        the reference's compiled cell leaves them: each position's own
+        block on its device, the batch cut as the batch is, the vocab as
+        the LM head's columns are (less any axis the batch takes), the
+        sequence whole. Where the vocab is not cut, the members of a
+        tensor-parallel group hold replicas. A position that is not run
+        holds a stand-in of its class representative's block. Nothing is
+        copied between devices; ``.gather()`` gives the whole tensor."""
+        vocab = tuple(a for a in self.cuts[("lm_head", "w")].axes[1] if a not in self.batch_axes)
+        spec = PartitionSpec(self.batch.spec[0], None, vocab[0] if len(vocab) == 1 else vocab or None)
+        first = logits[self.run[0]]
+        shape = (self.global_batch, first.shape[1], self.vocab)
+        sharding = NamedSharding(self.mesh, spec)
+        want = sharding.shard_shape(shape)
+        shards = tuple(self.have(logits, p) for p in range(self.n))
+        for p, block in enumerate(shards):
+            if tuple(block.shape) != want:
+                raise ValueError(f"position {p}'s logits {tuple(block.shape)} are not {spec}'s block {want}")
+        return Sharded(shards, sharding, shape, first.dtype)
 
     def cache_layout(self, kv) -> tuple:
         """(the axes that cut the kv heads, each position's block of slots

@@ -29,9 +29,11 @@ copied to the block's replicas. The parameters and the optimizer state
 are updated in place and returned (the reference's cell donates both):
 they keep their shardings, replicas bit for bit equal.
 
-The prefill step returns the whole logits on the mesh's first device. The
-decode step writes each position's blocks of the cache in place and
-returns the whole logits and the cache.
+The prefill step returns the logits placed where they were computed (a
+``Sharded``, in the layout the reference's compiled cell leaves its
+output: ``spmd.Lockstep.placed_logits``); ``.gather()`` gives the whole
+tensor. The decode step writes each position's blocks of the cache in
+place and returns its logits so placed, and the cache.
 
 Under a class trace (``spmd.running``) only the positions that run
 compute; a block whose replica group's first member does not run is a
@@ -328,8 +330,8 @@ def _adamw(ctx, leaf: Sharded, blocks: list, groups: list, opt_state, path, lr, 
 
 
 def make_prefill_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
-    """(params, tokens (GB, T)[, image_embeds (GB, N, d)]) -> the whole
-    logits (GB, T, V)."""
+    """(params, tokens (GB, T)[, image_embeds (GB, N, d)]) -> the (GB, T,
+    V) logits as a ``Sharded``: each position's block on its device."""
     spmd.check_supported(cfg, mesh, rules)
 
     @torch.inference_mode()
@@ -337,15 +339,16 @@ def make_prefill_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callabl
         ctx = spmd.Lockstep(cfg, mesh, rules, params, tokens.shape[0])
         local = _locals(ctx, spmd.flat(params), grad=False)
         logits, _ = ctx.forward(local, _place(ctx, tokens), _images(ctx, image_embeds))
-        return ctx.gather_logits(logits)
+        return ctx.placed_logits(logits)
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
-    """(params, tokens (GB, 1), pos, cache[, image_embeds]) -> (the whole
-    logits (GB, 1, V), cache): ``cache`` is ``init_cache``'s tree placed by
-    the cell's cache shardings, its blocks written in place. A VLM takes
+    """(params, tokens (GB, 1), pos, cache[, image_embeds]) -> (the (GB, 1,
+    V) logits as a ``Sharded``, each position's block on its device,
+    cache): ``cache`` is ``init_cache``'s tree placed by the cell's cache
+    shardings, its blocks written in place. A VLM takes
     ``image_embeds`` and reads its image context from the cache, as the
     reference does."""
     spmd.check_supported(cfg, mesh, rules)
@@ -357,6 +360,6 @@ def make_serve_step(cfg: ModelConfig, mesh: Mesh, rules: AxisRules) -> Callable:
         layouts = ctx.cache_layouts(cache)
         blocks = ctx.each(lambda p: map_tree(lambda s: s.local(p), cache))
         logits = ctx.decode(local, _place(ctx, tokens), _scalar(pos), blocks, layouts)
-        return ctx.gather_logits(logits), cache
+        return ctx.placed_logits(logits), cache
 
     return serve_step

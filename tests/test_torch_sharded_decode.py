@@ -101,6 +101,7 @@ def _decode_against_one_device(name, changes, T):
     for pos in range(2):
         tok = tokens[:, pos : pos + 1]
         logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *extra)
+        logits = logits.gather()
         want, want_cache = step(rounded, tok, pos, want_cache, *extra)
         _close(logits, want, f"logits at {pos}")
     for got, want in zip(_leaves(cache), _leaves(want_cache)):

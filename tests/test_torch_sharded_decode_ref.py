@@ -44,5 +44,6 @@ def test_maclaurin_against_the_reference():
     for pos in range(2):
         tok = tokens[:, pos : pos + 1]
         logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+        logits = logits.gather()
         jlogits, jcache = jserve(rounded, jnp.asarray(tok.numpy()), jnp.int32(pos), jcache)
         _close(logits, torch.from_numpy(np.array(jlogits)), f"logits at {pos}")

@@ -182,7 +182,7 @@ def prefill_against_one_device(name, rules, changes=(), mesh=None):
     cell = specs.build_cell(cfg, shape, mesh or _mesh(), getattr(part, rules), params=params)
     assert all(leaf.dtype == torch.bfloat16 for leaf in spmd.flat(cell.args[0]).values())
     assert len(cell.args) == 2 + (images is not None)
-    got = cell.step_fn(cell.args[0], tokens, *_extra(images))
+    got = cell.step_fn(cell.args[0], tokens, *_extra(images)).gather()
     want = ds.make_prefill_step(cfg)(_rounded(params), tokens, *_extra(images))
     _close(got, want, "logits", atol=RTOL * float(want.abs().max()))
     return cell
@@ -206,6 +206,7 @@ def decode_against_one_device(name, rules, changes=(), mesh=None):
         tok = want_tok = tokens[:, :1]
         for pos in range(2):
             logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *extra)
+            logits = logits.gather()
             want, want_cache = step(rounded, want_tok, pos, want_cache, *extra)
             if dtype == torch.float32:
                 _close(logits, want, f"logits at {pos}")

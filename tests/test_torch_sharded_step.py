@@ -12,8 +12,9 @@ head_dim 8 (a ``model`` shard ends mid-head, and the decode cache is cut
 along its sequence), with remat; a decode batch that does not divide over
 ``data`` (the cache's batch replicated); qwen3-moe's maclaurin backend at
 T = 1024 (the chunked route, B8's dispatch, on each head shard). Then the
-MoE aux loss under data sharding, which must be the global one, and what
-the sharded steps refuse. (SP_RULES and EP_DP_RULES:
+MoE aux loss under data sharding, which must be the global one, what
+the sharded steps refuse, and, with remat on, a prefill that leaves no
+tensor to Python's cycle collector. (SP_RULES and EP_DP_RULES:
 ``tests/test_torch_sharded_rules.py``.)
 
 Tolerance: logits, loss and its parts, the gradient norm, the learning
@@ -37,6 +38,7 @@ run on the same weights rounded to bf16.
 import copy
 import dataclasses
 import functools
+import gc
 
 import pytest
 
@@ -168,7 +170,7 @@ def _prefill(name, rules, changes=(), scaled=False):
     shape = ShapeConfig("p", T, B, "prefill")
     cell = specs.build_cell(cfg, shape, _mesh(), getattr(part, rules), params=params)
     assert all(leaf.dtype == torch.bfloat16 for leaf in spmd.flat(cell.args[0]).values())
-    got = cell.step_fn(cell.args[0], tokens)
+    got = cell.step_fn(cell.args[0], tokens).gather()
     want = ds.make_prefill_step(cfg)(_rounded(params), tokens)
     atol = RTOL * float(want.abs().max()) if scaled else ATOL
     _close(got, want, "logits", atol=atol)
@@ -193,6 +195,7 @@ def _decode(name, rules, changes=(), batch=B):
         tok = want_tok = tokens[:, :1]
         for pos in range(2):
             logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+            logits = logits.gather()
             want, want_cache = step(rounded, want_tok, pos, want_cache)
             if dtype == f32:
                 _close(logits, want, f"logits at {pos}")
@@ -335,3 +338,27 @@ def test_other_meshes_and_caches_raise():
     with pytest.raises(ValueError, match="batch"):
         prefill(placed, tokens)
     assert isinstance(placed[("embed")]["table"], Sharded)
+
+
+@pytest.mark.parametrize("sizes", [(1, 1), (2, 2)])
+def test_prefill_leaves_no_cycle(sizes):
+    """With remat on (every full-size config's default), a prefill leaves
+    no tensor to Python's cycle collector: each layer's weights and
+    residual are freed when the layer ends, not when the collector runs.
+    (A first call imports lazily, which leaves cycles of its own: warm.)"""
+    cfg, params, tokens, _ = _setup("smollm-135m", (("remat", True),))
+    mesh = make_mesh(sizes, ("data", "model"), devices=["cpu"] * (sizes[0] * sizes[1]))
+    cell = specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), mesh, part.TP_ONLY_RULES, params=params)
+    cell.step_fn(cell.args[0], tokens)
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        cell.step_fn(cell.args[0], tokens)
+        gc.collect()
+        found = [tuple(o.shape) for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert not found, found

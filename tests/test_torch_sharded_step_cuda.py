@@ -2,12 +2,17 @@
 ``chip_smoke.py`` on a (data, model) mesh of (2, n/2) cards (the dense
 and MoE models; rwkv6, zamba2, llama-vision and musicgen at a cut depth;
 Adafactor, microbatches and compressed gradients; qwen3-moe and zamba2
-under SP_RULES and EP_DP_RULES, path 13), and one full-width arctic-480b
-layer with its experts spread over four cards.
+under SP_RULES and EP_DP_RULES, path 13), one full-width arctic-480b
+layer with its experts spread over four cards, and the serving steps'
+logits left on the card of the position that computed them (four cards);
+and a sharded prefill that leaves no tensor to Python's cycle collector
+(one card's 2 x 2 slots).
 
 Marked ``cuda``; each test skips inside its body unless the cards it needs
-are present (two, or four for arctic; one card repeated as the mesh's
-slots is driven by ``chip_smoke.py``'s path 11). On a machine with them:
+are present (two; four for arctic and the logits' cards; one for the
+cycle check, whose mesh repeats it; one card repeated as the mesh's slots
+is otherwise driven by ``chip_smoke.py``'s path 11). On a machine with
+them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sharded_step_cuda.py
 
@@ -118,7 +123,7 @@ def test_prefill_and_decode_across_cards(name):
     )
     cell = build_cell(cfg, ShapeConfig("prefill", 1024, 2, "prefill"), mesh, params=params)
     build.reset_counts()
-    got = cell.step_fn(cell.args[0], tokens)
+    got = cell.step_fn(cell.args[0], tokens).gather()
     ways = mesh.shape["model"]
     whole = cfg.n_heads % ways == 0 and cfg.n_kv_heads % ways == 0  # else once a group
     assert build.counts()["flash_attention"] == (mesh.size if whole else mesh.size // ways) * layers
@@ -131,11 +136,82 @@ def test_prefill_and_decode_across_cards(name):
     tok = tokens[:, :1]
     for pos in range(3):
         logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+        logits = logits.gather()
         want, want_cache = ds.make_serve_step(cfg)(params, tok, pos, want_cache)
         _logits_close(logits, want, share)
         tok = torch.argmax(want, -1).to(torch.int32)
     for leaf in cache["kv"]:
         assert {s.device for s in leaf.shards} == set(mesh.devices)
+
+
+def test_prefill_leaves_no_cycle_on_the_card():
+    """A sharded prefill with remat on (the full config's default) on 2 x 2
+    slots of one card, flash: after a warm call, one under ``gc.disable()``
+    leaves no tensor unreachable (each layer's weights and residual freed
+    when the layer ends, not when the cycle collector runs)."""
+    import gc
+
+    card = _cards(1)[0]
+    mesh = make_mesh((2, 2), ("data", "model"), devices=[card] * 4)
+    cfg = dataclasses.replace(ARCHS["smollm-135m"], n_layers=4, attention_impl="flash")
+    assert cfg.remat
+    cell = build_cell(cfg, ShapeConfig("prefill", 1024, 4, "prefill"), mesh)
+    cell.step_fn(*cell.args)
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        cell.step_fn(*cell.args)
+        torch.cuda.synchronize(card)
+        gc.collect()
+        found = [tuple(o.shape) for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert not found, found
+
+
+def test_logits_stay_on_their_cards():
+    """Over four distinct cards (2 x 2), the prefill's and decode's logits
+    stay where they were computed: each position's block on its own card
+    with its sharding's block shape, the first card's memory grown by less
+    than the whole logits; gathered, they equal the one-device step's."""
+    cards = _cards(4)[:4]
+    mesh = make_mesh((2, 2), ("data", "model"), devices=cards)
+    cfg = _cfg("smollm-135m", 4, attention_impl="flash")
+    params = _bf16_weights(tf.init_params(cfg, seed=0, device=cards[0]))
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen, device=cards[0], dtype=torch.int32)
+
+    def blocks_on_cards(logits):
+        block = logits.sharding.shard_shape(logits.shape)
+        for p, shard in enumerate(logits.shards):
+            assert shard.device == cards[p], (p, shard.device)
+            assert tuple(shard.shape) == block, p
+
+    cell = build_cell(cfg, ShapeConfig("prefill", 512, 4, "prefill"), mesh, params=params)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    before = torch.cuda.memory_allocated(cards[0])
+    got = cell.step_fn(cell.args[0], tokens)
+    torch.cuda.synchronize(cards[0])
+    grown = torch.cuda.memory_allocated(cards[0]) - before
+    blocks_on_cards(got)
+    whole = math.prod(got.shape) * got.dtype.itemsize
+    assert got.local(0).nbytes <= grown < whole, (grown, whole)
+    _logits_close(got.gather(), ds.make_prefill_step(cfg)(params, tokens))
+    del cell, got
+    cell = build_cell(cfg, ShapeConfig("decode", 32, 4, "decode"), mesh, params=params)
+    cache = device_put(tf.init_cache(cfg, 4, 32, dtype=torch.float32, device=cards[0]), cell.in_shardings[3])
+    want_cache = tf.init_cache(cfg, 4, 32, dtype=torch.float32, device=cards[0])
+    tok = tokens[:, :1]
+    for pos in range(2):
+        logits, cache = cell.step_fn(cell.args[0], tok, pos, cache)
+        blocks_on_cards(logits)
+        want, want_cache = ds.make_serve_step(cfg)(params, tok, pos, want_cache)
+        _logits_close(logits.gather(), want)
+        tok = torch.argmax(want, -1).to(torch.int32)
 
 
 @pytest.mark.parametrize(
@@ -209,7 +285,7 @@ def test_rule_set_prefill_across_cards(rules):
     shape = ShapeConfig("prefill", T, B, "prefill")
     cell = build_cell(cfg, shape, mesh, getattr(part, rules), params=params)
     build.reset_counts()
-    got = cell.step_fn(cell.args[0], tokens)
+    got = cell.step_fn(cell.args[0], tokens).gather()
     assert build.counts()["flash_attention"] == mesh.size * 2
     _logits_close(got, ds.make_prefill_step(cfg)(params, tokens), SHARE)
 
@@ -238,7 +314,7 @@ def test_arctic_layer_with_experts_over_four_cards():
     experts = 3 * 128 * 7168 * 4864 * 2  # bytes of the bf16 experts
     assert all(n >= experts // 4 for n in held.values()) and max(held.values()) < experts // 2
     build.reset_counts()
-    got = cell.step_fn(cell.args[0], tokens.to(cards[0]))
+    got = cell.step_fn(cell.args[0], tokens.to(cards[0])).gather()
     assert build.counts()["flash_attention"] == 4
     assert bool(torch.isfinite(got).all())
     blockwise = dataclasses.replace(cfg, attention_impl="blockwise")
@@ -269,7 +345,7 @@ def test_family_prefill_and_decode_across_cards(name):
     images = _images(cfg, cards[0], 2)
     cell = build_cell(cfg, ShapeConfig("prefill", T, 2, "prefill"), mesh, params=params)
     build.reset_counts()
-    got = cell.step_fn(cell.args[0], tokens, *images)
+    got = cell.step_fn(cell.args[0], tokens, *images).gather()
     if cfg.family != "ssm":
         assert build.counts()["flash_attention"] > 0
     _logits_close(got, ds.make_prefill_step(cfg)(params, tokens, *images))
@@ -283,6 +359,7 @@ def test_family_prefill_and_decode_across_cards(name):
     tok = tokens[:, :1]
     for pos in range(3):
         logits, cache = cell.step_fn(cell.args[0], tok, pos, cache, *images)
+        logits = logits.gather()
         want, want_cache = ds.make_serve_step(cfg)(params, tok, pos, want_cache, *images)
         _logits_close(logits, want)
         tok = torch.argmax(want, -1).to(torch.int32)

@@ -220,7 +220,7 @@ def test_sharded_steps_match_the_reference(name, rules):
     # serving: the cell's bf16 weights, as the reference's
     rounded = jax.tree.map(lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)), np_params)
     cell = specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), mesh, rules_, params=params)
-    logits = cell.step_fn(cell.args[0], torch.from_numpy(tokens))
+    logits = cell.step_fn(cell.args[0], torch.from_numpy(tokens)).gather()
     _close(logits, jds.make_prefill_step(jcfg)(rounded, jnp.asarray(tokens)), "prefill logits")
 
     cell = specs.build_cell(cfg, ShapeConfig("d", T, B, "decode"), mesh, rules_, params=params)
@@ -230,6 +230,7 @@ def test_sharded_steps_match_the_reference(name, rules):
     for pos in range(2):
         tok = tokens[:, pos : pos + 1]
         logits, cache = cell.step_fn(cell.args[0], torch.from_numpy(tok), pos, cache)
+        logits = logits.gather()
         jlogits, jcache = jserve(rounded, jnp.asarray(tok), jnp.int32(pos), jcache)
         _close(logits, jlogits, f"decode logits at {pos}")
     for got, want in zip(cache["kv"], jcache["kv"]):
@@ -348,7 +349,7 @@ def test_family_steps_match_the_reference(name, rules):
         lambda x: np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)), np_params
     )
     cell = specs.build_cell(cfg, ShapeConfig("p", T, B, "prefill"), mesh, rules_, params=params)
-    logits = cell.step_fn(cell.args[0], torch.from_numpy(tokens), *extra)
+    logits = cell.step_fn(cell.args[0], torch.from_numpy(tokens), *extra).gather()
     want = jds.make_prefill_step(jcfg)(rounded, jnp.asarray(tokens), *jextra)
     _close(logits, want, "prefill logits")
 
@@ -363,6 +364,7 @@ def test_family_steps_match_the_reference(name, rules):
     for pos in range(2):
         tok = tokens[:, pos : pos + 1]
         logits, cache = cell.step_fn(cell.args[0], torch.from_numpy(tok), pos, cache, *extra)
+        logits = logits.gather()
         jlogits, jcache = jserve(rounded, jnp.asarray(tok), jnp.int32(pos), jcache, *jextra)
         _close(logits, jlogits, f"decode logits at {pos}")
     jflat = spmd.flat(jcache)
