@@ -280,6 +280,7 @@ PREFILL_REL, PREFILL_GAP = 0.04, 0.0625
 BF16_CACHE_REL, BF16_CACHE_GAP = 0.015, 0.02
 INT8_CACHE_REL, INT8_CACHE_GAP = 0.045, 0.06
 CONS_B, CONS_T, GEN_STEPS = 2, 1024, 32  # f32 decode batch, prompt, generation
+CONS_LAYERS = 10  # of 30: the decode is host bound, about 2 ms a layer a token
 # Decode against the forward: the reference's own tolerance
 # (tests/test_models.py:72-74), elementwise |delta| <= atol + rtol |ref|.
 CONS_RTOL = CONS_ATOL = 2e-2
@@ -567,10 +568,10 @@ SHARD12_OFF_SHARE = 1e-4
 # as a 2 x 2048 flash prefill (B9 on 16-head shards), beside the same cell
 # under DEFAULT_RULES for the residual a position and the peak, and
 # trained at 2 x 1024 with the maclaurin backend (B8 on 16-head shards);
-# zamba2 (6 of 54, one group) and smollm-135m (all 30 layers, 9 heads: the
-# gathered-q/k/v route) trained. EP_DP_RULES (the batch over data and
-# model, the experts over data, every ffn dim over model and gathered
-# before its block): qwen3-moe trained at 4 x 1024, maclaurin (B8 on all
+# zamba2 (6 of 54, one group) and smollm-135m (all 30 layers, 9 heads:
+# the attention spread over the group by batch rows) trained. EP_DP_RULES
+# (the batch over data and model, the experts over data, every ffn dim
+# over model and gathered before its block): qwen3-moe trained at 4 x 1024, maclaurin (B8 on all
 # 32 heads of one position's row), served as a 4 x 1024 flash prefill (B9
 # there) and 4 greedy decode steps. Path 13's peak stays within
 # SHARD13_PEAK, path 11's highest: EP_DP replicates the embedding and the
@@ -606,7 +607,11 @@ SHARD13_PEAK = 72e9
 # DRY_PEAK_REL, the median of DRY_TIMED steps after a warm-up against the
 # roofline bound. On path 11's 2 x 2 slots, path 11's qwen3-moe EP_DATA
 # training and path 13's SP flash prefill: flops and every collective call
-# (kind, bytes, group, count) equal. On 4 x 2 slots, DRY_CLASS: 8
+# (kind, bytes, group, count) equal. On 1 x 4 slots, smollm-135m at full
+# width (2 of 30 layers), whose 9 q heads do not divide model = 4: a bf16
+# flash prefill 4 x 2048 and a DEFAULT_RULES training step, the attention
+# spread over the group's members by batch rows (``spmd.Lockstep.spread``),
+# so B9 launches once a member a layer. On 4 x 2 slots, DRY_CLASS: 8
 # positions in 4 classes, so the dry run traces 4 and copies their counts
 # to the others (``spmd.class_reps``), its totals over every position held
 # equal to the real step's. On path 11's 2 x 2 slots, DRY_F11: smollm-135m's
@@ -624,11 +629,17 @@ DRY_SMALL = (  # (label, config changes, (shape name, T, B, kind))
     ("flash prefill", {"attention_impl": "flash"}, ("path14_prefill", 2048, 4, "prefill")),
     ("maclaurin prefill", MACLAURIN, ("path14_prefill", 2048, 4, "prefill")),
 )
-DRY_SLOTS = (  # (label, model, layers, config changes, rules, (shape name, T, B, kind))
+DRY_SLOTS = (  # (label, model, layers, config changes, rules, (shape name, T, B, kind), mesh)
     ("qwen3-moe EP_DATA train", "qwen3-moe-30b-a3b", 2, dict(dtype="float32", **MACLAURIN),
-     "EP_DATA_RULES", ("path14_train", 1024, 2, "train")),
+     "EP_DATA_RULES", ("path14_train", 1024, 2, "train"), (2, 2)),
     ("qwen3-moe SP flash prefill", "qwen3-moe-30b-a3b", 2, dict(dtype="float32", attention_impl="flash"),
-     "SP_RULES", ("path14_prefill", 2048, 2, "prefill")),
+     "SP_RULES", ("path14_prefill", 2048, 2, "prefill"), (2, 2)),
+    ("smollm 1x4 flash prefill", LM_NAME, 2, {"attention_impl": "flash"},
+     "TP_ONLY_RULES", ("path14_prefill", 2048, 4, "prefill"), (1, 4)),
+    ("smollm 1x4 DEFAULT train", LM_NAME, 2, {}, "DEFAULT_RULES", ("path14_train", 2048, 4, "train"), (1, 4)),
+)
+DRY_ATTN_CASES = (  # what B9 gets in the 1 x 4 prefill: one member's row of all 9 heads
+    ("flash_attention", "spread row bf16", (9, 2048, 64, 64), "bfloat16"),
 )
 DRY_CLASS = ("qwen3-moe class-traced DEFAULT train", "qwen3-moe-30b-a3b", 1, dict(dtype="float32", **MACLAURIN),
              "DEFAULT_RULES", ("path14_train", 1024, 4, "train"), (4, 2))
@@ -2646,7 +2657,7 @@ def run(dev) -> list[dict]:
     # ============== thirteenth path (the sharded steps under SP and EP_DP)
     kernels_shard13, launches13 = thirteenth_path(dev)
     # ==================== fourteenth path (the dry run against the card)
-    launches14 = fourteenth_path(dev)[1]
+    kernels_dry, launches14 = fourteenth_path(dev)
     # ======================= path 5's profile act, last (it slows the host)
     t0 = time.perf_counter()
     build.reset_counts()
@@ -2692,7 +2703,7 @@ def run(dev) -> list[dict]:
         },
     ]
     kernels += kernels_q8_rff + kernels_ff + kernels_lm + kernels_fam + kernels_train + kernels_shard
-    kernels += kernels_shard12 + kernels_shard13
+    kernels += kernels_shard12 + kernels_shard13 + kernels_dry
     for entry in kernels:
         entry["launches"] = sum(per_path[entry["name"]])
         entry["launches_per_path"] = per_path[entry["name"]]
@@ -3247,6 +3258,34 @@ def lm_config(**changes):
     return dataclasses.replace(get_config(LM_NAME), **changes)
 
 
+def attention_entries(cases, checks, timings, launches) -> list:
+    """The ``kernels`` entries of B8/B9 at ``cases``' shapes
+    (``attention_kernel_checks``' checks and timings), with a path's
+    launches."""
+    entries = []
+    for name, case, (bh, t, d, dv), _ in cases:
+        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
+        tm = timings[name, case]
+        entries.append(
+            {
+                "name": name,
+                "case": case,
+                "shape": [bh, t, d, dv],
+                "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}.cu",
+                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
+                "launches": launches[name],
+                "max_abs_err": checks[name, case]["max_abs_err"],
+                "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound"][0],
+                "bound_by": tm["bound"][1],
+                "library_ms": tm["library_ms"],
+            }
+        )
+    return entries
+
+
 def attention_kernel_checks(dev, cases=ATTN_CASES) -> tuple[dict, dict]:
     """B9 and B8 against their plain twins and float64 at the ``cases``'
     attention shapes, and timed; B8 by each of its routes, forced, and
@@ -3464,9 +3503,12 @@ def fourth_path(dev):
     seeded random weights. Prefill through ``make_prefill_step`` with the
     blockwise, flash and maclaurin attention; decode token by token through
     ``make_serve_step`` at f32 with an f32, a bf16 and an int8 KV cache and
-    the ``MacState``, held against the matching forward or the next wider
-    cache; then ``greedy_generate`` from the filled caches. Returns (the
+    the ``MacState`` (on a CONS_LAYERS-deep model of the same width),
+    held against the matching forward or the next wider cache; then
+    ``greedy_generate`` from the filled caches. Returns (the
     B8/B9 ``kernels`` entries, every kernel's launches on this path)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.kernels import build
@@ -3534,18 +3576,19 @@ def fourth_path(dev):
 
     # ------------------------------------------------------ lm_consistency
     t0 = time.perf_counter()
-    cfg32 = lm_config(dtype="float32")
+    cfg32 = lm_config(dtype="float32", n_layers=CONS_LAYERS)
+    cons = tf.init_params(cfg32, seed=SEED, device=dev)  # the decode's depth-cut model
     prompt = tokens[:CONS_B, :CONS_T]
     s_max = CONS_T + GEN_STEPS
     kinds = {  # config, and the KV cache's dtype where it has one
-        "f32": (lm_config(dtype="float32", attention_impl="flash"), torch.float32),
-        "bf16": (lm_config(dtype="float32"), torch.bfloat16),
-        "int8": (lm_config(dtype="float32", kv_cache_dtype="int8"), None),
-        "maclaurin": (lm_config(dtype="float32", attention_backend="maclaurin"), None),
+        "f32": (dataclasses.replace(cfg32, attention_impl="flash"), torch.float32),
+        "bf16": (cfg32, torch.bfloat16),
+        "int8": (dataclasses.replace(cfg32, kv_cache_dtype="int8"), None),
+        "maclaurin": (dataclasses.replace(cfg32, attention_backend="maclaurin"), None),
     }
     full = {
-        "f32": tf.forward(kinds["f32"][0], params, prompt)[0],  # B9 at f32
-        "maclaurin": tf.forward(kinds["maclaurin"][0], params, prompt)[0],  # B8, chunk 64
+        "f32": tf.forward(kinds["f32"][0], cons, prompt)[0],  # B9 at f32
+        "maclaurin": tf.forward(kinds["maclaurin"][0], cons, prompt)[0],  # B8, chunk 64
     }
     caches, decoded, step_ms = {}, {}, {}
     for kind, (c, cache_dtype) in kinds.items():
@@ -3555,7 +3598,7 @@ def fourth_path(dev):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for pos in range(CONS_T):
-            lg, cache = step(params, prompt[:, pos : pos + 1], pos, cache)
+            lg, cache = step(cons, prompt[:, pos : pos + 1], pos, cache)
             outs.append(lg)
         torch.cuda.synchronize()
         step_ms[kind] = (time.perf_counter() - t1) * 1e3 / CONS_T
@@ -3588,6 +3631,7 @@ def fourth_path(dev):
     phase(
         "lm_consistency",
         model=cfg32.name,
+        layers=CONS_LAYERS,
         dtype="float32",
         batch=CONS_B,
         tokens=CONS_T,
@@ -3606,7 +3650,7 @@ def fourth_path(dev):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         toks, cache = greedy_generate(
-            c, params, next_tok, caches[kind], steps=GEN_STEPS, start_pos=CONS_T
+            c, cons, next_tok, caches[kind], steps=GEN_STEPS, start_pos=CONS_T
         )
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3 / GEN_STEPS
@@ -3630,6 +3674,7 @@ def fourth_path(dev):
         )
     same = float((generated["int8"] == generated["bf16"]).float().mean())
     phase("lm_generate_agreement", int8_vs_bf16_tokens=same)
+    del cons, caches
     launches = build.counts()
     phase("fourth_path_launches", **launches)
     seconds["lm_generate"] = time.perf_counter() - t0
@@ -4007,31 +4052,9 @@ def eighth_path(dev):
     phase("eighth_path_launches", **launches)
     phase("eighth_path_seconds", kernels=kernel_s, total=time.perf_counter() - t_path)
 
-    entries = []
-    for name, case, (bh, t, d, dv), _ in FAM_ATTN_CASES:
-        if name == "flash_attention" and case.endswith("f32"):
-            continue  # checked and timed; the rows keep the model's bf16 B9
-        mac = name == "maclaurin_attention"
-        source, line = ("maclaurin_attn", 137) if mac else ("flash_attn", 95)
-        tm = timings[name, case]
-        entries.append(
-            {
-                "name": name,
-                "case": case,
-                "shape": [bh, t, d, dv],
-                "route": "cuda",
-                "source": f"src/repro_torch/csrc/{source}.cu",
-                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": checks[name, case]["max_abs_err"],
-                "ms": tm["ms"],
-                "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound"][0],
-                "bound_by": tm["bound"][1],
-                "library_ms": tm["library_ms"],
-            }
-        )
-    return entries, launches
+    # the rows keep the model's bf16 B9; its f32 cases are checked and timed only
+    rows = [c for c in FAM_ATTN_CASES if not (c[0] == "flash_attention" and c[1].endswith("f32"))]
+    return attention_entries(rows, checks, timings, launches), launches
 
 
 
@@ -5137,28 +5160,7 @@ def eleventh_path(dev) -> tuple[list, dict]:
     phase("eleventh_path_launches", **launches)
     seconds["total"] = time.perf_counter() - t_path
     phase("eleventh_path_seconds", peak_bytes=peak, **seconds)
-    entries = []
-    for name, case, (bh, t, d, dv), _ in SHARD_ATTN_CASES:
-        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
-        tm = timings[name, case]
-        entries.append(
-            {
-                "name": name,
-                "case": case,
-                "shape": [bh, t, d, dv],
-                "route": "cuda",
-                "source": f"src/repro_torch/csrc/{source}.cu",
-                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": checks[name, case]["max_abs_err"],
-                "ms": tm["ms"],
-                "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound"][0],
-                "bound_by": tm["bound"][1],
-                "library_ms": tm["library_ms"],
-            }
-        )
-    return entries, launches
+    return attention_entries(SHARD_ATTN_CASES, checks, timings, launches), launches
 
 
 def image_embeds(cfg, dev, batch: int):
@@ -5515,28 +5517,7 @@ def twelfth_path(dev) -> tuple[list, dict]:
     phase("twelfth_path_launches", **launches)
     seconds["total"] = time.perf_counter() - t_path
     phase("twelfth_path_seconds", peak_bytes=max(peaks), **seconds)
-    entries = []
-    for name, case, (bh, t, d, dv), _ in SHARD12_ATTN_CASES:
-        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
-        tm = timings[name, case]
-        entries.append(
-            {
-                "name": name,
-                "case": case,
-                "shape": [bh, t, d, dv],
-                "route": "cuda",
-                "source": f"src/repro_torch/csrc/{source}.cu",
-                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": checks[name, case]["max_abs_err"],
-                "ms": tm["ms"],
-                "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound"][0],
-                "bound_by": tm["bound"][1],
-                "library_ms": tm["library_ms"],
-            }
-        )
-    return entries, launches
+    return attention_entries(SHARD12_ATTN_CASES, checks, timings, launches), launches
 
 
 class residual_blocks:
@@ -5671,28 +5652,7 @@ def thirteenth_path(dev) -> tuple[list, dict]:
     check(peak <= SHARD13_PEAK, f"path 13's peak {peak} B > {SHARD13_PEAK}")
     seconds["total"] = time.perf_counter() - t_path
     phase("thirteenth_path_seconds", peak_bytes=peak, **seconds)
-    entries = []
-    for name, case, (bh, t, d, dv), _ in SHARD13_ATTN_CASES:
-        source, line = ("maclaurin_attn", 137) if name == "maclaurin_attention" else ("flash_attn", 95)
-        tm = timings[name, case]
-        entries.append(
-            {
-                "name": name,
-                "case": case,
-                "shape": [bh, t, d, dv],
-                "route": "cuda",
-                "source": f"src/repro_torch/csrc/{source}.cu",
-                "replaces": f"src/repro/kernels/{source}/kernel.py:{line}",
-                "launches": launches[name],
-                "max_abs_err": checks[name, case]["max_abs_err"],
-                "ms": tm["ms"],
-                "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound"][0],
-                "bound_by": tm["bound"][1],
-                "library_ms": tm["library_ms"],
-            }
-        )
-    return entries, launches
+    return attention_entries(SHARD13_ATTN_CASES, checks, timings, launches), launches
 
 
 def serve_cell_checks(
@@ -5914,10 +5874,11 @@ def fourteenth_path(dev) -> tuple[list, dict]:
     production cells DRY_CELLS traced on the CPU, each in a process of its
     own, while smollm-135m's three cells run on a 1 x 1 mesh of the card
     (those processes stopped while a step is timed, and timed again beside
-    them), qwen3-moe's two on 2 x 2 slots and DRY_CLASS on 4 x 2, each
-    against its dry run, and DRY_F11's decode on 2 x 2 slots against its
-    dry run and the one-device decode. Returns (no ``kernels`` entries: B8
-    and B9's stand at earlier paths' shapes, every kernel's launches)."""
+    them), qwen3-moe's two on 2 x 2 slots, smollm-135m's two on 1 x 4 and
+    DRY_CLASS on 4 x 2, each against its dry run, and DRY_F11's decode on
+    2 x 2 slots against its dry run and the one-device decode; B9 held
+    against its twins at the 1 x 4 prefill's shape (DRY_ATTN_CASES). Returns
+    (its ``kernels`` entry, every kernel's launches)."""
     import dataclasses
     import os
     import signal
@@ -5934,6 +5895,7 @@ def fourteenth_path(dev) -> tuple[list, dict]:
     t_path = time.perf_counter()
     card = card_line()
     phase("fourteenth_path_torch", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
+    checks, timings = attention_kernel_checks(dev, DRY_ATTN_CASES)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmds = []
     for arch, shape_name, multi_pod in DRY_CELLS:
@@ -5953,15 +5915,18 @@ def fourteenth_path(dev) -> tuple[list, dict]:
             phase("dry_card", card=card, **row)
             seconds[label] = time.perf_counter() - t0
         slots = make_mesh(*SHARD_MESH, devices=[dev] * math.prod(SHARD_MESH[0]))
-        sizes = DRY_CLASS[-1]
-        cells = [(slots, *cell) for cell in DRY_SLOTS]
-        cells.append((make_mesh(sizes, SHARD_MESH[1], devices=[dev] * math.prod(sizes)), *DRY_CLASS[:-1]))
-        for mesh, label, name, layers, changes, rules, (sname, T, B, kind) in cells:
+        for label, name, layers, changes, rules, (sname, T, B, kind), sizes in DRY_SLOTS + (DRY_CLASS,):
             t0 = time.perf_counter()
+            mesh = make_mesh(sizes, SHARD_MESH[1], devices=[dev] * math.prod(sizes))
             cfg = family_config(name, layers, **changes)
             ocfg = OptimizerConfig(warmup=2, total_steps=10) if kind == "train" else None
             shape = ShapeConfig(sname, T, B, kind)
             row = dry_against_card(dev, label, cfg, shape, mesh, getattr(part, rules), ocfg)
+            ways = mesh.shape["model"]
+            if cfg.n_heads % ways and rules != "EP_DP_RULES":  # spread: B8/B9 once a member a layer
+                want = {k: attention_applications(cfg) * mesh.size for k in row["launches"][1]}
+                check(row["launches"][1] == want, f"path 14 {label}: launches {row['launches'][1]}, not {want}")
+                row["spread"] = dict(heads=cfg.n_heads, model_ways=ways, launches_a_member=attention_applications(cfg))
             phase("dry_slots", card=card, **row)
             seconds[label] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -6013,7 +5978,7 @@ def fourteenth_path(dev) -> tuple[list, dict]:
     phase("fourteenth_path_seconds", card=card, **seconds)
     for kernel in ("flash_attention", "maclaurin_attention"):
         check(launches[kernel] > 0, f"{kernel} never launched on path 14")
-    return [], launches
+    return attention_entries(DRY_ATTN_CASES, checks, timings, launches), launches
 
 
 if __name__ == "__main__":

@@ -11,6 +11,11 @@ repro_torch.launch.roofline --keep`` rewrites ``results/roofline_torch.
 
     PYTHONPATH=src python3 scripts/dryrun_grid.py --shapes prefill_32k decode_32k long_500k \\
         --jobs 6 --log grid.jsonl
+    PYTHONPATH=src python3 scripts/dryrun_grid.py --cells yi-34b:prefill_32k yi-34b:train_4k --log grid.jsonl
+
+``--cells`` names (arch, shape) pairs instead of ``--shapes`` x ``--archs``,
+run in the order named (longest first: none then ends the run alone),
+each on both meshes.
 """
 
 from __future__ import annotations
@@ -34,19 +39,21 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--archs", nargs="+", default=sorted(ARCHS), choices=sorted(ARCHS))
+    ap.add_argument("--cells", nargs="+", default=None, metavar="ARCH:SHAPE")
     ap.add_argument("--jobs", type=int, default=6)
     ap.add_argument("--log", type=Path, required=True)
     args = ap.parse_args()
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    todo = [
-        (arch, shape, multi_pod)
-        for shape in args.shapes
-        for arch in args.archs
-        for multi_pod in (False, True)
-    ]
-    # the longest cells first, so that they do not end the run alone
-    todo.sort(key=lambda c: (c[0] != "zamba2-2.7b", c[1] != "prefill_32k", not c[2]))
+    pairs = [(a, s) for s in args.shapes for a in args.archs]
+    if args.cells:
+        pairs = [tuple(c.split(":")) for c in args.cells]
+        bad = [c for c in pairs if c[0] not in ARCHS or c[1] not in SHAPES]
+        if bad:
+            ap.error(f"no such cells: {bad}")
+    todo = [(arch, shape, multi_pod) for arch, shape in pairs for multi_pod in (False, True)]
+    if not args.cells:  # the longest cells first, so that they do not end the run alone
+        todo.sort(key=lambda c: (c[0] != "zamba2-2.7b", c[1] != "prefill_32k", not c[2]))
     args.log.parent.mkdir(parents=True, exist_ok=True)
     running: dict = {}
     failed = 0

@@ -17,8 +17,15 @@ device) and, for each kind of object that refers to such a tensor, its
 description (a frame's function and line, a function's name), so that the
 cycle's owner can be named.
 
+With ``--cell ARCH SHAPE [--multi-pod]``: what is live at the peak of
+each class representative of one production cell of the dry run
+(``launch.dryrun``'s 16 x 16 or 2 x 16 x 16 mesh of fake devices, one
+period of layers, the cell's rules and optimizer), largest first. No card
+is needed, but a full-width trace wants a large host.
+
     python3 scripts/peak_live_diff.py             # on a machine with a CUDA card
     python3 scripts/peak_live_diff.py --cycles
+    python3 scripts/peak_live_diff.py --cell yi-34b prefill_32k
 """
 
 from __future__ import annotations
@@ -128,6 +135,74 @@ def cycles() -> int:
     return 0
 
 
+def live_recorder():
+    """``launch.op_cost.CostRecorder`` with each live storage's origin (the
+    op that made it, its shape, dtype and bytes) and, for each device, a
+    snapshot of them at its peak (``snapshot[dev]``, ``best[dev]``)."""
+    from repro_torch.launch.op_cost import CostRecorder, _base
+
+    class Live(CostRecorder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.origin = collections.defaultdict(dict)
+            self.best, self.snapshot, self.op = collections.Counter(), {}, None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.op = _base(func)
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+        def _track(self, outs, ins):
+            held = {t.untyped_storage()._cdata for t in ins}
+            for t in outs:
+                st, dev = t.untyped_storage(), str(t.device)
+                if st._cdata not in held and dev not in self.skip:
+                    held.add(st._cdata)
+                    self.origin[dev][id(st)] = (self.op, tuple(t.shape), str(t.dtype), st.nbytes())
+                    weakref.finalize(st, self.origin[dev].pop, id(st), None)
+            super()._track(outs, ins)
+            for dev in {str(t.device) for t in outs} - self.skip:
+                if self.live[dev] > self.best[dev]:
+                    self.best[dev] = self.live[dev]
+                    self.snapshot[dev] = collections.Counter(self.origin[dev].values())
+
+    return Live
+
+
+def show(side: str, rec, dev: str, top: int | None = None) -> None:
+    print(f"{side}: peak {rec.best[dev]} B of new storage")
+    items = sorted(rec.snapshot.get(dev, {}).items(), key=lambda kv: -kv[0][3] * kv[1])
+    for (op, shape, dtype, nbytes), n in items[:top]:
+        print(f"   {n:3d} x {op} {list(shape)} {dtype} ({nbytes} B)")
+
+
+def cell_peak(arch: str, shape_name: str, multi_pod: bool) -> int:
+    """``--cell``: the live set at each class representative's peak of one
+    production cell, one period of layers, on fake devices."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import choose_optimizer, choose_rules, pick_backend
+    from repro_torch.sharding.spmd import class_reps
+
+    shape = SHAPES[shape_name]
+    cfg = pick_backend(dryrun.cell_config(arch), shape)
+    rules = choose_rules(cfg, shape, None)
+    mesh = dryrun.production_mesh(multi_pod)
+    dp_ways = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+    ocfg = choose_optimizer(cfg, shape, dp_ways=dp_ways)
+    Live, made = live_recorder(), []
+
+    def recorder(**kwargs):  # the trace's recorder, kept to be read after it
+        made.append(Live(**kwargs))
+        return made[-1]
+
+    dryrun.CostRecorder = recorder
+    dryrun.trace_cell(dryrun.cut(cfg, 1), shape, mesh, rules, ocfg)
+    for p in sorted(set(class_reps(mesh.sizes))):
+        dev = str(mesh.devices[p])
+        show(f"{arch} {shape_name} {dryrun.mesh_name(multi_pod)}, one period, position {p} ({dev})", made[0], dev, 25)
+    return 0
+
+
 def main() -> int:
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -136,9 +211,10 @@ def main() -> int:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels.build import build_all, card_stand_in
     from repro_torch.launch import dryrun, make_mesh
-    from repro_torch.launch.op_cost import CostRecorder, _base
     from repro_torch.launch.specs import build_cell
 
+    if sys.argv[1:2] == ["--cell"]:
+        return cell_peak(sys.argv[2], sys.argv[3], sys.argv[4:5] == ["--multi-pod"])
     if not torch.cuda.is_available():
         print("peak_live_diff: no CUDA device is available", file=sys.stderr)
         return 2
@@ -150,36 +226,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--cycles"]:
         return cycles()
 
-    class Live(CostRecorder):
-        """The recorder, with each live storage's origin and a snapshot of
-        them at the peak."""
-
-        def __init__(self):
-            super().__init__()
-            self.origin, self.best, self.snapshot, self.op = {}, 0, None, None
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.op = _base(func)
-            return super().__torch_dispatch__(func, types, args, kwargs)
-
-        def _track(self, outs, ins):
-            held = {t.untyped_storage()._cdata for t in ins}
-            for t in outs:
-                st = t.untyped_storage()
-                if st._cdata not in held:
-                    key = id(st)
-                    self.origin[key] = (self.op, tuple(t.shape), str(t.dtype), st.nbytes())
-                    weakref.finalize(st, self.origin.pop, key, None)
-            super()._track(outs, ins)
-            top = max(self.live.values(), default=0)
-            if top > self.best:
-                self.best, self.snapshot = top, collections.Counter(self.origin.values())
-
-    def show(side: str, rec: Live) -> None:
-        print(f"{side}: peak {rec.best} B of new storage")
-        for (op, shape, dtype, nbytes), n in sorted(rec.snapshot.items(), key=lambda kv: -kv[0][3] * kv[1]):
-            print(f"   {n:3d} x {op} {list(shape)} {dtype} ({nbytes} B)")
-
+    Live = live_recorder()
     cfg = dataclasses.replace(get_config("smollm-135m"), attention_impl="flash")
     shape = ShapeConfig("prefill", 2048, 4, "prefill")
     build_all(["flash_attn.cu"])
@@ -187,12 +234,12 @@ def main() -> int:
         cell = build_cell(cfg, shape, dryrun.fake_mesh((1, 1), ("data", "model")), None)
         with Live() as fake:
             cell.step_fn(*cell.args)
-    show("fake meta:0", fake)
+    show("fake meta:0", fake, "meta:0")
     cell = build_cell(cfg, shape, make_mesh((1, 1), ("data", "model"), devices=["cuda:0"]), None)
     with Live() as card:
         cell.step_fn(*cell.args)
     torch.cuda.synchronize()
-    show("cuda:0", card)
+    show("cuda:0", card, "cuda:0")
     return 0
 
 

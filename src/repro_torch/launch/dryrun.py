@@ -23,12 +23,17 @@ for them. The program runs those positions only; each other member of a
 group they join takes a stand-in of its representative's shape on its own
 device (``collectives.stand_in``), made where nothing counts it, and each
 collective runs over every member, so a traced position records exactly
-what it would in a full trace. Every other position takes its class's
-counts, copied (``total`` sums each class's counts times its size); a
-leaf's block that differs in shape from its class representative's
-raises. Argument, output and alias bytes stay exact at every position,
-from the placements. The traced positions hold fake devices of their own;
-on 2 x 16 x 16 the others share the remaining indices (``fake_devices``).
+what it would in a full trace. (The attention of heads that do not
+divide "model" runs over blocks of a group, ``spmd.Lockstep.spread``,
+each as much as the others, but led by members that do not lead the
+group: so the program's calls are counted at every place they join, not
+at their first member, ``program_calls``.) Every other position takes
+its class's counts, copied (``total`` sums each class's counts times its
+size); a leaf's block that differs in shape from its class
+representative's raises. Argument, output and alias bytes stay exact at
+every position, from the placements. The traced positions hold fake
+devices of their own; on 2 x 16 x 16 the others share the remaining
+indices (``fake_devices``).
 
 A cell is traced at one and at two periods of layers (a layer;
 ``hybrid_attn_every`` layers and the shared block for zamba2,
@@ -48,15 +53,15 @@ position with the largest peak (``position``: the positions differ, as a
 reduction is summed on a group's first member), with ``trace_seconds`` in
 place of ``compile_seconds``, ``depth_traced``: the periods traced, and
 ``classes``: each traced position and the positions its counts stand
-for. ``total`` sums the cost over every device, ``kernels`` counts the
-launch ops and ``calls`` every collective call of the program. Argument
-and output bytes are the placed leaves' (``Sharded.position_bytes``: the
-parameters, the cache, and the serving steps' logits, which stay where
-they were computed, in the reference's layout), a scalar whole on every
-position, and, as XLA counts them, 8 bytes a leaf of an output tuple;
-alias bytes are the donated arguments'. The position's
-op counts go to ``<tag>.ops.json.gz`` (``profile_cell``; ``--reanalyze``
-prices them again without a trace).
+for, ``class_peaks`` each one's peak bytes. ``total`` sums the cost over
+every device, ``kernels`` counts the launch ops and ``calls`` every
+collective call of the program. Argument and output bytes are the placed
+leaves' (``Sharded.position_bytes``: the parameters, the cache, and the
+serving steps' logits, which stay where they were computed, in the
+reference's layout), a scalar whole on every position, and, as XLA
+counts them, 8 bytes a leaf of an output tuple; alias bytes are the
+donated arguments'. The position's op counts go to ``<tag>.ops.json.gz``
+(``profile_cell``; ``--reanalyze`` prices them again without a trace).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -347,6 +352,29 @@ def fit_sequences(per_depth: list[dict], p: int) -> collections.Counter:
     return collections.Counter({k: v for k, v in out.items() if v})
 
 
+def program_calls(collectives: list[dict], weight, p: int) -> collections.Counter:
+    """Every collective call of the program at ``p`` periods, (kind,
+    bytes, group size) -> count, from each traced depth's ``collectives``
+    records weighted by the positions each device stands for (``weight``).
+    A call is recorded once at each distinct place among its members (its
+    span), so it is counted that many times, then divided. (Not from each
+    call's first member: a group cut into blocks, as
+    ``spmd.Lockstep.spread`` cuts one, is led by members whose class
+    representative leads none.)"""
+    joined: collections.Counter = collections.Counter()
+    for dev in sorted({d for c in collectives for _, d in c}):
+        per_depth = [{ph: keys for (ph, d), keys in c.items() if d == dev} for c in collectives]
+        for (kind, nbytes, size, span, _), count in fit_sequences(per_depth, p).items():
+            joined[kind, nbytes, size, span] += weight(dev) * count
+    calls: collections.Counter = collections.Counter()
+    for (kind, nbytes, size, span), count in joined.items():
+        n, left = divmod(count, span)
+        if left:
+            raise ValueError(f"{kind} of {nbytes} B: recorded {count} times, not a multiple of its span {span}")
+        calls[kind, nbytes, size] += n
+    return calls
+
+
 def peak_fit(traces: list[dict], dev: str, traced: tuple, p: int) -> int:
     """The most ``dev`` holds on top of its arguments at ``p`` periods: the
     largest of its phases' peaks (forward, backward, after; ``CostRecorder.
@@ -450,11 +478,7 @@ def predict(
     total["matmul_flops"] = _extrapolate_counts(mm, P)
     colls = [{ph: c for (ph, d), c in t["collectives"].items() if d == dev} for t in traces]
     ops = _collective_ops(fit_sequences(colls, P))
-    calls: collections.Counter = collections.Counter()
-    for lead in sorted({d for t in traces for _, d in t["leads"]}):
-        led = [{ph: c for (ph, d), c in t["leads"].items() if d == lead} for t in traces]
-        for key, count in fit_sequences(led, P).items():
-            calls[key] += w(lead) * count
+    calls = program_calls([t["collectives"] for t in traces], w, P)
     result = {
         "n_devices": n,
         "position": pos,
@@ -465,6 +489,7 @@ def predict(
         "optimizer": {"name": ocfg.name, "microbatches": ocfg.microbatches},
         "trace_seconds": round(sum(t["seconds"] for t in traces), 1),
         "classes": {str(r): k for r, k in sorted(size.items())},
+        "class_peaks": {str(r): peak[r] for r in sorted(size)},
         "memory": {
             "argument_bytes": arguments,
             "output_bytes": outputs,

@@ -34,8 +34,7 @@ one device a mesh position, with the reference's weights
                   (its ``OBSERVERS``) at each member's position: kind,
                   result bytes a member, group size, and how many distinct
                   devices and nodes of ``NODE_GPUS`` consecutive mesh
-                  positions the members span; and each call once (under
-                  the device of its first member, which leads it, too).
+                  positions the members span; and each call once.
 
 Under a class trace (``sharding.spmd.Lockstep``'s ``run``) the recorder
 ``skip``s the devices of the positions that are not run: nothing is
@@ -259,9 +258,8 @@ class CostRecorder(TorchDispatchMode):
     ``collectives[phase, dev]`` lists, in order, the (kind, result bytes a
     member, group size, devices spanned, nodes spanned) of each collective
     ``dev`` joins; ``calls[phase]`` lists the (kind, bytes, group size) of
-    every collective call of the program, and ``leads[phase, dev]`` those
-    that ``dev`` leads (is the first member of); ``kernels`` maps a launch
-    op (a ``build.KERNELS`` name) to its calls. An op that decomposes
+    each collective call whose first member is counted; ``kernels`` maps a
+    launch op (a ``build.KERNELS`` name) to its calls. An op that decomposes
     (``CompositeImplicitAutograd``, which reaches the mode whole under
     ``torch.inference_mode``) is counted as the ops it runs. Devices in
     ``skip`` are not counted (a class trace's positions that are not run);
@@ -282,7 +280,6 @@ class CostRecorder(TorchDispatchMode):
         self._backward = False
         self.collectives: dict = collections.defaultdict(list)
         self.calls: dict = collections.defaultdict(list)
-        self.leads: dict = collections.defaultdict(list)
         self.kernels: collections.Counter = collections.Counter()
         self._composites: dict = {}
 
@@ -321,9 +318,7 @@ class CostRecorder(TorchDispatchMode):
             self.collectives[self.phase, dev].append(key)
         lead, stand_in = members[0]
         if stand_in is None and str(lead) not in self.skip:
-            call = (kind, nbytes, len(members))
-            self.calls[self.phase].append(call)
-            self.leads[self.phase, str(lead)].append(call)
+            self.calls[self.phase].append((kind, nbytes, len(members)))
 
     def _phase(self) -> None:
         """A new phase at each entry to or exit from a backward pass."""
@@ -414,7 +409,7 @@ class CostRecorder(TorchDispatchMode):
 
     def summary(self) -> dict:
         """What was counted, as plain containers (picklable): records,
-        counts, peak, collectives, calls, leads and kernels."""
+        counts, peak, collectives, calls and kernels."""
         return {
             "records": list(self.records),
             "counts": {d: dict(c) for d, c in self.counts.items()},
@@ -422,7 +417,6 @@ class CostRecorder(TorchDispatchMode):
             "trajectory": dict(self.trajectory),
             "collectives": dict(self.collectives),
             "calls": dict(self.calls),
-            "leads": dict(self.leads),
             "kernels": dict(self.kernels),
         }
 

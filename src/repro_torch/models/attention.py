@@ -73,25 +73,30 @@ def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, rope_theta):
     return split_heads(q, k, v, n_heads, n_kv, head_dim, positions, rope_theta)
 
 
-def _gqa_scores_full(q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch.float32):
+def _gqa_scores_full(
+    q, k, v, causal: bool, chunk: int = 512, scores_dtype=torch.float32, offset: int | None = None
+):
     """q: (B,T,Hq,hd), k/v: (B,S,Hkv,hd). Softmax attention, blockwise over
     query chunks of 512, so the (T x S) score matrix never materializes —
     peak extra memory is one (B,Hkv,g,chunk,S) slab, recomputed in the
     backward pass (each chunk under ``remat``, as the reference
     ``jax.checkpoint``s each chunk body). Full-softmax rows per chunk (S is
-    not chunked), so no online-softmax state is needed.
+    not chunked), so no online-softmax state is needed. ``offset``: the
+    position of q's first row among the S keys, for the causal mask
+    (default S - T: q holds the last T rows).
     """
     B, T, Hq, hd = q.shape
-    Hkv = k.shape[2]
+    Hkv, S = k.shape[2], k.shape[1]
     g = Hq // Hkv
     scale = 1.0 / (hd**0.5)
+    first = S - T if offset is None else offset
     qh = q.reshape(B, T, Hkv, g, hd)
     if T <= chunk:
-        return _attn_chunk(qh, k, v, 0, causal, scale, T, scores_dtype).reshape(B, T, Hq, hd)
+        return _attn_chunk(qh, k, v, first, causal, scale, S, scores_dtype).reshape(B, T, Hq, hd)
     n_chunks = T // chunk
     assert n_chunks * chunk == T, f"T={T} not divisible by attention chunk {chunk}"
     outs = [
-        remat(_attn_chunk, qh[:, c0 : c0 + chunk], k, v, c0, causal, scale, T, scores_dtype)
+        remat(_attn_chunk, qh[:, c0 : c0 + chunk], k, v, first + c0, causal, scale, S, scores_dtype)
         for c0 in range(0, T, chunk)
     ]
     return torch.cat(outs, dim=1).reshape(B, T, Hq, hd)

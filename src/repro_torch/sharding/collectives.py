@@ -217,26 +217,6 @@ class _Gather(Function):
         return (None, *(c.to(d) for c, d in zip(chunks, ctx.devices)))
 
 
-class _Scatter(Function):
-    @staticmethod
-    def forward(ctx, x, dim, blocks, devices):
-        ctx.dim, ctx.device = dim, x.device
-        cuts = [b.start for b in blocks] + [x.shape[dim]]
-        if cuts[0] != 0 or any(b.stop != c for b, c in zip(blocks, cuts[1:])):
-            raise NotImplementedError(f"scatter: blocks {blocks} do not tile dim {dim}")
-        index = [slice(None)] * x.dim()
-        out = []
-        for b, d in zip(blocks, devices):
-            index[dim] = b
-            out.append(x[tuple(index)].to(d))
-        return tuple(out)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        whole = torch.cat([g.to(ctx.device) for g in grads], ctx.dim)
-        return whole, None, None, None
-
-
 def all_reduce(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The sum of the members' tensors, on every member."""
     return list(_AllReduce.apply(*xs)) if len(xs) > 1 else list(xs)
@@ -276,9 +256,3 @@ def gather(xs: list[torch.Tensor], dim: int) -> torch.Tensor:
     """The members' tensors concatenated along ``dim`` on the first
     member's device only."""
     return _Gather.apply(dim, *xs) if len(xs) > 1 else xs[0]
-
-
-def scatter(x: torch.Tensor, dim: int, blocks: list[slice], devices: list) -> list:
-    """Block ``blocks[i]`` of ``x`` along ``dim`` on ``devices[i]`` (a view
-    where that is ``x``'s device): blocks that tile the dim in order."""
-    return list(_Scatter.apply(x, dim, blocks, devices))

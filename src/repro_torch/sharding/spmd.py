@@ -28,13 +28,17 @@ What the layout asks for, as GSPMD would insert it:
     a vocab-cut embedding looked up by range and all-reduced; vocab-cut
     logits with a vocab-parallel cross-entropy;
   * attention on a head shard where the q and kv cuts hold whole heads (q
-    shard p's heads then read kv shard p's); otherwise q, k and v gathered
-    over the group, attention once a group, each member its ``w_o`` rows.
-    Decode through a cache whose kv heads do not divide "model" gathers q,
-    k and v on every member, which reads its whole copy of the cache: a
-    ``MacState`` (a replica) extended with every kv head and read out; a
-    KV cache, a replica or cut along its sequence (int8's dequantized a
-    block at a time with its own scales), by one combine over the group;
+    shard p's heads then read kv shard p's); otherwise spread evenly over
+    the group (``spread``): k and v gathered, the q heads in gcd(heads,
+    members) blocks, each block's rows (the batch, then the blockwise
+    softmax's query rows) over its members, q all-to-all'd within a block
+    and the output back to each member's ``w_o`` rows, the partial sums
+    all-reduced. Decode through a cache whose kv heads do not divide
+    "model" gathers q, k and v on every member, which reads its whole
+    copy of the cache: a ``MacState`` (a replica) extended with every kv
+    head and read out; a KV cache, a replica or cut along its sequence
+    (int8's dequantized a block at a time with its own scales), by one
+    combine over the group;
   * experts over "model": each member's experts on the replicated
     dispatch buffer, then the all-reduce; over "data" (``EP_DATA_RULES``,
     ``EP_DP_RULES``): the buffer all-to-all'd to the experts' owners and
@@ -67,8 +71,9 @@ What the layout asks for, as GSPMD would insert it:
     ``w_out`` row-cut and all-reduced. The shared attention block is the
     dense block under its own path prefix, its gradient summed over its
     applications by autograd;
-  * cross-attention (``vlm``) on head shards over the batch block's
-    image tokens, no mask and no RoPE; decode from the cached image K/V
+  * cross-attention (``vlm``) on head shards, or spread as self-attention
+    is, over the batch block's image tokens, no mask and no RoPE; decode
+    from the cached image K/V
     (or their ``MacState``), head-cut, sequence-cut or a replica.
 
 A class trace runs one position of each class only (``run``,
@@ -91,6 +96,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -108,7 +114,7 @@ from repro_torch.models.attention import (
     split_heads,
     write_kv,
 )
-from repro_torch.models.layers import rmsnorm, swiglu
+from repro_torch.models.layers import apply_rope, rmsnorm, swiglu
 from repro_torch.models.moe import _combine, experts, load_counts, route
 from repro_torch.models.rwkv import _mm, channel_mix_parts, time_mix_decode, time_mix_forward
 from repro_torch.models.ssm import _causal_conv, _split_proj, ssd_scan, ssd_step
@@ -277,9 +283,10 @@ def class_reps(sizes: tuple[int, ...]) -> list[int]:
     """Each position's class representative on a mesh of ``sizes``
     (row-major). A position's counts depend only on the groups it leads (a
     reduction is summed on a group's first member, which has coordinate 0
-    on the group's axes), so its class is the set of axes on which its
-    coordinate is 0; the representative has coordinate 0 there and 1 on
-    the other axes."""
+    on the group's axes; every other step, the blocks of ``spread``'s
+    all-to-alls among them, costs each member alike), so its class is the
+    set of axes on which its coordinate is 0; the representative has
+    coordinate 0 there and 1 on the other axes."""
     coords = np.indices(sizes).reshape(len(sizes), -1)
     return [int(p) for p in np.ravel_multi_index(np.minimum(coords, 1), sizes)]
 
@@ -424,16 +431,6 @@ class Lockstep:
         both = self.each(fn)
         return [b and b[0] for b in both], [b and b[1] for b in both]
 
-    def per_group(self, fn) -> list:
-        """``fn(g)`` of each tensor-parallel group that runs: its members'
-        values, merged into one list a position."""
-        out = [None] * self.n
-        for g in self.tp_groups:
-            if self.runs(g):
-                for p, y in zip(g, fn(g)):
-                    out[p] = y
-        return out
-
     def have(self, xs: list, p: int):
         """Position ``p``'s entry of ``xs``: its own where it runs, else a
         stand-in shaped as its class representative's."""
@@ -573,75 +570,173 @@ class Lockstep:
             total, gold = self.tp_reduce(total), self.tp_reduce(gold)
         return self.each(lambda p: torch.sum(top[p] + torch.log(total[p]) - gold[p]))
 
-    def group_columns(self, xs: list, g, cut) -> torch.Tensor:
-        """Group ``g``'s columns of ``xs`` gathered on its first member
-        where ``cut``, else the first member's own."""
-        return coll.gather([self.have(xs, p) for p in g], -1) if cut else xs[g[0]]
+    def attn_axes(self, key: tuple) -> tuple:
+        """(q's column cut, k's and v's, ``w_o``'s row cut) of the
+        attention whose leaves are under ``key``."""
+        return (
+            self.cuts[key + ("w_q",)].axes[1],
+            self.cuts[key + ("w_k",)].axes[1],
+            self.cuts[key + ("w_o",)].axes[0],
+        )
 
-    def to_members(self, o: torch.Tensor, g, lp: list[dict], key: tuple) -> list:
-        """Each member of ``g`` that runs: its rows of the whole attention
-        output ``o`` (on the first member) through its ``w_o`` block."""
-        rows = [self.block(key + ("w_o",), p, 0) for p in g]
-        pieces = coll.scatter(o, -1, rows, [self.devices[p] for p in g])
-        return [piece @ lp[p][key[-1]]["w_o"] if p in self.live else None for p, piece in zip(g, pieces)]
+    def spread_plan(self, B: int, T: int, queries: bool) -> tuple[int, int, int, int]:
+        """How ``spread`` cuts a tensor-parallel group's attention: (head
+        blocks g, batch blocks, query blocks, members a block of rows). The
+        q heads over g = gcd(heads, members) blocks, each block's r =
+        members / g consecutive members over its rows: the batch over as
+        many blocks as it and r share, then the query rows where
+        ``queries`` (attention whose query rows are independent: the plain
+        blockwise softmax), as far as T divides; a block of rows on as many
+        members as remain (1 unless a fused kernel's batch does not divide
+        r)."""
+        parts = self.mesh.shape[self.tp]
+        g = math.gcd(self.cfg.n_heads, parts)
+        r = parts // g
+        gb = math.gcd(B, r)
+        gt = math.gcd(r // gb, T) if queries else 1
+        return g, gb, gt, r // (gb * gt)
 
-    def attention(self, lp: list[dict], h: list, pos: list, prefix: str) -> list:
+    def spread(self, q: list, k: list, v: list, kv_cut, lp: list[dict], key: tuple, attend, queries: bool) -> list:
+        """A tensor-parallel group's attention spread evenly over its
+        members (where the heads do not make whole head shards): the
+        partial sums of each member's ``w_o`` rows, a position. ``q``: each
+        member's q columns (B, T, Hq hd / members); ``k``, ``v``: its k and
+        v columns (B, S, .), cut over the group where ``kv_cut``, else
+        whole. ``attend(p, q, k, v, t0)`` runs attention of q (b, t, h, hd)
+        from query row ``t0`` over k, v (b, S, h_kv, hd) and returns
+        (b, t, h hd).
+
+        Each member attends with one block of q heads (``spread_plan``) and
+        the kv heads they read, over one block of rows. Where the q heads
+        divide the group (r = 1) the block is its own columns and nothing
+        moves. Otherwise the r members of a head block, whose columns it
+        is, all-to-all their q columns so that each holds the block's
+        every column for its rows, and all-to-all the output back to their
+        columns. k and v are all-gathered over the consecutive members
+        whose columns hold the kv heads a block reads (members /
+        gcd(g, Hkv) of them). Every member computes as much as the others;
+        collectives over part of a group are led by members other than the
+        group's first, which the dry run's call count allows for
+        (``launch.dryrun.program_calls``)."""
         cfg = self.cfg
-        q_ax = self.cuts[(prefix, "attn", "w_q")].axes[1]
-        kv_ax = self.cuts[(prefix, "attn", "w_k")].axes[1]
-        o_ax = self.cuts[(prefix, "attn", "w_o")].axes[0]
+        Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        G = Hq // Hkv
+        B, T = q[self.run[0]].shape[:2]
+        g, gb, gt, dup = self.spread_plan(B, T, queries)
+        parts = self.mesh.shape[self.tp]
+        r, hq = parts // g, Hq // g
+        Bb, Tb = B // gb, T // gt
+        blocks = [grp[i : i + r] for grp in self.tp_groups for i in range(0, len(grp), r)]
+        # the kv heads of q head block hb lie in kv group hb // (g / d): Hkv / d heads
+        d = math.gcd(g, Hkv) if kv_cut else 1
+        n_kv = parts // d
+        kv_groups = [grp[i : i + n_kv] for grp in self.tp_groups for i in range(0, len(grp), n_kv)]
+
+        def gathered(x):  # all-gathered over each kv group as an exchange, which
+            # concatenates on each member's own device: ``all_gather`` does so on
+            # the group's first member, a cost a class trace copies right only
+            # where that member has coordinate 0 (``class_reps``)
+            sent = self.each(lambda p: x[p].unsqueeze(0).expand(n_kv, *x[p].shape))
+            got = self.over(kv_groups, sent, lambda m: coll.all_to_all(m, 0, -1))
+            return self.each(lambda p: got[p][0])
+
+        if kv_cut:
+            k, v = gathered(k), gathered(v)
+
+        def cut(x):  # (B, T, c) -> (gb gt, Bb, Tb, c), batch-major
+            return x.reshape(gb, Bb, gt, Tb, -1).transpose(1, 2).reshape(gb * gt, Bb, Tb, -1)
+
+        def sent(p):  # rows block i for members i dup ... i dup + dup - 1
+            x = cut(q[p])
+            return torch.repeat_interleave(x, dup, 0) if dup > 1 else x
+
+        qs = self.over(blocks, self.each(sent), lambda m: coll.all_to_all(m, 0, -1))
+
+        def own(p):
+            hb, j = divmod(self.member[p], r)
+            bi, ti = divmod(j // dup, gt)
+            first = self.member[p] // n_kv * (Hkv // d)  # the kv group's first kv head
+            kv = [i // G - first for i in range(hb * hq, (hb + 1) * hq)]
+            if hq % G == 0 or G % hq == 0:  # a block of kv heads
+                heads = slice(kv[0], kv[-1] + 1)
+            else:  # its q heads read kv heads unevenly: a kv head a q head
+                heads = torch.tensor(kv, device=self.devices[p])
+            rows = slice(bi * Bb, (bi + 1) * Bb)
+            S = k[p].shape[1]
+            kh = k[p][rows].reshape(Bb, S, Hkv // d, hd)[:, :, heads]
+            vh = v[p][rows].reshape(Bb, S, Hkv // d, hd)[:, :, heads]
+            o = attend(p, qs[p][0].reshape(Bb, Tb, hq, hd), kh, vh, ti * Tb)
+            return o.reshape(Bb, Tb, r, -1).permute(2, 0, 1, 3)
+
+        back = self.over(blocks, self.each(own), lambda m: coll.all_to_all(m, 0, 0))
+
+        def joined(p):  # (r, Bb, Tb, c) -> (B, T, c), one copy a block
+            y = back[p][::dup]
+            return y.reshape(gb, gt, Bb, Tb, -1).transpose(1, 2).reshape(B, T, -1) @ lp[p][key[-1]]["w_o"]
+
+        return self.each(joined)
+
+    def route(self, key: tuple) -> str:
+        """"shard" where the q, kv and ``w_o`` cuts make whole head shards
+        (or there is no cut), "spread" where q and ``w_o`` are cut over the
+        tensor-parallel axis otherwise (``spread``)."""
+        cfg = self.cfg
+        q_ax, kv_ax, o_ax = self.attn_axes(key)
         parts = self.tp_parts(q_ax)
         whole = cfg.n_heads % parts == 0 and cfg.n_kv_heads % parts == 0
         if q_ax == kv_ax == o_ax and whole:
-            local = self.heads_cfg(parts)  # whole heads: attention on the shard
+            return "shard"
+        if q_ax == o_ax == (self.tp,):
+            return "spread"
+        raise NotImplementedError(f"no sharded attention with q, kv and w_o cut over {q_ax}, {kv_ax}, {o_ax}")
+
+    def attention(self, lp: list[dict], h: list, pos: list, prefix: str) -> list:
+        cfg = self.cfg
+        key = (prefix, "attn")
+        q_ax, kv_ax, _ = self.attn_axes(key)
+        if self.route(key) == "shard":
+            local = self.heads_cfg(self.tp_parts(q_ax))  # whole heads: attention on the shard
             out = self.each(lambda p: tf._attn_forward(local, lp[p]["attn"], h[p], pos[p]))
             return self.finish(out, bool(q_ax))
         cols = self.each(lambda p: qkv_columns(lp[p]["attn"], h[p]))
-        cols = [self.each(lambda p, j=j: cols[p][j]) for j in range(3)]
+        q = self.each(lambda p: cols[p][0])
+        k, v = (self.each(lambda p, j=j: cols[p][j]) for j in (1, 2))
+        del cols
+        blockwise = cfg.attention_backend == "softmax" and cfg.attention_impl == "blockwise"
+        scores = getattr(torch, cfg.attn_scores_dtype)
 
-        def group(g):
-            q, k, v = (self.group_columns(xs, g, ax) for xs, ax in zip(cols, (q_ax, kv_ax, kv_ax)))
-            heads = split_heads(
-                q, k, v, cfg.n_heads, cfg.n_kv_heads, cfg.hd, pos[g[0]], cfg.rope_theta
-            )
-            return self.to_members(tf._attn_core(cfg, *heads), g, lp, (prefix, "attn"))
+        def attend(p, qh, kh, vh, t0):
+            b, t, nh, _ = qh.shape
+            qh = apply_rope(qh, pos[p][t0 : t0 + t], cfg.rope_theta)
+            kh = apply_rope(kh, pos[p], cfg.rope_theta)
+            if t == kh.shape[1]:
+                local = dataclasses.replace(cfg, n_heads=nh, n_kv_heads=kh.shape[2], head_dim=cfg.hd)
+                return tf._attn_core(local, qh, kh, vh)
+            o = _gqa_scores_full(qh, kh, vh, causal=True, scores_dtype=scores, offset=t0)
+            return o.reshape(b, t, nh * cfg.hd)
 
-        return self.finish(self.per_group(group), bool(o_ax))
+        return self.finish(self.spread(q, k, v, bool(kv_ax), lp, key, attend, blockwise), True)
 
     def cross(self, lp: list[dict], h: list, ctx: list) -> list:
         """The VLM's cross-attention of each position's rows over its image
         tokens ``ctx``: on head shards where the q and kv cuts hold whole
-        heads, else q, k and v gathered over the group."""
+        heads, else spread over the group (``spread``)."""
         cfg = self.cfg
         key = ("cross_layers", "xattn")
-        q_ax = self.cuts[key + ("w_q",)].axes[1]
-        kv_ax = self.cuts[key + ("w_k",)].axes[1]
-        o_ax = self.cuts[key + ("w_o",)].axes[0]
-        parts = self.tp_parts(q_ax)
-        whole = cfg.n_heads % parts == 0 and cfg.n_kv_heads % parts == 0
-        if q_ax == kv_ax == o_ax and whole:
-            local = self.heads_cfg(parts)
+        q_ax, kv_ax, _ = self.attn_axes(key)
+        if self.route(key) == "shard":
+            local = self.heads_cfg(self.tp_parts(q_ax))
             heads = dict(n_heads=local.n_heads, n_kv=local.n_kv_heads, head_dim=cfg.hd)
             out = self.each(lambda p: cross_attention(lp[p]["xattn"], h[p], ctx[p], **heads))
             return self.finish(out, bool(q_ax))
-        cols = (
-            self.each(lambda p: h[p] @ lp[p]["xattn"]["w_q"]),
-            self.each(lambda p: ctx[p] @ lp[p]["xattn"]["w_k"]),
-            self.each(lambda p: ctx[p] @ lp[p]["xattn"]["w_v"]),
-        )
+        q = self.each(lambda p: h[p] @ lp[p]["xattn"]["w_q"])
+        k, v = (self.each(lambda p, w=w: ctx[p] @ lp[p]["xattn"][w]) for w in ("w_k", "w_v"))
 
-        def group(g):
-            q, k, v = (self.group_columns(xs, g, ax) for xs, ax in zip(cols, (q_ax, kv_ax, kv_ax)))
-            B, T, N = q.shape[0], q.shape[1], k.shape[1]
-            o = _gqa_scores_full(
-                q.reshape(B, T, cfg.n_heads, cfg.hd),
-                k.reshape(B, N, cfg.n_kv_heads, cfg.hd),
-                v.reshape(B, N, cfg.n_kv_heads, cfg.hd),
-                causal=False,
-            ).reshape(B, T, cfg.n_heads * cfg.hd)
-            return self.to_members(o, g, lp, key)
+        def attend(p, qh, kh, vh, t0):
+            b, t, nh, _ = qh.shape
+            return _gqa_scores_full(qh, kh, vh, causal=False).reshape(b, t, nh * cfg.hd)
 
-        return self.finish(self.per_group(group), bool(o_ax))
+        return self.finish(self.spread(q, k, v, bool(kv_ax), lp, key, attend, True), True)
 
     def ffn(self, lp: list[dict], h: list, want_aux: bool, prefix: str = "layers"):
         """(y a position, aux a position or None)."""

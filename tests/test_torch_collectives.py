@@ -18,7 +18,6 @@ from repro_torch.sharding.partitioning import (  # noqa: E402
 )
 
 N = 4
-BLOCKS = [slice(4 * i, 4 * (i + 1)) for i in range(N)]  # of four (2, 4, 3) members along dim 1
 
 
 def _members(shape=(2, 8, 3), dtype=torch.float64, seed=0):
@@ -90,14 +89,13 @@ def test_all_max_and_gather():
         ("all_to_all", lambda xs: coll.all_to_all(xs, 1, 0)),
         ("gather", lambda xs: (coll.gather(xs, 1),)),
         ("sum_in_order", lambda xs: (coll.sum_in_order(xs),)),
-        ("scatter", lambda xs: coll.scatter(coll.gather(xs, 1), 1, BLOCKS, ["cpu"] * N)),
     ],
 )
 def test_gradient_is_the_conjugate(name, fn):
     """The backward of each is the vector-Jacobian product of its forward
     over every member's tensor (all-gather's is reduce-scatter, all-to-all's
-    its inverse, the all-reduce's itself; gather's, sum_in_order's and
-    scatter's copies back to each member, in one node)."""
+    its inverse, the all-reduce's itself; gather's and sum_in_order's
+    copies back to each member, in one node)."""
     xs = [x.requires_grad_(True) for x in _members((2, 4, 3))]
     assert torch.autograd.gradcheck(lambda *a: tuple(fn(list(a))), xs)
 

@@ -9,12 +9,13 @@ the same cell is traced both ways on a (4, 4) mesh of fake devices (4 of
 bytes and matmul flops by dtype (priced from its records), the records
 themselves, the peak, B8/B9 launches and the collective records phase by
 phase; and over the program, every collective call (kind, bytes, group
-size) as each class's leader's calls times its class's size, and the
-host's counts. Reduced configs at one layer:
+size) as the calls each class's representative joins times its class's
+size, a call counted once at each place it spans (``dryrun.
+program_calls``), and the host's counts. Reduced configs at one layer:
 
 * smollm-135m's train step under DEFAULT (FSDP over "data", and 2 kv heads
-  that do not divide model = 4: q, k and v gathered, attention once a
-  group, each member its ``w_o`` rows);
+  that do not divide model = 4: k and v gathered, each member attends
+  with its own q head, each its ``w_o`` rows);
 * its SP prefill (the residual cut along the sequence).
 
 (the optimizer options: ``..._classes_optim.py``; qwen3-moe's EP_DP step:
@@ -64,8 +65,10 @@ def _launches(trace: dict, dev: str) -> collections.Counter:
     )
 
 
-def assert_class_trace_equals_full(name, kind, rules, sizes=(4, 4), axes=AXES, T=16, B=16, ocfg=OCFG):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), n_layers=1)
+def assert_class_trace_equals_full(
+    name, kind, rules, sizes=(4, 4), axes=AXES, T=16, B=16, ocfg=OCFG, changes=None
+):
+    cfg = dataclasses.replace(ARCHS[name].reduced(), n_layers=1, **(changes or {}))
     shape = ShapeConfig("c", T, B, kind)
     rules = choose_rules(cfg, shape, getattr(part, rules))
     ocfg = ocfg if kind == "train" else None
@@ -85,10 +88,7 @@ def assert_class_trace_equals_full(name, kind, rules, sizes=(4, 4), axes=AXES, T
         phases = lambda t, d: {ph: c for (ph, x), c in t["collectives"].items() if x == d}  # noqa: E731
         assert phases(got, mine) == phases(full, want), what
     size = collections.Counter(rep)
-    calls = collections.Counter()
-    for (_, lead), led in got["leads"].items():
-        for call in led:
-            calls[call] += size[devs.index(lead)] if lead in devs else 1
+    calls = dryrun.program_calls([got["collectives"]], lambda d: size[devs.index(d)], 1)
     assert calls == collections.Counter(c for cs in full["calls"].values() for c in cs) and calls
     for host in set(full["counts"]) - set(devs):
         assert price(got["records"], got["counts"][host]) == price(full["records"], full["counts"][host])

@@ -48,11 +48,12 @@ def test_multi_pod_cell_through_the_cli(tmp_path, monkeypatch, capsys):
     rec = json.loads((tmp_path / f"{tag}.json").read_text())
     for key in ("kind", "arch", "shape", "params", "active_params", "seq_len", "global_batch",
                 "mesh", "rules", "n_devices", "memory", "cost", "collectives", "collective_ops",
-                "trace_seconds", "depth_traced", "classes", "total", "kernels", "calls"):
+                "trace_seconds", "depth_traced", "classes", "class_peaks", "total", "kernels", "calls"):
         assert key in rec, key
     assert rec["n_devices"] == 512 and rec["mesh"] == "2x16x16"
     assert len(rec["classes"]) == 8 and sum(rec["classes"].values()) == 512
     assert rec["memory"]["peak_device_bytes"] >= rec["memory"]["argument_bytes"] > 0
+    assert max(rec["class_peaks"].values()) == rec["memory"]["peak_device_bytes"]
     assert rec["cost"]["flops"] > 0 and rec["total"]["flops"] > rec["cost"]["flops"]
     monkeypatch.setattr("sys.argv", ["profile_cell", tag])
     profile_cell.main()

@@ -11,10 +11,10 @@ the layouts these families add: zamba2's packed ``w_in`` and ``conv``
 cut mid-segment (552 -> 276 columns: shard 0 holds all of z and 20
 columns of x), the replicated per-head ``u``, ``A_log``, ``D`` and
 ``dt_bias`` sliced to a head shard, a VLM whose kv heads do not divide the
-model axis (cross-attention on gathered q, k and v; its image cache, of
-as many tokens as the cell's sequence, cut along them as the reference's
-``build_cell`` cuts a KV cache there), the hybrid and VLM caches of the maclaurin backend cut by kv
-heads, and remat.
+model axis (cross-attention spread over the group by batch rows; its
+image cache, of as many tokens as the cell's sequence, cut along them as
+the reference's ``build_cell`` cuts a KV cache there), the hybrid and VLM
+caches of the maclaurin backend cut by kv heads, and remat.
 
 Tolerance, as ``tests/test_torch_sharded_step.py``'s: logits, loss and
 its parts, the gradient norm, the learning rate and the updated
@@ -286,8 +286,8 @@ def test_rwkv6_replicated_bonus_is_sliced_per_head():
 
 def test_vlm_cross_attention_on_gathered_heads():
     """3 q and 3 kv heads at head_dim 8 do not divide the model axis: the
-    self- and cross-attention gather q, k and v (the q columns 24 -> 12
-    cut mid-head). The image cache holds N = T = 16 tokens, so the cell
+    self- and cross-attention are spread over the group by batch rows (the
+    q columns 24 -> 12 cut mid-head, k and v gathered). The image cache holds N = T = 16 tokens, so the cell
     cuts it along them over "model": each member scores its 8 image
     tokens, one combine over the group, no mask."""
     changes = (("n_heads", 3), ("n_kv_heads", 3), ("head_dim", 8))

@@ -232,8 +232,9 @@ def test_decode_matches_one_device(name, rules):
 
 def test_mid_head_shards_train_and_prefill():
     """576 -> 288 q columns at full width is 4.5 heads a shard; here 72 ->
-    36, and 24 kv columns -> 12: q, k and v gathered, attention once a
-    group, remat on (the FSDP gathers rerun in the backward)."""
+    36, and 24 kv columns -> 12: the attention spread over the group by
+    batch rows (q all-to-all'd, k and v gathered), remat on (the FSDP
+    gathers rerun in the backward)."""
     changes = tuple(NARROW.items())
     cell = _train("smollm-135m", "DEFAULT_RULES", changes)
     w_q = spmd.flat(cell.in_shardings[0])[("layers", "attn", "w_q")]

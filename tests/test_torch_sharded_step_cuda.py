@@ -3,16 +3,18 @@
 and MoE models; rwkv6, zamba2, llama-vision and musicgen at a cut depth;
 Adafactor, microbatches and compressed gradients; qwen3-moe and zamba2
 under SP_RULES and EP_DP_RULES, path 13), one full-width arctic-480b
-layer with its experts spread over four cards, and the serving steps'
-logits left on the card of the position that computed them (four cards);
+layer with its experts spread over four cards, the serving steps'
+logits left on the card of the position that computed them (four cards),
+and attention whose heads do not divide "model" spread over every card
+of its group (four cards);
 and a sharded prefill that leaves no tensor to Python's cycle collector
 (one card's 2 x 2 slots).
 
 Marked ``cuda``; each test skips inside its body unless the cards it needs
-are present (two; four for arctic and the logits' cards; one for the
-cycle check, whose mesh repeats it; one card repeated as the mesh's slots
-is otherwise driven by ``chip_smoke.py``'s path 11). On a machine with
-them:
+are present (two; four for arctic, the logits' cards and the spread
+attention; one for the cycle check, whose mesh repeats it; one card
+repeated as the mesh's slots is otherwise driven by ``chip_smoke.py``'s
+path 11). On a machine with them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_sharded_step_cuda.py
 
@@ -33,6 +35,7 @@ the cell's bf16) fits no one card, so its prefill is held against the
 same prefill on the CPU, blockwise.
 """
 
+import collections
 import copy
 import dataclasses
 import math
@@ -124,9 +127,8 @@ def test_prefill_and_decode_across_cards(name):
     cell = build_cell(cfg, ShapeConfig("prefill", 1024, 2, "prefill"), mesh, params=params)
     build.reset_counts()
     got = cell.step_fn(cell.args[0], tokens).gather()
-    ways = mesh.shape["model"]
-    whole = cfg.n_heads % ways == 0 and cfg.n_kv_heads % ways == 0  # else once a group
-    assert build.counts()["flash_attention"] == (mesh.size if whole else mesh.size // ways) * layers
+    # on every position, whether on a head shard or spread over its group
+    assert build.counts()["flash_attention"] == mesh.size * layers
     _logits_close(got, ds.make_prefill_step(cfg)(params, tokens), share)
     del cell, got
     cell = build_cell(cfg, ShapeConfig("decode", 32, 2, "decode"), mesh, params=params)
@@ -170,6 +172,32 @@ def test_prefill_leaves_no_cycle_on_the_card():
         gc.garbage.clear()
         gc.enable()
     assert not found, found
+
+
+def test_spread_attention_on_every_card():
+    """smollm-135m's 9 q heads over model = 4 on a 1 x 4 mesh of distinct
+    cards (``spmd.Lockstep.spread``: each card attends with every head of
+    its batch row): a flash prefill launches B9 on every card once a
+    layer, and its logits agree with the one-device prefill's within REL
+    of max|logit|."""
+    from repro_torch.launch.op_cost import CostRecorder
+
+    cards = _cards(4)[:4]
+    mesh = make_mesh((1, 4), ("data", "model"), devices=cards)
+    cfg = _cfg("smollm-135m", 4, attention_impl="flash")
+    params = _bf16_weights(tf.init_params(cfg, seed=0, device=cards[0]))
+    gen = torch.Generator(device=cards[0]).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), generator=gen, device=cards[0], dtype=torch.int32)
+    cell = build_cell(cfg, ShapeConfig("prefill", 1024, 4, "prefill"), mesh, params=params)
+    with CostRecorder() as rec:
+        got = cell.step_fn(cell.args[0], tokens)
+    launched = collections.Counter()
+    for dev, counts in rec.counts.items():
+        for i, c in counts.items():
+            if rec.records[i][0] == "flash_attention":
+                launched[dev] += c
+    assert launched == {str(card): cfg.n_layers for card in cards}
+    _logits_close(got.gather(), ds.make_prefill_step(cfg)(params, tokens))
 
 
 def test_logits_stay_on_their_cards():
