@@ -646,6 +646,7 @@ DRY_CLASS = ("qwen3-moe class-traced DEFAULT train", "qwen3-moe-30b-a3b", 1, dic
 DRY_F11 = ("smollm maclaurin TP_ONLY decode", 30, dict(dtype="float32", **MACLAURIN), "TP_ONLY_RULES",
            ("path14_decode", 64, 2, "decode"), 4)  # ..., greedy steps
 DRY_PEAK_REL = 0.15
+DRY_LEVEL = 0.01  # the most a position's predicted peak may lie above another's in a dry_slots cell
 DRY_TIMED = 3
 DRY_CELLS = (  # (arch, shape, on 2 x 16 x 16), traced in this order
     (LM_NAME, "train_4k", False),
@@ -5793,7 +5794,7 @@ def dry_against_card(dev, label, cfg, shape, mesh, rules, ocfg, beside=None) -> 
     what = f"path 14 {label}"
     fields = dict(cell=label, model=cfg.name, layers=cfg.n_layers, shape=[shape.global_batch, shape.seq_len],
                   kind=shape.kind, rules=pred["rule_set"], dry_run_s=dry_s, trace_s=pred["trace_seconds"],
-                  mesh=list(mesh.sizes), classes=pred["classes"])
+                  mesh=list(mesh.sizes), classes=pred["classes"], class_peaks=pred["class_peaks"])
     fields.update(flops=[pred["total"]["flops"], got["total"]["flops"]],
                   matmul_flops=[pred["total"]["matmul_flops"], got["total"]["matmul_flops"]],
                   launches=[pred["kernels"], launched], calls=[len(pred["calls"]), len(got["calls"])])
@@ -5927,6 +5928,9 @@ def fourteenth_path(dev) -> tuple[list, dict]:
                 want = {k: attention_applications(cfg) * mesh.size for k in row["launches"][1]}
                 check(row["launches"][1] == want, f"path 14 {label}: launches {row['launches'][1]}, not {want}")
                 row["spread"] = dict(heads=cfg.n_heads, model_ways=ways, launches_a_member=attention_applications(cfg))
+            peaks = list(row["class_peaks"].values())  # every position does the same work
+            row["class_peak_spread"] = max(peaks) / min(peaks) - 1
+            check(row["class_peak_spread"] <= DRY_LEVEL, f"path 14 {label}: positions peak at {peaks}")
             phase("dry_slots", card=card, **row)
             seconds[label] = time.perf_counter() - t0
         t0 = time.perf_counter()

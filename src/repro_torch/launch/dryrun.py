@@ -16,12 +16,13 @@ launch ops' shape rules (``kernels.build.card_stand_in``).
 
 One position of each class is traced (``sharding.spmd.class_reps``): a
 position's counts depend only on which groups it leads, since every
-reduction is summed on a group's first member, so its class is the set of
-mesh axes on which its coordinate is 0 (4 classes on 16 x 16, 8 on
-2 x 16 x 16), and the positions at coordinates 0 or 1 on every axis stand
-for them. The program runs those positions only; each other member of a
-group they join takes a stand-in of its representative's shape on its own
-device (``collectives.stand_in``), made where nothing counts it, and each
+member of a collective does alike but for the scalars summed on a
+group's first member, so its class is the set of mesh axes on which its
+coordinate is 0 (4 classes on 16 x 16, 8 on 2 x 16 x 16), and the
+positions at coordinates 0 or 1 on every axis stand for them. The
+program runs those positions only; each other member of a group they
+join takes a stand-in of its representative's shape on its own device
+(``collectives.stand_in``), made where nothing counts it, and each
 collective runs over every member, so a traced position records exactly
 what it would in a full trace. (The attention of heads that do not
 divide "model" runs over blocks of a group, ``spmd.Lockstep.spread``,
@@ -49,8 +50,8 @@ Per cell, ``results/dryrun_torch/<arch>__<shape>__<mesh>[__...].json``
 ``mesh``, ``rules``, ``n_devices``, ``memory`` (argument, output, temp,
 alias and peak bytes), ``cost`` (flops and bytes accessed, and matmul
 flops by dtype), ``collectives`` and ``collective_ops``, for the mesh
-position with the largest peak (``position``: the positions differ, as a
-reduction is summed on a group's first member), with ``trace_seconds`` in
+position with the largest peak (``position``: the positions may differ,
+as a scalar is summed on a group's first member), with ``trace_seconds`` in
 place of ``compile_seconds``, ``depth_traced``: the periods traced, and
 ``classes``: each traced position and the positions its counts stand
 for, ``class_peaks`` each one's peak bytes. ``total`` sums the cost over

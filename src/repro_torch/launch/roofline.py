@@ -20,12 +20,14 @@ the 16 x 16 and the 2 x 16 x 16 meshes:
                       products (495 / 3 TFLOP/s, as the kernels' own
                       bounds count it) + the other flops at the f32 peak
     memory term     = bytes accessed / 3.35 TB/s
-    collective term = the port's route (``route_wire_bytes``: the first
-                      member of a group receives and sends (g - 1) results)
-                      over NVLink, 450 GB/s a direction, where a group's
-                      members lie in one node of ``NODE_GPUS`` consecutive
-                      device indices, else over the network between nodes,
-                      50 GB/s a card (NDR 400 Gb/s)
+    collective term = the port's route (``route_bytes``: spread over the
+                      members, what a member receives from the other
+                      devices, the ring's multipliers where each member
+                      is a device of its own) over NVLink, 450 GB/s a
+                      direction, where a group's members lie in one node
+                      of ``NODE_GPUS`` consecutive device indices, else
+                      over the network between nodes, 50 GB/s a card
+                      (NDR 400 Gb/s)
 
 beside the reference's ring multipliers (``wire_bytes``, a copy) at the
 same links: what an NCCL route would move. MODEL flops are the classic 6 N
@@ -180,20 +182,25 @@ def wire_bytes(collective_ops: list[dict], default_group: int = 16) -> float:
 
 
 def route_bytes(op: dict) -> float:
-    """Bytes over the busiest link of one op (all its calls) on the port's
-    route (``sharding.collectives``), from its result bytes b a member and
-    the s distinct devices of its g members: a reduction, a max or an
-    all-gather moves (s - 1) results through the first member each way;
-    a reduce-scatter receives s - 1 whole inputs (g b each) there; an
-    all-to-all or a gather moves each member's g-th part directly."""
+    """Bytes a member receives over its links in one op (all its calls) on
+    the port's route (``sharding.collectives``), from its result bytes b a
+    member and the s distinct devices of its g members (g / s on each):
+    what comes from the other devices' members. Spread over the members,
+    an all-reduce or a max takes (s - 1) / s of a result twice (its chunk
+    from each, then every chunk from its owner), an all-gather or an
+    all-to-all once, a reduce-scatter its chunk of each of those members'
+    g (s - 1) / s inputs; on devices of their own (s = g), ``wire_bytes``'
+    ring multipliers. A "reduce" (scalars summed on the first member)
+    brings it those members' wholes, a "gather" their parts."""
     b = op.get("total_bytes", op["bytes"] * op.get("count", 1))
     g = op.get("group_size") or 1
     s = op.get("span", g)
-    if op["kind"] == "reduce-scatter":
-        return (s - 1) * g * b
-    if op["kind"] in ("all-to-all", "gather"):
-        return (s - 1) / g * b
-    return (s - 1) * b
+    away = (s - 1) / s  # the share of the members on other devices
+    if op["kind"] in ("all-reduce", "all-max"):
+        return 2 * away * b
+    if op["kind"] in ("reduce-scatter", "reduce"):
+        return away * g * b
+    return away * b
 
 
 def route_wire_bytes(collective_ops: list[dict]) -> float:

@@ -5,12 +5,23 @@ the port's single-controller mesh (``launch.mesh``): every function takes
 one tensor a member of a group, in the group's order (``partitioning.
 axis_groups``), each on its member's device, and returns one a member.
 
-Every reduction adds the members' tensors once, on the first member's
-device, in the group's order, and copies the result to each member, so
-that replicas come out bit for bit equal. Nothing goes through NCCL: it
-refuses a communicator in which one card appears twice, which a mesh of
-slots of one card is, and ``torch.cuda.nccl`` has no all-to-all. One
-route for every placement keeps the CPU and the card on the same code.
+Every reduction is spread over the members, as GSPMD's collectives are:
+member j owns chunk j of the result (the first dim that the members cut
+evenly), receives chunk j of every member's tensor and adds the chunks on
+its own device, in the group's order (a reduce-scatter is that step
+alone); an all-reduce then copies every chunk from its owner straight into
+each member's result, and an all-gather copies every member's tensor into
+each member's result. So every member sends, receives and adds the same
+share, every element is added in the group's order and replicas come out
+bit for bit equal. A tensor that no dim splits evenly (the loss and norm
+scalars) is still added on the first member and copied to each. A class
+trace (``spmd.Lockstep``'s ``run``) makes a stand-in of a chunk or a
+result whose member it does not run, and only the copies that members it
+runs send or receive: a member it runs does O(g) operations a collective.
+Nothing goes through NCCL: it refuses a communicator in which one card
+appears twice, which a mesh of slots of one card is, and
+``torch.cuda.nccl`` has no all-to-all. One route for every placement
+keeps the CPU and the card on the same code.
 
 Each collective with a gradient is an ``autograd.Function`` whose backward
 is its forward's conjugate (the exact vector-Jacobian product of the
@@ -29,10 +40,11 @@ copies and a concatenation, which autograd differentiates itself.
 hear of each collective of two members or more once, backward ones
 included, under the reference's kinds ("all-reduce", "all-gather",
 "reduce-scatter", "all-to-all") or their own ("gather", "all-max", and
-"reduce" for a ``sum_in_order`` that no other collective called): the
-kind, the members' devices and the bytes of each member's result (the
-gathered whole on the first member for "gather" and "reduce"), as the
-reference's HLO gives a collective's result shape.
+"reduce" for a ``sum_in_order`` that no other collective called, a sum
+of scalars on the first member): the kind, the members' devices and the
+bytes of each member's result (the gathered whole on the first member for
+"gather" and "reduce"), as the reference's HLO gives a collective's
+result shape.
 """
 
 from __future__ import annotations
@@ -124,54 +136,119 @@ def _copies(x, devices):
     return tuple(x.to(d, copy=True) for d in devices)
 
 
-def _split(x, sizes, dim, devices):
-    chunks = torch.split(x, sizes, dim)
-    return tuple(c.to(d, copy=True) for c, d in zip(chunks, devices))
+def _even_dim(shape, n: int):
+    """The first dim of ``shape`` that ``n`` members cut into equal chunks,
+    None where none does (the first-member route)."""
+    return next((d for d, size in enumerate(shape) if size and size % n == 0), None)
+
+
+def _reduced(xs, where: list, dim: int, sizes: list, combine) -> list:
+    """Member j's chunk j (``sizes`` along ``dim``) of every member's
+    tensor, combined in the group's order on member j's device: one a
+    member. Where member j is a stand-in (``where``: ``places``; a class
+    trace does not run it), its chunk is a stand-in too, and only the
+    chunks that members that run send it are copied."""
+    live = [i for i, (_, position) in enumerate(where) if position is None]
+    mine = {i: torch.split(xs[i], sizes, dim) for i in live}
+
+    def chunk(i: int, j: int):
+        return mine[i][j] if i in mine else xs[i].narrow(dim, sum(sizes[:j]), sizes[j])
+
+    out = []
+    for j, (device, position) in enumerate(where):
+        if position is None:
+            total = chunk(0, j).to(device)
+            for i in range(1, len(xs)):
+                total = combine(total, chunk(i, j).to(device))
+        else:
+            for i in live:
+                mine[i][j].to(device)
+            shape = list(xs[j].shape)
+            shape[dim] = sizes[j]
+            total = stand_in((shape, xs[j].dtype), device, position)
+        out.append(total)
+    return out
+
+
+def _assembled(parts, where: list, dim: int) -> tuple:
+    """The members' ``parts`` concatenated along ``dim`` on each member's
+    device (``where``: ``places``), each part copied from its owner into
+    its place. Where member i is a stand-in, a stand-in, and only the parts
+    of members that run are copied to it."""
+    sizes = [p.shape[dim] for p in parts]
+    shape = list(parts[0].shape)
+    shape[dim] = sum(sizes)
+    live = [j for j, (_, position) in enumerate(where) if position is None]
+    out = []
+    for device, position in where:
+        if position is None:
+            whole = torch.empty(shape, dtype=parts[0].dtype, device=device)
+            for place, part in zip(torch.split(whole, sizes, dim), parts):
+                place.copy_(part)
+        else:
+            for j in live:
+                parts[j].to(device)
+            whole = stand_in((shape, parts[0].dtype), device, position)
+        out.append(whole)
+    return tuple(out)
+
+
+def _combined(xs, where: list, combine) -> tuple:
+    """The members' tensors combined elementwise in the group's order, on
+    every member: chunk j combined on member j, then every chunk copied
+    from its owner (the first member's sum, copied, where no dim splits
+    evenly)."""
+    dim = _even_dim(xs[0].shape, len(xs))
+    if dim is None:
+        top = xs[0]
+        for x in xs[1:]:
+            top = combine(top, x.to(top.device))
+        return _copies(top, [d for d, _ in where])
+    sizes = [xs[0].shape[dim] // len(xs)] * len(xs)
+    return _assembled(_reduced(xs, where, dim, sizes, combine), where, dim)
 
 
 class _AllReduce(Function):
     @staticmethod
     def forward(ctx, *xs):
-        ctx.devices, ctx.places = [x.device for x in xs], places(xs)
+        ctx.places = places(xs)
         with _noted("all-reduce", ctx.places, _nbytes(xs[0])):
-            return _copies(sum_in_order(xs), ctx.devices)
+            return _combined(xs, ctx.places, torch.add)
 
     @staticmethod
     def backward(ctx, *grads):
         with _noted("all-reduce", ctx.places, _nbytes(grads[0])):
-            return _copies(sum_in_order(grads), ctx.devices)
+            return _combined(grads, ctx.places, torch.add)
 
 
 class _AllGather(Function):
     @staticmethod
     def forward(ctx, dim, *xs):
-        ctx.dim, ctx.devices, ctx.places = dim, [x.device for x in xs], places(xs)
+        ctx.dim, ctx.places = dim, places(xs)
         ctx.sizes = [x.shape[dim] for x in xs]
         with _noted("all-gather", ctx.places, sum(_nbytes(x) for x in xs)):
-            whole = torch.cat([x.to(xs[0].device) for x in xs], dim)
-            return _copies(whole, ctx.devices)
+            return _assembled(xs, ctx.places, dim)
 
     @staticmethod
     def backward(ctx, *grads):
         with _noted("reduce-scatter", ctx.places, _nbytes(grads[0]) // len(grads)):
-            return (None, *_split(sum_in_order(grads), ctx.sizes, ctx.dim, ctx.devices))
+            return (None, *_reduced(grads, ctx.places, ctx.dim, ctx.sizes, torch.add))
 
 
 class _ReduceScatter(Function):
     @staticmethod
     def forward(ctx, dim, *xs):
-        ctx.dim, ctx.devices, ctx.places = dim, [x.device for x in xs], places(xs)
+        ctx.dim, ctx.places = dim, places(xs)
         n, size = len(xs), xs[0].shape[dim]
         if size % n:
             raise ValueError(f"reduce_scatter: dim {dim} of {size} does not split {n}")
         with _noted("reduce-scatter", ctx.places, _nbytes(xs[0]) // n):
-            return _split(sum_in_order(xs), [size // n] * n, dim, ctx.devices)
+            return tuple(_reduced(xs, ctx.places, dim, [size // n] * n, torch.add))
 
     @staticmethod
     def backward(ctx, *grads):
         with _noted("all-gather", ctx.places, sum(_nbytes(g) for g in grads)):
-            whole = torch.cat([g.to(grads[0].device) for g in grads], ctx.dim)
-            return (None, *_copies(whole, ctx.devices))
+            return (None, *_assembled(grads, ctx.places, ctx.dim))
 
 
 def _exchange(xs, split_dim, concat_dim):
@@ -244,12 +321,10 @@ def all_to_all(xs: list[torch.Tensor], split_dim: int, concat_dim: int) -> list:
 @torch.no_grad()
 def all_max(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The elementwise max of the members' tensors, on every member (no
-    gradient)."""
-    with _noted("all-max", places(xs), _nbytes(xs[0])):
-        top = xs[0]
-        for x in xs[1:]:
-            top = torch.maximum(top, x.to(top.device))
-        return list(_copies(top, [x.device for x in xs]))
+    gradient): ``all_reduce``'s route with a max for the add."""
+    where = places(xs)
+    with _noted("all-max", where, _nbytes(xs[0])):
+        return list(_combined(xs, where, torch.maximum))
 
 
 def gather(xs: list[torch.Tensor], dim: int) -> torch.Tensor:

@@ -281,12 +281,14 @@ def remat_lockstep(fn, *args):
 
 def class_reps(sizes: tuple[int, ...]) -> list[int]:
     """Each position's class representative on a mesh of ``sizes``
-    (row-major). A position's counts depend only on the groups it leads (a
-    reduction is summed on a group's first member, which has coordinate 0
-    on the group's axes; every other step, the blocks of ``spread``'s
-    all-to-alls among them, costs each member alike), so its class is the
-    set of axes on which its coordinate is 0; the representative has
-    coordinate 0 there and 1 on the other axes."""
+    (row-major). A position's counts depend only on the groups it leads
+    (every member of a collective sends, receives and adds alike, but a
+    tensor that no dim splits evenly, such as the loss and norm scalars, is
+    summed on a group's first member, which has coordinate 0 on the
+    group's axes; a microbatch's rows, copied to a position from the one
+    that holds them or within it, cost each position the same bytes), so
+    its class is the set of axes on which its coordinate is 0; the
+    representative has coordinate 0 there and 1 on the other axes."""
     coords = np.indices(sizes).reshape(len(sizes), -1)
     return [int(p) for p in np.ravel_multi_index(np.minimum(coords, 1), sizes)]
 
@@ -632,16 +634,8 @@ class Lockstep:
         n_kv = parts // d
         kv_groups = [grp[i : i + n_kv] for grp in self.tp_groups for i in range(0, len(grp), n_kv)]
 
-        def gathered(x):  # all-gathered over each kv group as an exchange, which
-            # concatenates on each member's own device: ``all_gather`` does so on
-            # the group's first member, a cost a class trace copies right only
-            # where that member has coordinate 0 (``class_reps``)
-            sent = self.each(lambda p: x[p].unsqueeze(0).expand(n_kv, *x[p].shape))
-            got = self.over(kv_groups, sent, lambda m: coll.all_to_all(m, 0, -1))
-            return self.each(lambda p: got[p][0])
-
-        if kv_cut:
-            k, v = gathered(k), gathered(v)
+        if kv_cut:  # k and v all-gathered over each kv group
+            k, v = (self.over(kv_groups, x, lambda m: coll.all_gather(m, -1)) for x in (k, v))
 
         def cut(x):  # (B, T, c) -> (gb gt, Bb, Tb, c), batch-major
             return x.reshape(gb, Bb, gt, Tb, -1).transpose(1, 2).reshape(gb * gt, Bb, Tb, -1)

@@ -1,14 +1,20 @@
 """``sharding.collectives`` on four CPU slots: each collective against
 ``torch.cat`` and sums, its replicas bit for bit equal, and its gradient
-against the numerical Jacobian (``torch.autograd.gradcheck``, f64); then
-``partitioning.axis_groups`` and ``Sharded.replica_groups``, which name the
-groups the sharded steps run them over."""
+against the numerical Jacobian (``torch.autograd.gradcheck``, f64); on four
+fake devices under the cost recorder, every member of a reduction sends,
+receives and adds the same share (a tensor no dim of which splits evenly
+summed on the first member); then ``partitioning.axis_groups`` and
+``Sharded.replica_groups``, which name the groups the sharded steps run
+them over."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
+
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.op_cost import COPY_IN, COPY_OUT, CostRecorder, cost  # noqa: E402
 from repro_torch.sharding import collectives as coll  # noqa: E402
 from repro_torch.sharding.partitioning import (  # noqa: E402
     NamedSharding,
@@ -98,6 +104,54 @@ def test_gradient_is_the_conjugate(name, fn):
     copies back to each member, in one node)."""
     xs = [x.requires_grad_(True) for x in _members((2, 4, 3))]
     assert torch.autograd.gradcheck(lambda *a: tuple(fn(list(a))), xs)
+
+
+def _moved(rec, dev: str) -> tuple[float, float, float]:
+    """(bytes in, bytes out, flops) of what ``dev`` did under ``rec``:
+    its copies from and to other devices, and its adds."""
+    moved = {COPY_IN: 0.0, COPY_OUT: 0.0}
+    flops = 0.0
+    for i, n in rec.counts[dev].items():
+        rec_flops, _, nbytes = cost(rec.records[i])
+        name = rec.records[i][0]
+        if name in moved:
+            moved[name] += n * nbytes
+        flops += n * rec_flops
+    return moved[COPY_IN], moved[COPY_OUT], flops
+
+
+@pytest.mark.parametrize(
+    "name, fn, moved, flops",
+    [  # each member's tensor 8 x 32 f32 (1 KiB); g = 4
+        ("all_reduce", lambda xs: coll.all_reduce(xs), 2 * 3 / 4 * 1024, 3 * 64),
+        ("all_max", lambda xs: coll.all_max(xs), 2 * 3 / 4 * 1024, 3 * 64),
+        ("all_gather", lambda xs: coll.all_gather(xs, 1), 3 / 4 * 4096, 0),
+        ("reduce_scatter", lambda xs: coll.reduce_scatter(xs, 1), 3 / 4 * 1024, 3 * 64),
+    ],
+)
+def test_every_member_moves_the_same_share(name, fn, moved, flops):
+    """Each member receives and sends (g - 1) / g of a result (of the whole
+    sum for a reduce-scatter), twice for an all-reduce or a max, and adds
+    its chunk of the other members' tensors: the same at every member."""
+    with FakeTensorMode():
+        xs = [torch.ones(8, 32, device=f"meta:{i}") for i in range(N)]
+        with CostRecorder() as rec:
+            out = fn(xs)
+    assert [o.device for o in out] == [x.device for x in xs]
+    for i in range(N):
+        assert _moved(rec, f"meta:{i}") == (moved, moved, flops), (name, i)
+
+
+def test_a_tensor_that_splits_unevenly_sums_on_the_first_member():
+    """No dim of a (3,) tensor splits over four members: the first member
+    adds the other three and copies the sum back (the loss and norm
+    scalars take this route)."""
+    with FakeTensorMode():
+        xs = [torch.ones(3, device=f"meta:{i}") for i in range(N)]
+        with CostRecorder() as rec:
+            coll.all_reduce(xs)
+    assert _moved(rec, "meta:0") == (3 * 12, 3 * 12, 3 * 3)
+    assert all(_moved(rec, f"meta:{i}") == (12, 12, 0) for i in (1, 2, 3))
 
 
 def test_groups_follow_the_block_order():

@@ -206,7 +206,9 @@ def test_live_and_peak_bytes():
 def test_copy_across_devices_and_collectives():
     """A copy between two fake devices: read at its source and written at
     its destination, no flops; an all-reduce over them: one call, recorded
-    at both members, its copies and adds counted at theirs."""
+    at both members, its copies and adds counted at theirs, half each: a
+    member adds its half (32 flops), sends and receives a half twice (4 x
+    128 B) and copies its own half into its result (2 x 128 B)."""
     with FakeTensorMode():
         x = torch.ones(64, device="meta:0")
         y = torch.ones(64, device="meta:9")
@@ -214,7 +216,8 @@ def test_copy_across_devices_and_collectives():
             z = x.to("meta:9", copy=True)
             out = coll.all_reduce([x, y])
     assert z.device == torch.device("meta", 9) and len(out) == 2
-    assert rec.totals("meta:0")["bytes_accessed"] >= 256 and rec.totals("meta:9")["flops"] == 0
+    mine = {"flops": 32.0, "matmul_flops": {}, "bytes_accessed": 256.0 + 6 * 128}
+    assert rec.totals("meta:0") == rec.totals("meta:9") == mine
     assert rec.calls == {0: [("all-reduce", 256, 2)]}
     key = ("all-reduce", 256, 2, 2, 2)  # two devices, on two nodes of eight
     assert rec.collectives == {(0, "meta:0"): [key], (0, "meta:9"): [key]}
@@ -333,18 +336,29 @@ def test_wire_bytes_and_model_flops_equal_reference():
 
 
 def test_route_and_compute_terms():
-    """The port's route: (s - 1) results through the first member; a
-    reduce-scatter's s - 1 whole inputs; an all-to-all's g-th parts. Matmul
-    flops at their dtype's peak, the kernels' f32 work at the 3xTF32 rate,
-    the rest at the f32 peak."""
+    """The port's route, spread over the members: what a member receives
+    from the other s - 1 devices' members, (s - 1) / s of a result, twice
+    for an all-reduce, g results' worth for a reduce-scatter; on its own
+    device (s = g) the reference's ring multipliers; the first-member sums
+    of scalars (a "reduce") as many wholes. Matmul flops at their dtype's
+    peak, the kernels' f32 work at the 3xTF32 rate, the rest at the f32
+    peak."""
     op = {"kind": "all-reduce", "bytes": 100, "group_size": 4, "span": 4, "count": 2}
-    assert roofline.route_bytes(op) == 3 * 200
-    assert roofline.route_bytes({**op, "kind": "reduce-scatter"}) == 3 * 4 * 200
+    assert roofline.route_bytes(op) == 2 * 3 / 4 * 200
+    assert roofline.route_bytes({**op, "kind": "all-max"}) == 2 * 3 / 4 * 200
+    assert roofline.route_bytes({**op, "kind": "all-gather"}) == 3 / 4 * 200
+    assert roofline.route_bytes({**op, "kind": "reduce-scatter"}) == 3 * 200
     assert roofline.route_bytes({**op, "kind": "all-to-all"}) == 3 / 4 * 200
+    assert roofline.route_bytes({**op, "kind": "reduce"}) == 3 * 200
     assert roofline.route_bytes({**op, "span": 1}) == 0  # slots of one device
+    assert roofline.route_bytes({**op, "span": 2}) == 2 * 1 / 2 * 200  # two members a device
+    for kind in ("all-reduce", "all-gather", "reduce-scatter", "all-to-all"):
+        for g in (2, 4, 16):
+            ring = {**op, "kind": kind, "group_size": g, "span": g}
+            assert roofline.route_bytes(ring) == pytest.approx(roofline.wire_bytes([ring]), rel=1e-12), (kind, g)
     near, far = {**op, "nodes": 1}, {**op, "nodes": 2}
-    assert roofline.link_seconds([near]) == 600 / roofline.NVLINK_BW
-    assert roofline.link_seconds([far]) == 600 / roofline.NODE_LINK_BW
+    assert roofline.link_seconds([near]) == 300 / roofline.NVLINK_BW
+    assert roofline.link_seconds([far]) == 300 / roofline.NODE_LINK_BW
     mm = {"torch.bfloat16": 1e12, "torch.float32": 1e12, F32_PRODUCTS: 1e12}
     cost = {"flops": 4e12, "matmul_flops": mm}
     want = 1e12 / roofline.PEAK_BF16 + 1e12 / roofline.PEAK_F32_3XTF32 + 2e12 / roofline.PEAK_F32

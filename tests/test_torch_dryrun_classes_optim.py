@@ -1,11 +1,13 @@
 """The class trace against the full trace (``test_torch_dryrun_classes.py``)
 for smollm-135m's train step under DEFAULT with the optimizer options on a
-(2, 4) mesh of fake devices, 4 of 8 positions run: Adafactor (each block's
-row and column sums copied to the first position and added there, the
-whole ``vr``/``vc`` written back to every position), ``compress_grads``
-(the scale a max over every block) and two microbatches. A block whose
-first position is not run is a stand-in there, and only its copies to and
-from the first position run.
+(2, 4) mesh of fake devices, 4 of 8 positions run: Adafactor (each
+position's row and column sums all-reduced along the axes that cut the
+dims they sum over, each position's own blocks of ``vr``/``vc`` written in
+place), ``compress_grads`` (the scale a max over every block, all-maxed
+along the axes that cut the leaf) and two microbatches (each position's
+rows copied from the positions that hold them). A chunk of a collective
+whose owner is not run is a stand-in there, and only the copies to and
+from positions that run are made.
 """
 
 import dataclasses

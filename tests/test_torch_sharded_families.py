@@ -132,12 +132,14 @@ def _batch(tokens, labels, images):
 
 
 def train_against_one_device(
-    name, rules, ocfg=OCFG, changes=(), batch=B, seq=T, steps=(3,), mesh=None
+    name, rules, ocfg=OCFG, changes=(), batch=B, seq=T, steps=(3,), mesh=None, place_batch=False
 ):
     """A train cell's steps from the state one one-device step (at step 2)
     leaves, against the one-device steps from the same state: metrics,
     parameters and every optimizer-state leaf at RTOL/ATOL, replicas
-    bit-equal, layouts kept. Returns (the cell, the last metrics)."""
+    bit-equal, layouts kept; the batch whole, or placed by the cell's
+    batch sharding (``place_batch``). Returns (the cell, the last
+    metrics)."""
     cfg, params, tokens, labels, images = _setup(name, changes, batch, seq)
     data = _batch(tokens, labels, images)
     start = copy.deepcopy(params)
@@ -150,8 +152,9 @@ def train_against_one_device(
     placed = device_put(start.tree(lambda p: p.detach()), cell.in_shardings[0])
     placed_state = device_put(state, cell.in_shardings[1])
     want_p, want_state = start, _copy_state(state)
+    given = device_put(data, cell.in_shardings[2]) if place_batch else data
     for s in steps:
-        placed, placed_state, got = cell.step_fn(placed, placed_state, data, s)
+        placed, placed_state, got = cell.step_fn(placed, placed_state, given, s)
         want_p, want_state, want = step(want_p, want_state, data, s)
     assert set(got) == set(want) == {"xent", "aux", "loss", "grad_norm", "lr"}
     for key in want:

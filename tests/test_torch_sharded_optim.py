@@ -16,10 +16,11 @@ kept):
     "data", ``ffn`` over "model", the "embed" dim over "data"), and a
     stacked (L, d) leaf is factored across its layers, as the reference's
     is; ``vr``/``vc`` placed by the reference's ``_opt_spec_tree``;
-  * two microbatches on qwen3-moe under EP_DATA and smollm-135m under
-    DP_ONLY; a microbatch is the global rows [i GB/n, (i+1) GB/n), whose
-    MoE aux loss differs from that of each data shard's local rows split
-    in two;
+  * two microbatches on qwen3-moe under EP_DATA, smollm-135m under
+    DP_ONLY and llama-vision (with its image embeddings, the batch placed)
+    under DEFAULT; a microbatch is the global rows [i GB/n, (i+1) GB/n),
+    whose MoE aux loss differs from that of each data shard's local rows
+    split in two;
   * compressed gradients, two steps so that the error feedback carries
     over, under DEFAULT: the per-tensor scale is the whole leaf's, and an
     element whose code flips at a rounding tie is allowed only there.
@@ -94,11 +95,18 @@ def test_adafactor_matches_one_device(name, rules):
 
 
 @pytest.mark.parametrize(
-    "name, rules, batch",
-    [("qwen3-moe-30b-a3b", "EP_DATA_RULES", 4), ("smollm-135m", "DP_ONLY_RULES", 8)],
+    "name, rules, batch, placed",
+    [
+        ("qwen3-moe-30b-a3b", "EP_DATA_RULES", 4, False),
+        ("smollm-135m", "DP_ONLY_RULES", 8, False),
+        ("llama-3.2-vision-90b", "DEFAULT_RULES", 4, True),
+    ],
 )
-def test_microbatches_match_one_device(name, rules, batch):
-    train_against_one_device(name, rules, MICRO, batch=batch)
+def test_microbatches_match_one_device(name, rules, batch, placed):
+    """The VLM's batch (with its image embeddings) comes placed by the
+    batch sharding: each position's rows of a microbatch are copied from
+    the positions that hold them."""
+    train_against_one_device(name, rules, MICRO, batch=batch, place_batch=placed)
 
 
 def test_microbatch_is_global_rows_not_each_shards():

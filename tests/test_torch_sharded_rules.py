@@ -83,11 +83,20 @@ def test_decode_matches_one_device(name, rules):
 def record(monkeypatch):
     """Every collective a step calls: (name, its other arguments, the
     first member's shape, the groups of the ``Lockstep.over`` call it runs
-    under or None), one entry a group; and each dense block's input
-    residual shapes, one a position."""
+    under or None, whether the forward pass called it), one entry a group;
+    and each dense block's input residual shapes, one a position."""
     log = {"calls": [], "residual": []}
     groups = []
+    inside = []
     over = spmd.Lockstep.over
+    forward = spmd.Lockstep.forward
+
+    def forward_(self, *args):
+        inside.append(True)
+        try:
+            return forward(self, *args)
+        finally:
+            inside.pop()
 
     def over_(self, groups_, xs, fn):
         groups.append(groups_)
@@ -98,7 +107,7 @@ def record(monkeypatch):
 
     def spy(name, real):
         def call(xs, *args):
-            log["calls"].append((name, args, tuple(xs[0].shape), groups[-1] if groups else None))
+            log["calls"].append((name, args, tuple(xs[0].shape), groups[-1] if groups else None, bool(inside)))
             return real(xs, *args)
 
         return call
@@ -106,6 +115,7 @@ def record(monkeypatch):
     for name in ("all_gather", "reduce_scatter", "all_reduce", "all_to_all"):
         monkeypatch.setattr(coll, name, spy(name, getattr(coll, name)))
     monkeypatch.setattr(spmd.Lockstep, "over", over_)
+    monkeypatch.setattr(spmd.Lockstep, "forward", forward_)
     layer = spmd.Lockstep.layer
 
     def layer_(self, i, stacks, x, *rest, **kw):
@@ -159,16 +169,18 @@ def test_sequence_not_cut_where_it_does_not_divide(record):
 
 def test_expert_and_data_parallel_pattern(record):
     """qwen3-moe (2 MoE layers), one EP_DP train step: the batch cut four
-    ways, no activation all-reduced (only the aux loss's (E,) sums, over
-    all four positions), the experts' buffers all-to-all'd twice a layer
-    over "data", and the experts' ffn dims gathered over "model"."""
+    ways, no activation all-reduced in the forward pass (only the aux
+    loss's (E,) sums, over all four positions; after it the gradients are
+    all-reduced over their blocks' replicas), the experts' buffers
+    all-to-all'd twice a layer over "data", and the experts' ffn dims
+    gathered over "model"."""
     cell, _ = train_against_one_device("qwen3-moe-30b-a3b", "EP_DP_RULES")
     cfg = ARCHS["qwen3-moe-30b-a3b"].reduced()
     L, d = cfg.n_layers, cfg.d_model
     assert tuple(cell.in_shardings[2]["tokens"].spec) == (("data", "model"),)
     w_gate = spmd.flat(cell.in_shardings[0])[("layers", "moe", "w_gate")]
     assert tuple(w_gate.spec) == (None, "data", None, "model")
-    reduces = [c for c in record["calls"] if c[0] == "all_reduce"]
+    reduces = [c for c in record["calls"] if c[0] == "all_reduce" and c[4]]
     assert reduces and all(len(c[2]) == 1 and c[3] == [[0, 1, 2, 3]] for c in reduces)
     assert _count(record, "all_to_all", DATA_GROUPS, ndim=4) == 2 * L
     assert _count(record, "all_to_all", MODEL_GROUPS) == 0

@@ -5,14 +5,15 @@ Adafactor, microbatches and compressed gradients; qwen3-moe and zamba2
 under SP_RULES and EP_DP_RULES, path 13), one full-width arctic-480b
 layer with its experts spread over four cards, the serving steps'
 logits left on the card of the position that computed them (four cards),
-and attention whose heads do not divide "model" spread over every card
-of its group (four cards);
+attention whose heads do not divide "model" spread over every card
+of its group (four cards), a data-parallel step with microbatches whose
+work and memory every card shares alike (four cards);
 and a sharded prefill that leaves no tensor to Python's cycle collector
 (one card's 2 x 2 slots).
 
 Marked ``cuda``; each test skips inside its body unless the cards it needs
-are present (two; four for arctic, the logits' cards and the spread
-attention; one for the cycle check, whose mesh repeats it; one card
+are present (two; four for arctic, the logits' cards, the spread
+attention and the level step; one for the cycle check, whose mesh repeats it; one card
 repeated as the mesh's slots is otherwise driven by ``chip_smoke.py``'s
 path 11). On a machine with them:
 
@@ -65,6 +66,7 @@ pytestmark = pytest.mark.cuda
 REL, SHARE = 1e-4, 0.999
 RTOL, ATOL, NORM_RTOL, TINY_GRAD = 1e-5, 1e-6, 1e-4, 1e-5
 OFF_SHARE = 1e-4
+LEVEL = 0.05  # the most one card's peak may lie above another's
 FAMILY_DEPTH = {  # layers: two RWKV6 blocks, one zamba2 group, one superblock
     "rwkv6-7b": 2,
     "zamba2-2.7b": 6,
@@ -471,3 +473,48 @@ def test_optimizer_options_across_cards():
         assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
     assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
     assert off <= OFF_SHARE
+
+
+def test_data_parallel_microbatches_level_across_cards():
+    """smollm-135m at full width, 2 layers, one DP_ONLY training step with
+    two microbatches over four cards (4, 1), the batch placed by its
+    sharding: each card's rows of a microbatch are copied from the card
+    that holds them, every gradient is all-reduced with each card adding
+    its chunk, and each replica is updated on its own card. So no card
+    holds the whole batch or does the others' sums: each card's
+    ``max_memory_allocated`` lies within LEVEL of the others', the
+    replicas are bit-equal, and the loss and gradient norm are the
+    one-device step's (run after it, on the first card)."""
+    cards = _cards(4)[:4]
+    mesh = make_mesh((4, 1), ("data", "model"), devices=cards)
+    cfg = _cfg("smollm-135m", 2)
+    ocfg = dataclasses.replace(OCFG, microbatches=2)
+    B, T = 8, 1024
+    gen = torch.Generator().manual_seed(0)
+    batch = {
+        k: torch.randint(0, cfg.vocab_size, (B, T), generator=gen, dtype=torch.int32)
+        for k in ("tokens", "labels")
+    }
+    params = tf.init_params(cfg, seed=0, device="cpu")
+    state = init_opt_state(ocfg, params, device="cpu")
+    cell = build_cell(cfg, ShapeConfig("train", T, B, "train"), mesh, part.DP_ONLY_RULES, ocfg, params=params)
+    placed_state = device_put(state, cell.in_shardings[1])
+    placed_batch = device_put(batch, cell.in_shardings[2])
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+    got_p, _, got = cell.step_fn(cell.args[0], placed_state, placed_batch, 3)
+    peaks = [torch.cuda.max_memory_allocated(card) for card in cards]
+    print("peak bytes a card:", peaks)
+    assert max(peaks) / min(peaks) - 1 <= LEVEL, peaks
+    for path, leaf in flat(got_p).items():
+        for g in leaf.replica_groups():
+            assert all(torch.equal(leaf.local(p).cpu(), leaf.local(g[0]).cpu()) for p in g), path
+    del cell, got_p, placed_state, placed_batch
+    params = params.to(cards[0])
+    state = init_opt_state(ocfg, params, device=cards[0])
+    one = {k: v.to(cards[0]) for k, v in batch.items()}
+    _, _, want = make_train_step(cfg, ocfg)(params, state, one, 3)
+    for key in ("loss", "xent", "aux", "lr"):
+        assert math.isclose(float(got[key]), float(want[key]), rel_tol=RTOL, abs_tol=ATOL), key
+    assert math.isclose(float(got["grad_norm"]), float(want["grad_norm"]), rel_tol=NORM_RTOL)
